@@ -1,0 +1,122 @@
+"""Distribution kit (L0) — the slice's subset of
+``sequential_monte_carlo_tpu/distributions/core.py``.
+
+Each distribution is a frozen dataclass of tensors with
+``sample(generator, sample_shape)``, ``log_prob(x)`` and ``in_support(x)``
+that broadcast over batch shapes, as in the JAX package. Draws come from an
+explicit ``torch.Generator`` on the parameters' device (the counterpart of
+a ``jax.random`` key). Conventions match Distributions.jl: ``Normal``'s
+``scale`` is the standard deviation.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..utils.struct import struct
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+@struct
+class Normal:
+    """Univariate normal N(loc, scale²)."""
+
+    loc: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        eps = torch.randn(shape, generator=generator, device=self.loc.device,
+                          dtype=self.loc.dtype)
+        return self.loc + self.scale * eps
+
+    def log_prob(self, x):
+        z = (x - self.loc) / self.scale
+        return -0.5 * z * z - torch.log(self.scale) - _HALF_LOG_2PI
+
+    def in_support(self, x):
+        return torch.isfinite(x)
+
+
+@struct
+class Uniform:
+    """Uniform on [low, high]."""
+
+    low: torch.Tensor
+    high: torch.Tensor
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.low.shape, self.high.shape)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        u = torch.rand(shape, generator=generator, device=self.low.device,
+                       dtype=self.low.dtype)
+        return self.low + (self.high - self.low) * u
+
+    def log_prob(self, x):
+        return torch.where(self.in_support(x),
+                           -torch.log(self.high - self.low), -math.inf)
+
+    def in_support(self, x):
+        return (x >= self.low) & (x <= self.high)
+
+
+@struct
+class Product:
+    """Independent product over the trailing axis of a batched univariate:
+    event shape (k,), ``log_prob`` sums over the last axis."""
+
+    base: object
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.base.batch_shape[:-1]
+
+    def sample(self, generator, sample_shape=()):
+        return self.base.sample(generator, sample_shape)
+
+    def log_prob(self, x):
+        return torch.sum(self.base.log_prob(x), dim=-1)
+
+    def in_support(self, x):
+        return torch.all(self.base.in_support(x), dim=-1)
+
+
+@struct
+class TupleProduct:
+    """Product over a heterogeneous tuple of univariates: draws stack on a
+    trailing axis of length k, log-densities sum."""
+
+    components: tuple
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(*(c.batch_shape for c in self.components))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        draws = [c.sample(generator, sample_shape).expand(shape)
+                 for c in self.components]
+        return torch.stack(draws, dim=-1)
+
+    def log_prob(self, x):
+        return sum(c.log_prob(x[..., i]) for i, c in enumerate(self.components))
+
+    def in_support(self, x):
+        out = self.components[0].in_support(x[..., 0])
+        for i, c in enumerate(self.components[1:], start=1):
+            out = out & c.in_support(x[..., i])
+        return out
+
+
+def product_distribution(dists) -> TupleProduct:
+    """Distributions.jl-style ``product_distribution([...])``."""
+    return TupleProduct(tuple(dists))

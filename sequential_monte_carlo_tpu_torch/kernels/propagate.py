@@ -1,0 +1,238 @@
+"""Fused propagate + reweight + per-row normalize — kernel 2 of the inner
+filter step.
+
+Counterpart of ``sequential_monte_carlo_tpu/kernels/propagate_pallas.py::
+fused_elementwise_step`` with ``normalize=True`` (no ``carry_logw``). For
+every θ-row m and particle i it draws the model's N(0, 1) normals, applies
+the model's elementwise update (new state planes and the observation
+log-weight), and then normalizes each row:
+
+    lse_m = log Σ_i exp(logw_mi),  log_norm = logw − lse,
+    ess_m = (Σ e)² / Σ e²   with e = exp(logw − max_m).
+
+The kernel is Triton (:func:`_triton_kernels`). What bounds it on the H100:
+memory. It reads the cloud, writes the new cloud and log_norm, and rereads
+and rewrites log_norm: (2S + 3)·4·M·N bytes (19 MB at M=512, N=1024, S=3;
+151 MB at N=8192), about 6 and 45 µs at 3.35 TB/s, so at the smaller size
+launch overhead dominates.
+Design: one program per θ-row loops over N in blocks. Pass 1 draws the
+normals in registers (Philox, ``tl.philox``), runs the update, stores the
+new planes and the raw log-weights, and keeps an online max with rescaled
+Σe and Σe² per lane; pass 2 rewrites log_norm once lse is known, from the
+row's log-weights that pass 1 left in L2. The normals never touch memory.
+
+Draws are keyed by (seed, row_offset + row, particle index) — Philox
+counters (i, row) — so they do not depend on the block size, and a
+θ-sharded run (``row_offset`` = the shard's first global row) draws what an
+unsharded run draws (the property of ``propagate_pallas.py:25-27``).
+
+The model's update is a ``@triton.jit`` function passed to the kernel as a
+``tl.constexpr``, as the JAX builder takes ``update_fn``: further models
+add an update function, not a kernel. An update reads its row's parameters
+and state planes, stores the new planes and returns the log-weights:
+
+    update(par, st, new, n, offs, mask, y, z0, z1, z2, z3) -> logw
+
+with ``par`` the row's P parameters, ``st``/``new`` the row's (S, N) planes,
+and z0..z3 four independent N(0, 1) draws per particle.
+
+:func:`fused_elementwise_step_plain` is the same function in plain PyTorch
+with the normals injected. :func:`fused_elementwise_step` takes it for CPU
+tensors and launches the kernel for CUDA tensors.
+"""
+from __future__ import annotations
+
+import functools
+import os
+import types
+from typing import Callable, NamedTuple
+
+import torch
+
+from . import _build
+
+
+class ElementwiseUpdate(NamedTuple):
+    """A model's per-particle step in the two forms the wrapper runs."""
+
+    plain: Callable  # (params, y, state, normals) -> (new_state, logw)
+    triton: str  # attribute of _triton_kernels() holding the @triton.jit form
+    n_normals: int  # N(0, 1) draws per particle (at most 4)
+
+
+def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
+                                 normals):
+    """Plain version with injected normals.
+
+    Args:
+      params: (M, P) per-θ parameters; row m's become (M, 1) columns.
+      state: (M, S, N) state planes.
+      y: scalar observation (0-d tensor).
+      normals: (n_normals, M, N) standard-normal draws.
+
+    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
+    """
+    par = tuple(params[:, i:i + 1] for i in range(params.shape[1]))
+    planes = tuple(state[:, s] for s in range(state.shape[1]))
+    new, logw = update.plain(par, y, planes, tuple(normals))
+    mx = torch.amax(logw, dim=-1, keepdim=True)
+    e = torch.exp(logw - mx)
+    s = torch.sum(e, dim=-1, keepdim=True)
+    lse = mx + torch.log(s)
+    ess = (s * s) / torch.sum(e * e, dim=-1, keepdim=True)
+    return torch.stack(new, dim=1), logw - lse, lse, ess
+
+
+@functools.lru_cache(maxsize=None)
+def _triton_kernels() -> types.SimpleNamespace:
+    """Import Triton and define the kernel and the update functions.
+
+    Runs at first launch, never at import: hosts without a GPU have no
+    Triton. The jitted functions resolve ``tl`` through this module's
+    globals, which the ``global`` statement binds here. Triton's cache goes
+    to the package's ``_build/`` unless ``TRITON_CACHE_DIR`` is set.
+    """
+    global triton, tl
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def ucsv_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
+        # models/ucsv.py::ucsv_update, op for op
+        ge = tl.load(par)
+        gn = tl.load(par + 1)
+        x = tl.load(st + offs, mask=mask, other=0.0)
+        lse = tl.load(st + n + offs, mask=mask, other=0.0)
+        lsn = tl.load(st + 2 * n + offs, mask=mask, other=0.0)
+        x_new = x + tl.exp(0.5 * lse) * z0
+        lse_new = lse + ge * z1
+        lsn_new = lsn + gn * z2
+        s_inv = tl.exp(-0.5 * lsn_new)
+        zz = (y - x_new) * s_inv
+        logw = -0.5 * zz * zz - 0.5 * lsn_new - 0.9189385332046727  # ½log 2π
+        tl.store(new + offs, x_new, mask=mask)
+        tl.store(new + n + offs, lse_new, mask=mask)
+        tl.store(new + 2 * n + offs, lsn_new, mask=mask)
+        return logw
+
+    @triton.jit
+    def step_kernel(par_ptr, st_ptr, new_ptr, lognorm_ptr, lse_ptr, ess_ptr,
+                    y_ptr, seed_ptr, row_offset, n,
+                    P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
+                    BLOCK: tl.constexpr):
+        row = tl.program_id(0)
+        y = tl.load(y_ptr)
+        seed = tl.load(seed_ptr)
+        grow = (row + row_offset).to(tl.uint32)
+        par = par_ptr + row * P
+        st = st_ptr + row.to(tl.int64) * S * n
+        new = new_ptr + row.to(tl.int64) * S * n
+        ln = lognorm_ptr + row.to(tl.int64) * n
+        neg_inf = float("-inf")
+        m_run = tl.full((BLOCK,), neg_inf, tl.float32)
+        s1 = tl.zeros((BLOCK,), tl.float32)
+        s2 = tl.zeros((BLOCK,), tl.float32)
+        for start in range(0, n, BLOCK):
+            offs = start + tl.arange(0, BLOCK)
+            mask = offs < n
+            c0 = offs.to(tl.uint32)
+            zero = c0 * 0
+            r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero, zero)
+            z0, z1 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r0),
+                                               tl.uint_to_uniform_float(r1))
+            z2, z3 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r2),
+                                               tl.uint_to_uniform_float(r3))
+            logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
+            logw = tl.where(mask, logw, neg_inf)
+            tl.store(ln + offs, logw, mask=mask)
+            m_new = tl.maximum(m_run, logw)
+            alpha = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - m_new))
+            e = tl.where(logw == neg_inf, 0.0, tl.exp(logw - m_new))
+            s1 = s1 * alpha + e
+            s2 = s2 * alpha * alpha + e * e
+            m_run = m_new
+        mx = tl.max(m_run, axis=0)
+        scale = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - mx))
+        t1 = tl.sum(s1 * scale, axis=0)
+        t2 = tl.sum(s2 * scale * scale, axis=0)
+        lse = mx + tl.log(t1)
+        tl.store(lse_ptr + row, lse)
+        tl.store(ess_ptr + row, (t1 * t1) / t2)
+        tl.debug_barrier()  # pass 1's stores are visible to every thread
+        for start in range(0, n, BLOCK):
+            offs = start + tl.arange(0, BLOCK)
+            mask = offs < n
+            lw = tl.load(ln + offs, mask=mask)
+            tl.store(ln + offs, lw - lse, mask=mask)
+
+    return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update,
+                                 next_power_of_2=triton.next_power_of_2)
+
+
+def _check(params, state, y, draws, draws_name, draws_dtype):
+    if state.dim() != 3:
+        raise ValueError(f"state must be (M, S, N), got {tuple(state.shape)}")
+    m = state.shape[0]
+    if params.dim() != 2 or params.shape[0] != m:
+        raise ValueError(f"params must be (M, P) = ({m}, P), got {tuple(params.shape)}")
+    if y.numel() != 1:
+        raise ValueError(f"y must hold one observation, got shape {tuple(y.shape)}")
+    for name, t, dtype in (("params", params, torch.float32),
+                           ("state", state, torch.float32),
+                           ("y", y, torch.float32),
+                           (draws_name, draws, draws_dtype)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != state.device:
+            raise ValueError(f"{name} is on {t.device}, state on {state.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
+                           seed=None, normals=None, row_offset: int = 0):
+    """One fused propagate + reweight + normalize step for all (M, N)
+    particles.
+
+    Args:
+      update: the model's :class:`ElementwiseUpdate`.
+      params: (M, P) f32 per-θ parameters.
+      state: (M, S, N) f32 state planes.
+      y: the observation, a one-element f32 tensor on the state's device.
+      seed: (1,) int64 Philox seed on the device (CUDA tensors).
+      normals: (n_normals, M, N) f32 draws (CPU tensors: the plain version).
+      row_offset: global index of row 0 (θ-sharding), for the draws.
+
+    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
+    CUDA launches are counted in ``fused_elementwise_step.launches``.
+    """
+    if state.device.type == "cpu":
+        if normals is None:
+            raise ValueError("on the CPU the plain version takes injected normals")
+        _check(params, state, y, normals, "normals", torch.float32)
+        if tuple(normals.shape) != (update.n_normals,) + tuple(state.shape[::2]):
+            raise ValueError(f"normals must be (n_normals, M, N), got {tuple(normals.shape)}")
+        return fused_elementwise_step_plain(update, params, state, y, normals)
+    if state.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.device}")
+    if seed is None:
+        raise ValueError("the kernel draws its own normals: pass seed=")
+    _check(params, state, y, seed, "seed", torch.int64)
+    m, s, n = state.shape
+    k = _triton_kernels()
+    new = torch.empty_like(state)
+    log_norm = torch.empty((m, n), device=state.device, dtype=torch.float32)
+    lse = torch.empty((m, 1), device=state.device, dtype=torch.float32)
+    ess = torch.empty((m, 1), device=state.device, dtype=torch.float32)
+    block = min(k.next_power_of_2(n), 1024)
+    with torch.cuda.device(state.device):
+        k.step[(m,)](params, state, new, log_norm, lse, ess, y, seed,
+                     row_offset, n, P=params.shape[1], S=s,
+                     UPDATE=getattr(k, update.triton), BLOCK=block,
+                     num_warps=4)
+    fused_elementwise_step.launches += 1
+    return new, log_norm, lse, ess
+
+
+fused_elementwise_step.launches = 0

@@ -1,0 +1,89 @@
+"""Stock–Watson unobserved-components stochastic-volatility model (L1) —
+counterpart of ``sequential_monte_carlo_tpu/models/ucsv.py``.
+
+3-dim state s = (x, log σε, log ση):
+
+  x_t      ~ N(x_{t-1},      exp(½ log σε,t-1))
+  logσε,t  ~ N(log σε,t-1,   γε)
+  logση,t  ~ N(log ση,t-1,   γη)
+  y_t      ~ N(x_t,          exp(½ log ση,t))
+
+A model's fields are tensors of one shape: scalars for one θ, (M,) for the
+θ-cloud (``ucsv_model`` of an (M, 4) θ). The propagate + reweight step runs
+through the fused kernel (``kernels/propagate.py``) with :func:`ucsv_update`
+as its per-particle math.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..distributions import Normal, TupleProduct
+from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
+from ..utils.struct import struct
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def ucsv_update(par, y, state, normals):
+    """Per-particle UC-SV step ≡ JAX ``_ucsv_update``: ``par`` = (γε, γη)
+    as (M, 1) columns, ``state`` and ``normals`` three (M, N) planes each.
+    Returns (new state planes, observation log-weights)."""
+    ge, gn = par
+    x, lse, lsn = state
+    z0, z1, z2 = normals
+    x_new = x + torch.exp(0.5 * lse) * z0
+    lse_new = lse + ge * z1
+    lsn_new = lsn + gn * z2
+    s_inv = torch.exp(-0.5 * lsn_new)
+    zz = (y - x_new) * s_inv
+    logw = -0.5 * zz * zz - 0.5 * lsn_new - _HALF_LOG_2PI
+    return (x_new, lse_new, lsn_new), logw
+
+
+UCSV_UPDATE = ElementwiseUpdate(plain=ucsv_update, triton="ucsv", n_normals=3)
+
+
+@struct
+class UCSVModel:
+    gamma_eps: torch.Tensor  # vol-of-vol of the trend-noise log-variance (std)
+    gamma_eta: torch.Tensor  # vol-of-vol of the obs-noise log-variance (std)
+    x0: torch.Tensor  # initial trend level
+    log_sigma_eps0: torch.Tensor  # initial log σε
+    log_sigma_eta0: torch.Tensor  # initial log ση
+
+    update = UCSV_UPDATE
+
+    def initial_distribution(self):
+        return TupleProduct((
+            Normal(self.x0, torch.exp(0.5 * self.log_sigma_eps0)),
+            Normal(self.log_sigma_eps0, self.gamma_eps),
+            Normal(self.log_sigma_eta0, self.gamma_eta),
+        ))
+
+    def observation_distribution(self, s):
+        return Normal(s[..., 0], torch.exp(0.5 * s[..., 2]))
+
+    def fused_propagate_reweight(self, y, cloud, seed=None, normals=None):
+        """Propagate + reweight + normalize the θ-cloud's (M, 3, N) planar
+        cloud through kernel 2. Returns (new cloud, log_norm (M, N),
+        lse (M, 1), ess (M, 1))."""
+        m = cloud.shape[0]
+        params = torch.stack(
+            [self.gamma_eps.expand(m), self.gamma_eta.expand(m)], dim=1
+        )
+        return fused_elementwise_step(self.update, params, cloud, y,
+                                      seed=seed, normals=normals)
+
+
+def ucsv_model(theta: torch.Tensor) -> UCSVModel:
+    """θ ↦ UCSV with θ = (γ, x0, log σε0, log ση0) on the last axis and a
+    shared vol-of-vol γ (the inflation example's 4-parameter model)."""
+    return UCSVModel(
+        gamma_eps=theta[..., 0],
+        gamma_eta=theta[..., 0],
+        x0=theta[..., 1],
+        log_sigma_eps0=theta[..., 2],
+        log_sigma_eta0=theta[..., 3],
+    )
