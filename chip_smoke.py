@@ -4,20 +4,40 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and exits non-zero:
-  1. device — a CUDA device is required (no CPU fallback); prints the card's
+Phases, one line each or more; any failure raises and exits non-zero:
+  1. device  — a CUDA device is required (no CPU fallback); prints the card's
      name and power limit as nvidia-smi reports them;
-  2. build  — compiles the CUDA kernels from the package's csrc/ with nvcc;
-  3. K1     — the resample + gather kernel against its plain version at
-     512×1024 and 512×8192 (C=3) under flat, skewed and point-mass weights;
-  4. K2     — the fused propagate + reweight + normalize kernel against its
-     plain version at the same shapes, and its normals' statistics;
-  5. slice  — online SMC² on UC-SV at the benchmark's configuration
+  2. build   — compiles the CUDA kernels from the package's csrc/ with nvcc;
+  3. K1      — the systematic resample + gather kernel against its plain
+     version at 512×1024 and 512×8192 (C=3) under flat, skewed and
+     point-mass weights;
+  4. K2      — the fused propagate + reweight + normalize kernel, UC-SV
+     instance, against its plain version at the same shapes, and the
+     moments of the normals recovered from its state deltas;
+  5. K3      — the sorted-grid resample + gather kernel against its plain
+     version on stratified grids at 512×1024 (C=1), 512×8192 (C=3) and
+     512×1000 (C=1, a shape the TPU walk cannot tile), flat, skewed and
+     point-mass weights;
+  6. K2 instances — LG dx=1, LG dx=1 with carried log-weights, LG dx=2 (a
+     model with a non-singular Q, so that the normals can be recovered) and
+     SV against the plain version at 512×1024 and 512×8192, and the moments
+     of each instance's recovered normals;
+  7. slice   — online SMC² on UC-SV at the benchmark's configuration
      (M=512, N=1024, T=241, chain=5), whose launch counts show that every
      inner filter step ran both kernels, and whose posterior mean is held
-     against the JAX package's; then the 512×8192 run, timed once.
-The line before the last carries the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
+     against the JAX package's; then the 512×8192 run, timed once;
+  8. dt      — density-tempered SMC on the LG model at BASELINE config 4
+     (M=512, N=1024, T=100, chain=3), (a) systematic inner filter at every
+     step (K1 + K2-LG), (b) stratified inner filter triggered at ESS < N/2
+     (K3 + K2-LG with carry): launch counts, and posterior means held
+     against the JAX package's;
+  9. filters — 512 parallel filters (BASELINE config 3): LG at θ* (K1 +
+     K2-LG) and Hodrick–Prescott (K3 + K2-LG dx=2), whose log Z is held
+     against the Kalman filter's, and SV (K1 + K2-SV), whose log Z is held
+     against a point-mass grid filter's.
+The line before the last but one is the kernels' JSON line, the line before
+the last the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -46,6 +66,40 @@ TOL_Z = 5.0
 PRIOR_SPEC = [("uniform", 0.0, 1.0), ("normal", 3.0, 2.0),
               ("uniform", 0.0, 2.0), ("uniform", 0.0, 2.0)]  # bench.py:105-112
 
+# Density-tempered SMC on the univariate LG model at BASELINE config 4
+# (benchmarks/run_benchmarks.py:128-153): M=512, N=1024, T=100, chain=3.
+DT_T, DT_CHAIN, DT_M, DT_N = 100, 3, 512, 1024
+LG_THETA = (0.5, 0.9, 0.8)  # θ* = (A, Q, R), the reference README's
+LG_PRIOR_SPEC = [("truncated_normal", 0.0, 1.0, -1.0, 1.0), ("lognormal", 0.0, 1.0),
+                 ("lognormal", 0.0, 1.0)]  # run_benchmarks.py:42-50
+# Posterior mean of θ = (A, Q, R) from the JAX package at this configuration
+# (inner filter systematic at every step, same prior and series), on the CPU,
+# over seeds jax.random.key(0..7): the mean of the 8 runs' means and their
+# standard deviation (tools/jax_reference.py).
+DT_JAX_MEAN = [0.535525, 0.996489, 0.535857]
+DT_JAX_SD = [0.012255, 0.036463, 0.032133]
+
+# A sleep kernel of this many cycles (about 50 ms on an H100) holds the
+# device while time_ms queues the calls it times.
+SLEEP_CYCLES = 100_000_000
+
+# Card peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W): HBM
+# bytes/s and f32 operations/s outside the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+
+
+def lg_series(t: int = DT_T) -> np.ndarray:
+    """The LG series at θ*, made with numpy from default_rng(1998):
+    x₁ ~ N(0, 1), x_t = A x_{t−1} + N(0, Q), y_t = x_t + N(0, R)."""
+    a, q, r = LG_THETA
+    rng = np.random.default_rng(1998)
+    x, y = rng.normal(0.0, 1.0), np.empty(t)
+    for i in range(t):
+        if i:
+            x = a * x + rng.normal(0.0, math.sqrt(q))
+        y[i] = x + rng.normal(0.0, math.sqrt(r))
+    return y.astype(np.float32)
+
 
 def say(phase: str, **fields) -> None:
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in fields.items()),
@@ -60,16 +114,28 @@ def series(torch, device):
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device time per call over ``iters`` calls, after one warm call."""
+    """Mean device time per call over ``iters`` calls, after one warm call.
+
+    The calls are queued behind a sleep kernel long enough for the host to
+    issue them all, so they run back to back on the device and the host's
+    cost of issuing them (Python, the launchers) does not enter: at 512×1024
+    that cost is larger than the kernels' (PERF.md §5). Fails if the host
+    did not finish issuing before the device reached the first call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    issued_ms = 1e3 * (time.perf_counter() - t0)
+    started = start.query()  # the sleep must still be running
     end.synchronize()
+    if started:
+        raise AssertionError(f"time_ms: issuing took {issued_ms:.1f} ms, longer than the sleep")
     return start.elapsed_time(end) / iters
 
 
@@ -116,6 +182,25 @@ def check_k1(torch, shapes, gen):
     return out
 
 
+def check_normals(torch, label: str, z) -> dict:
+    """Fail unless the normals ``z`` (K, ...) a kernel drew, recovered from
+    its state deltas, look standard and independent over their ≥ 5·10⁵
+    draws each: |mean| < 5e-3, |var − 1| < 1e-2 and |corr| < 5e-3 (about
+    3.5, 5 and 3.5 standard errors). A kernel that scales or mixes its
+    draws wrongly in the update (Fᵀ in place of F, σ² in place of σ) gives
+    recovered normals of another covariance."""
+    flat = z.reshape(z.shape[0], -1).double()
+    mean = flat.mean(1).abs().max().item()
+    var = (flat.var(1) - 1.0).abs().max().item()
+    rho = 0.0
+    if flat.shape[0] > 1:
+        corr = torch.corrcoef(flat)
+        rho = (corr - torch.diag(torch.diag(corr))).abs().max().item()
+    if not (mean < 5e-3 and var < 1e-2 and rho < 5e-3):
+        raise AssertionError(f"{label}: normals off: |mean| {mean}, |var-1| {var}, |corr| {rho}")
+    return {"normals_abs_mean": mean, "normals_abs_var_dev": var, "normals_abs_corr": rho}
+
+
 def check_k2(torch, shapes, gen):
     from sequential_monte_carlo_tpu_torch.kernels.propagate import (
         fused_elementwise_step,
@@ -159,15 +244,8 @@ def check_k2(torch, shapes, gen):
             torch.testing.assert_close(got, want, **tol)
         err = max((new - ref[0]).abs().max().item(), (log_norm - ref[1]).abs().max().item())
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        flat = z.reshape(3, -1).double()
-        mean = flat.mean(1).abs().max().item()
-        var = (flat.var(1) - 1.0).abs().max().item()
-        corr = torch.corrcoef(flat)
-        rho = (corr - torch.diag(torch.diag(corr))).abs().max().item()
-        if not (mean < 5e-3 and var < 1e-2 and rho < 5e-3):
-            raise AssertionError(f"K2 {m}x{n}: normals off: |mean| {mean}, |var-1| {var}, |corr| {rho}")
-        say("K2", shape=f"{m}x{n}", max_abs_err=err, normals_abs_mean=mean,
-            normals_abs_var_dev=var, normals_abs_corr=rho)
+        say("K2", shape=f"{m}x{n}", max_abs_err=err,
+            **check_normals(torch, f"K2 {m}x{n}", z))
 
         def plain():
             zz = torch.randn((3, m, n), generator=gen, device="cuda")
@@ -178,6 +256,168 @@ def check_k2(torch, shapes, gen):
             time_ms(torch, plain),
         )
         say("K2", shape=f"{m}x{n}", ms=out[f"{m}x{n}"][0], plain_ms=out[f"{m}x{n}"][1])
+    return out
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least time in ms, what bounds it): the bytes a call must move over
+    the card's memory rate, or its f32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def resample_cost(m: int, n: int, c: int, grid: bool):
+    """Bytes and operations of one resample + gather call: weights and the
+    cloud read, the cloud written, and the grid u read (K3) or the offsets
+    u0 (K1); per slot a scan step, a divide and a log2(N)-step search."""
+    nbytes = 4 * m * n * (2 * c + 1 + (1 if grid else 0)) + (0 if grid else 4 * m)
+    return nbytes, m * n * (math.log2(n) + 3)
+
+
+# Operations per particle of the propagate kernel: Philox (10 rounds of
+# about 6 integer operations for 4 draws), Box–Muller (log, sqrt, sin, cos,
+# about 20), the model update and observation density (about 15) and the
+# normalize (about 10). An estimate; the kernel is bound by bytes.
+K2_OPS_PER_PARTICLE = 105
+
+
+def propagate_cost(m: int, n: int, s: int, p: int, carry: bool):
+    """Bytes and operations of one fused propagate call: the cloud (S planes)
+    and the carry read, the new cloud and log_norm written, (M, P)
+    parameters read and lse, ess written."""
+    nbytes = 4 * m * n * (2 * s + 1 + (1 if carry else 0)) + 4 * m * (p + 2)
+    return nbytes, m * n * K2_OPS_PER_PARTICLE
+
+
+def check_k3(torch, shapes, gen):
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+        stratified_uniforms,
+    )
+
+    out = {"max_abs_err": 0.0, "anc_mismatch": 0.0}
+    for m, n, c in shapes:
+        xs = torch.randn((m, c, n), generator=gen, device="cuda")
+        u = stratified_uniforms(gen, m, n, device="cuda")
+        point = torch.zeros((m, n), device="cuda")
+        point[torch.arange(m, device="cuda"),
+              torch.randint(0, n, (m,), generator=gen, device="cuda")] = 1.0
+        profiles = {
+            "flat": torch.ones((m, n), device="cuda"),
+            "skewed": torch.softmax(2.0 * torch.randn((m, n), generator=gen, device="cuda"), -1),
+            "point": point,
+        }
+        for name, w in profiles.items():
+            got, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+            ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+            torch.cuda.synchronize()
+            agree = anc == anc_ref
+            frac = 1.0 - agree.float().mean().item()
+            if frac > 1e-3:
+                raise AssertionError(f"K3 {m}x{n} {name}: ancestors differ on {frac:.2e} of slots")
+            idx = anc.long()[:, None, :].expand(xs.shape)
+            if not torch.equal(got, torch.gather(xs, 2, idx)):
+                raise AssertionError(f"K3 {m}x{n} {name}: output != xs gathered by its ancestors")
+            if not (torch.all((anc >= 0) & (anc < n)) and torch.all(anc[:, 1:] >= anc[:, :-1])):
+                raise AssertionError(f"K3 {m}x{n} {name}: ancestors out of range or unsorted")
+            err = (got - ref).abs()[agree[:, None, :].expand(xs.shape)].max().item()
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["anc_mismatch"] = max(out["anc_mismatch"], frac)
+            say("K3", shape=f"{m}x{n}", c=c, weights=name, anc_mismatch=f"{frac:.2e}",
+                max_abs_err_on_agreeing=err)
+        w = profiles["skewed"]
+        out[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
+                           time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
+                           *bound_ms(*resample_cost(m, n, c, grid=True)))
+        say("K3", shape=f"{m}x{n}", c=c, ms=out[f"{m}x{n}"][0], plain_ms=out[f"{m}x{n}"][1],
+            bound_ms=out[f"{m}x{n}"][2])
+    return out
+
+
+def _lg_cloud(torch, smc, m: int, dx: int):
+    """A θ-cloud LG model of m rows for the kernel checks: the LG at θ*
+    (dx = 1), or a two-dimensional one with a non-singular Q, so that the
+    kernel's normals can be recovered from the state deltas (dx = 2; the
+    filters phase runs Hodrick–Prescott, whose Q is singular)."""
+    if dx == 1:
+        return smc.lg_model(torch.tensor(LG_THETA, device="cuda").expand(m, 3))
+    one = smc.multivariate_linear_gaussian(A=[[0.9, 0.1], [0.0, 0.8]], B=[1.0, 0.5],
+                                           Q=[[0.5, 0.1], [0.1, 0.3]], R=0.8)
+    return _broadcast_model(torch, one, m)
+
+
+def _broadcast_model(torch, model, m: int):
+    """One LG model's fields broadcast to a θ-cloud of m rows."""
+    from sequential_monte_carlo_tpu_torch.models.linear_gaussian import LinearGaussianModel
+
+    return LinearGaussianModel(**{k: getattr(model, k).to("cuda").expand(
+        (m,) + tuple(getattr(model, k).shape)).contiguous()
+        for k in ("A", "B", "Q", "R", "x0", "sigma0")})
+
+
+def _recover_normals(torch, name, params, state, new):
+    """The normals the kernel drew, from its state deltas."""
+    m = params.shape[0]
+    if name.startswith("sv"):
+        mu, phi, sig = (params[:, i:i + 1] for i in range(3))
+        return ((new[:, 0] - mu - phi * (state[:, 0] - mu)) / sig)[None]
+    dx = int(name[2])
+    a = params[:, :dx * dx].reshape(m, dx, dx)
+    f = params[:, dx * dx:2 * dx * dx].reshape(m, dx, dx)
+    return torch.linalg.solve(f, new - a @ state).transpose(0, 1)
+
+
+def check_k2_instances(torch, shapes, gen):
+    """K2's LG and SV instances and the carry route against the plain
+    version, fed the normals recovered from the kernel's state deltas, and
+    those normals' moments (the plain version, given them, reproduces the
+    kernel whatever its update does; the moments show the update right)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+        fused_elementwise_step,
+        fused_elementwise_step_plain,
+    )
+
+    out = {}
+    y = torch.tensor(0.6, device="cuda")
+    for name in ("lg1", "lg1_carry", "lg2", "sv"):
+        res = out[name] = {"max_abs_err": 0.0}
+        for m, n in shapes:
+            if name == "sv":
+                model = smc.sv_model(torch.tensor([-1.0, 0.95, 0.3], device="cuda").expand(m, 3))
+            else:
+                model = _lg_cloud(torch, smc, m, int(name[2]))
+            update, params = model.update, model.fused_params()
+            state = torch.randn((m, update.n_normals, n), generator=gen, device="cuda")
+            carry = None
+            if name.endswith("_carry"):
+                carry = torch.log_softmax(3.0 * torch.randn((m, n), generator=gen, device="cuda"), -1)
+                carry[1] = -60.0  # a row carrying very negative log-weights
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+            got = fused_elementwise_step(update, params, state, y, seed=seed, carry_logw=carry)
+            z = _recover_normals(torch, name, params, state, got[0])
+            ref = fused_elementwise_step_plain(update, params, state, y, z, carry)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            if not torch.all(torch.isfinite(got[2])):
+                raise AssertionError(f"K2 {name} {m}x{n}: lse not finite")
+            err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            moments = check_normals(torch, f"K2 {name} {m}x{n}", z)
+
+            def plain():
+                zz = torch.randn((update.n_normals, m, n), generator=gen, device="cuda")
+                return fused_elementwise_step_plain(update, params, state, y, zz, carry)
+
+            res[f"{m}x{n}"] = (
+                time_ms(torch, lambda: fused_elementwise_step(update, params, state, y, seed=seed,
+                                                              carry_logw=carry)),
+                time_ms(torch, plain),
+                *bound_ms(*propagate_cost(m, n, update.n_normals, params.shape[1],
+                                          carry is not None)))
+            say("K2", instance=name, shape=f"{m}x{n}", max_abs_err=err, ms=res[f"{m}x{n}"][0],
+                plain_ms=res[f"{m}x{n}"][1], bound_ms=res[f"{m}x{n}"][2], **moments)
     return out
 
 
@@ -198,6 +438,211 @@ def run_slice(torch, n: int, seed: int):
     return state, infos, time.perf_counter() - t0
 
 
+def launch_counts():
+    """Every kernel's launch count: K1, K3, and K2 per instance."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import resample_gather_sorted
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import resample_gather
+
+    counts = {"resample_count": resample_gather.launches,
+              "resample_sorted": resample_gather_sorted.launches}
+    for inst in ("ucsv", "lg1", "lg1_carry", "lg2", "lg2_carry", "sv", "sv_carry"):
+        counts[f"fused_propagate_{inst}"] = fused_elementwise_step.instance_launches[inst]
+    return counts
+
+
+def reset_counts():
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import resample_gather_sorted
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import resample_gather
+
+    resample_gather.launches = 0
+    resample_gather_sorted.launches = 0
+    fused_elementwise_step.instance_launches.clear()
+
+
+def expect_counts(phase: str, counts, expected):
+    """Fail unless the run launched exactly the expected kernels."""
+    want = {k: expected.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+
+
+def run_dt(torch, inner, seed: int):
+    """Density-tempered SMC on LG at config 4, through the public entry
+    points. Returns (state, trace, wall-clock s, launch counts)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    prior = prior_from_spec(LG_PRIOR_SPEC, device="cuda")
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5,
+                        inner=smc.PFConfig(*inner))
+    sampler = smc.SMC2(smc.lg_model, prior, cfg)
+    y = torch.tensor(lg_series(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, trace = smc.density_tempered(sampler, gen, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, trace, wall, launch_counts()
+
+
+def check_dt(torch, label, inner, k_resample, k_propagate):
+    """One checked run (seed 0), then a warm run of seed 1, timed."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    state, trace, wall, counts = run_dt(torch, inner, SEED)
+    moves = sum(stage.xi < 1.0 for stage in trace)
+    expected = (DT_T - 1) * (1 + DT_CHAIN * moves)
+    expect_counts(f"dt ({label})", counts, {k_resample: expected, k_propagate: expected})
+    mean = smc.expected_parameters(state).cpu().numpy()
+    tol = TOL_Z * np.asarray(DT_JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    if not np.all(np.abs(mean - np.asarray(DT_JAX_MEAN)) <= tol):
+        raise AssertionError(f"dt ({label}): posterior mean {mean} vs JAX {DT_JAX_MEAN} beyond {tol}")
+    say("dt", run=label, inner=list(inner), shape=f"{DT_M}x{DT_N}", T=DT_T, chain=DT_CHAIN,
+        wall_s=round(wall, 4), schedule=[round(s.xi, 5) for s in trace], rejuvenations=moves,
+        launches=expected, posterior_mean=np.round(mean, 5).tolist(), jax_mean=DT_JAX_MEAN,
+        tolerance=np.round(tol, 5).tolist())
+    _, trace, wall2, _ = run_dt(torch, inner, SEED + 1)
+    say("dt", run=label, seed=SEED + 1, warm_wall_s=round(wall2, 4), stages=len(trace))
+    return counts
+
+
+def kalman_is_oracle(torch):
+    """The posterior mean by importance sampling from the prior, weighted
+    by the exact Kalman likelihood (for information)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    prior = prior_from_spec(LG_PRIOR_SPEC, device="cuda")
+    theta = prior.sample(torch.Generator(device="cuda").manual_seed(77), (200_000,))
+    _, lz = smc.kalman_log_likelihood(smc.lg_model(theta), torch.tensor(lg_series(), device="cuda"))
+    w = torch.softmax(lz.double(), 0)
+    return (w @ theta.double()).cpu().numpy(), (1.0 / torch.sum(w * w)).item()
+
+
+def run_filters(torch, models, y, inner, seed: int):
+    """512 parallel filters through ``batched_log_likelihood``, after a
+    warm-up run: (log Z, wall-clock s, launch counts) of the second run."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(seed + 100), models,
+                               DT_N, DT_M, y, smc.PFConfig(*inner))  # warm-up, not counted
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, log_w, log_z = smc.batched_log_likelihood(gen, models, DT_N, DT_M, y, smc.PFConfig(*inner))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not (torch.all(torch.isfinite(log_z))
+            and torch.allclose(torch.logsumexp(log_w, 1), torch.zeros(DT_M, device="cuda"),
+                               atol=1e-4)):
+        raise AssertionError("filters: log Z not finite or weights not normalized")
+    return log_z.double(), wall, launch_counts()
+
+
+def sv_grid_log_z(ys, mu: float, phi: float, sigma: float, points: int = 2001) -> float:
+    """log Z of the series ``ys`` under the SV model, by a point-mass filter
+    in f64 on a grid of ±10 stationary sd around mu: x₁ from the stationary
+    law, then per step predict through the Gaussian transition matrix and
+    weight by N(y; 0, exp(x)). Independent of the port. At (−1, 0.95, 0.3)
+    the grid step is a 30th of the innovation sd, and 4001 points give the
+    same log Z to 1e-8 (tests/test_torch_density_tempered.py)."""
+    sd0 = sigma / math.sqrt(1.0 - phi**2)
+    x = np.linspace(mu - 10.0 * sd0, mu + 10.0 * sd0, points)
+    h = x[1] - x[0]
+
+    def pdf(v, loc, scale):
+        return np.exp(-0.5 * ((v - loc) / scale) ** 2) / (scale * math.sqrt(2.0 * math.pi))
+
+    p = pdf(x, mu, sd0) * h
+    kernel = pdf(x[None, :], mu + phi * (x[:, None] - mu), sigma) * h  # [from, to]
+    log_z = 0.0
+    for t, y in enumerate(np.asarray(ys, dtype=np.float64)):
+        if t:
+            p = p @ kernel
+        q = p * pdf(y, 0.0, np.exp(0.5 * x))
+        s = q.sum()
+        log_z += math.log(s)
+        p = q / s
+    return log_z
+
+
+def sv_series(mu: float, phi: float, sigma: float, t: int = DT_T) -> np.ndarray:
+    """An SV series drawn with numpy from default_rng(1), x₁ stationary."""
+    rng = np.random.default_rng(1)
+    x, ys = rng.normal(mu, sigma / math.sqrt(1 - phi**2)), np.empty(t)
+    for i in range(t):
+        if i:
+            x = mu + phi * (x - mu) + rng.normal(0.0, sigma)
+        ys[i] = rng.normal(0.0, math.exp(0.5 * x))
+    return ys.astype(np.float32)
+
+
+def check_delta(model: str, lz, kz: float, wall: float, steps: int) -> None:
+    """Hold the rows' PF log Z against the exact log Z of the filter's
+    target: E[Ẑ] = Z gives mean + var/2 ≈ log Z (delta method), within 5
+    standard errors of that estimate from the rows' mean and variance."""
+    mean, var = lz.mean().item(), lz.var().item()
+    se = math.sqrt(var / DT_M + var**2 / (2 * (DT_M - 1)))
+    if abs(mean + var / 2 - kz) > 5 * se:
+        raise AssertionError(f"filters ({model}): mean {mean} + var/2 {var / 2} vs exact {kz}"
+                             f" beyond 5·{se}")
+    say("filters", model=model, rows=DT_M, n=DT_N, T=DT_T, wall_s=round(wall, 4),
+        logz_mean=round(mean, 5), logz_var=round(var, 5), exact_logz=round(kz, 5),
+        delta=round(mean + var / 2 - kz, 5), five_se=round(5 * se, 5), launches=steps)
+
+
+def check_filters(torch):
+    """BASELINE config 3 (512 parallel LG filters at θ*) and Hodrick–Prescott
+    (the sorted-grid kernel and K2's dx = 2 instance) against the Kalman
+    filter; SV filters (K2's SV instance) against the grid filter. Returns
+    the launch counts of the runs."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    y = torch.tensor(lg_series(), device="cuda")
+    steps = DT_T - 1
+    # LG at θ*, systematic at every step (run_benchmarks.py:109-126). The
+    # Kalman filter predicts x₁ from (x0, Σ0) while the particle filter
+    # draws x₁ ~ N(x0, Σ0): the filter's own target is the Kalman log Z
+    # from Σ0' = (Σ0 − Q)/A², whose prediction is N(0, 1).
+    lz, wall, total = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y, ("systematic", 1.0), 3)
+    expect_counts("filters (lg)", total, {"resample_count": steps, "fused_propagate_lg1": steps})
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    check_delta("lg", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps)
+
+    # Hodrick–Prescott (λ = 1600, singular Q) on the same series, stratified;
+    # its target likewise, from x0' = A⁻¹x0 and Σ0' = A⁻¹(Σ0 − Q)A⁻ᵀ. The
+    # initial covariance is 1·I, not the diffuse 1000·I that suits the
+    # Kalman filter: from that, a bootstrap filter of 1024 particles
+    # collapses in its first two weightings, and its log Z is no estimate.
+    hp = smc.hodrick_prescott(1600.0, y, init_cov=1.0)
+    lz, wall, counts = run_filters(torch, _broadcast_model(torch, hp, DT_M), y,
+                                   ("stratified", 1.0), 4)
+    expect_counts("filters (hp)", counts, {"resample_sorted": steps, "fused_propagate_lg2": steps})
+    total = {k: v + counts[k] for k, v in total.items()}
+    a_inv = torch.linalg.inv(hp.A)
+    target = smc.multivariate_linear_gaussian(hp.A, hp.B, hp.Q, hp.R, X0=a_inv @ hp.x0,
+                                              Sigma0=a_inv @ (hp.sigma0 - hp.Q) @ a_inv.T)
+    check_delta("hp", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps)
+
+    # SV at (mu, phi, sigma) = (−1, 0.95, 0.3) on a series drawn from it;
+    # x₁ is drawn from the stationary law, so the grid filter's target is
+    # the filter's own
+    mu, phi, sig = -1.0, 0.95, 0.3
+    ys = sv_series(mu, phi, sig)
+    sv = smc.sv_model(torch.tensor([mu, phi, sig], device="cuda").expand(DT_M, 3))
+    lz, wall, counts = run_filters(torch, sv, torch.tensor(ys, device="cuda"),
+                                   ("systematic", 1.0), 5)
+    expect_counts("filters (sv)", counts, {"resample_count": steps, "fused_propagate_sv": steps})
+    check_delta("sv", lz, sv_grid_log_z(ys, mu, phi, sig), wall, steps)
+    return {k: v + counts[k] for k, v in total.items()}
+
+
 def main() -> int:
     import torch
 
@@ -216,31 +661,30 @@ def main() -> int:
 
     # -- 2. build
     from sequential_monte_carlo_tpu_torch.kernels import _build
-    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
-    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import resample_gather
 
     t0 = time.perf_counter()
     _build.library()
     say("build", seconds=round(time.perf_counter() - t0, 3), library=_build.library_path().name)
 
-    # -- 3, 4. kernels against their plain versions
+    # -- 3 to 6. kernels against their plain versions
     shapes = [(512, 1024), (512, 8192)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
     k1 = check_k1(torch, shapes, gen)
     k2 = check_k2(torch, shapes, gen)
+    k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1)], gen)
+    k2i = check_k2_instances(torch, shapes, gen)
 
-    # -- 5. the slice, through the public entry points
-    resample_gather.launches = 0
-    fused_elementwise_step.launches = 0
+    # -- 7. the UC-SV slice, through the public entry points
+    reset_counts()
     state, infos, wall = run_slice(torch, 1024, SEED)
-    launches = (resample_gather.launches, fused_elementwise_step.launches)
+    slice_counts = launch_counts()
     rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
     expected = (T - 1) + sum(CHAIN * (t - 1) for t in rejuv_t)
     ess = state.ess.item()
     if not math.isfinite(ess):
         raise AssertionError(f"slice: θ-ESS is {ess}")
-    if launches != (expected, expected):
-        raise AssertionError(f"slice: launches {launches}, expected {expected} each")
+    expect_counts("slice", slice_counts, {"resample_count": expected,
+                                          "fused_propagate_ucsv": expected})
     import sequential_monte_carlo_tpu_torch as smc
 
     mean = smc.expected_parameters(state).cpu().numpy()
@@ -248,7 +692,7 @@ def main() -> int:
     if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
         raise AssertionError(f"slice: posterior mean {mean} vs JAX {JAX_MEAN} beyond {tol}")
     say("slice", shape="512x1024", T=T, chain=CHAIN, wall_s=round(wall, 4),
-        rejuvenations=len(rejuv_t), rejuv_t=rejuv_t, launches=launches[0],
+        rejuvenations=len(rejuv_t), rejuv_t=rejuv_t, launches=expected,
         ess=round(ess, 3), posterior_mean=np.round(mean, 5).tolist(),
         jax_mean=JAX_MEAN, tolerance=np.round(tol, 5).tolist())
     _, _, wall2 = run_slice(torch, 1024, SEED + 1)
@@ -261,20 +705,52 @@ def main() -> int:
         rejuvenations=int(finfos.rejuvenated.sum()), ess=round(fess, 3),
         posterior_mean=np.round(smc.expected_parameters(fstate).cpu().numpy(), 5).tolist())
 
+    # -- 8. density-tempered SMC on LG, two inner filters
+    dt_counts = check_dt(torch, "a", ("systematic", 1.0), "resample_count", "fused_propagate_lg1")
+    counts_b = check_dt(torch, "b", ("stratified", 0.5), "resample_sorted",
+                        "fused_propagate_lg1_carry")
+    dt_counts = {k: v + counts_b[k] for k, v in dt_counts.items()}
+    oracle, oracle_ess = kalman_is_oracle(torch)
+    say("dt", kalman_prior_is_mean=np.round(oracle, 5).tolist(), is_ess=round(oracle_ess, 1))
+
+    # -- 9. parallel filters
+    filter_counts = check_filters(torch)
+
+    # launches of each kernel over the main paths (slice, dt, filters), each
+    # read just after its run
+    launches = {k: slice_counts[k] + dt_counts[k] + filter_counts[k] for k in slice_counts}
+    for name, n in launches.items():
+        if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry") and n == 0:
+            raise AssertionError(f"kernel {name} was not launched on any path")
+
+    def entry(name, route, source, replaces, res, key="512x1024"):
+        ms, plain_ms, b_ms, b_by = res[key]
+        e = {"name": name, "route": route, "source": source, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        for other, val in res.items():
+            if other not in (key, "max_abs_err", "anc_mismatch"):
+                e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"] = val[:3]
+        return e
+
+    pkg = "sequential_monte_carlo_tpu_torch"
+    propagate = "sequential_monte_carlo_tpu/kernels/propagate_pallas.py:48"
+    k1["512x1024"] += bound_ms(*resample_cost(512, 1024, 3, grid=False))
+    k1["512x8192"] += bound_ms(*resample_cost(512, 8192, 3, grid=False))
+    for shape, (m, n) in (("512x1024", (512, 1024)), ("512x8192", (512, 8192))):
+        k2[shape] += bound_ms(*propagate_cost(m, n, 3, 2, False))
     kernels = [
-        {"name": "resample_count", "route": "cuda",
-         "source": "sequential_monte_carlo_tpu_torch/csrc/resample_count.cu",
-         "replaces": "sequential_monte_carlo_tpu/kernels/resample_walk.py:258",
-         "launches": launches[0], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["512x1024"][0], "plain_ms": k1["512x1024"][1],
-         "ms_512x8192": k1["512x8192"][0], "plain_ms_512x8192": k1["512x8192"][1]},
-        {"name": "fused_propagate_ucsv", "route": "triton",
-         "source": "sequential_monte_carlo_tpu_torch/kernels/propagate.py",
-         "replaces": "sequential_monte_carlo_tpu/kernels/propagate_pallas.py:48",
-         "launches": launches[1], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["512x1024"][0], "plain_ms": k2["512x1024"][1],
-         "ms_512x8192": k2["512x8192"][0], "plain_ms_512x8192": k2["512x8192"][1]},
+        entry("resample_count", "cuda", f"{pkg}/csrc/resample_count.cu",
+              "sequential_monte_carlo_tpu/kernels/resample_walk.py:258", k1),
+        entry("resample_sorted", "cuda", f"{pkg}/csrc/resample_sorted.cu",
+              "sequential_monte_carlo_tpu/kernels/resample_walk.py:125; "
+              "sequential_monte_carlo_tpu/kernels/resample_pallas.py:74; "
+              "sequential_monte_carlo_tpu/kernels/resample_pallas.py:180", k3),
+        entry("fused_propagate_ucsv", "triton", f"{pkg}/kernels/propagate.py", propagate, k2),
     ]
+    for inst in ("lg1", "lg1_carry", "lg2", "sv"):
+        kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
+                             propagate, k2i[inst]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,80 +16,38 @@
 // (2C + 1) * 4 * M * N bytes: 15 MB and 117 MB, about 4 and 35 microseconds at
 // 3.35 TB/s. At the smaller size launch and host overhead dominate.
 //
-// Design: one block per θ-row. The row's sum, then its cumulative sum, are
-// block-wide reductions over chunks of the row (cub::BlockReduce, BlockScan),
-// accumulated in f64 and rounded to an f32 cdf: two summation orders then give
-// the same f32 cdf except where the f64 error straddles an f32 rounding point,
-// so the kernel and its plain version (which also sums in f64) agree on the
-// ancestors of all but a vanishing share of slots, at any N. Each span goes to
-// shared memory as an int (4 N bytes, so N up to about 58,000). Each output
-// slot then finds its ancestor by a binary search over the spans in shared
-// memory, and the gather reads xs directly: Hopper has a fast dynamic gather, so the TPU kernel's byte planes,
+// Design: one block per θ-row. The row's f32 cdf comes from the f64 block
+// scan of row_cdf.cuh, and each span goes to shared memory as an int (4 N
+// bytes, so N up to about 58,000). Each output slot then finds its ancestor by
+// a binary search over the spans in shared memory, and the gather reads xs
+// directly: Hopper has a fast dynamic gather, so the TPU kernel's byte planes,
 // int8 selection matmuls, chunk-walk bounds and autotuned tiles have no
 // counterpart here. Ancestors are non-decreasing in o, so neighbouring threads
 // read neighbouring addresses of xs. The f32 arithmetic that decides a span
 // (product, difference, ceil) is rounded op by op, as on the host.
 #include <cuda_runtime.h>
 
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
+#include "row_cdf.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-// Running prefix across the chunks of one row (called by the first warp).
-struct RunningPrefix {
-  double total;
-  __device__ double operator()(double chunk_sum) {
-    double old = total;
-    total += chunk_sum;
-    return old;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(smc::kThreads)
 resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
                       const float* __restrict__ xs, float* __restrict__ out,
                       int* __restrict__ anc, int n, int c) {
-  using BlockReduce = cub::BlockReduce<double, kThreads>;
-  using BlockScan = cub::BlockScan<double, kThreads>;
-  __shared__ union {
-    typename BlockReduce::TempStorage reduce;
-    typename BlockScan::TempStorage scan;
-  } tmp;
-  __shared__ double total_s;
   extern __shared__ int span[];  // n ints: s_hi
 
   const long long row = blockIdx.x;
-  const float* w_row = w + row * n;
-
-  double part = 0.0;
-  for (int j = threadIdx.x; j < n; j += kThreads) part += w_row[j];
-  const double row_sum = BlockReduce(tmp.reduce).Sum(part);
-  if (threadIdx.x == 0) total_s = row_sum;
-  __syncthreads();  // total_s is visible and tmp may be reused
-  const double total = total_s;
   const float offset = u0[row];
   const float nf = static_cast<float>(n);
-
-  RunningPrefix prefix{0.0};
-  for (int base = 0; base < n; base += kThreads) {
-    const int j = base + threadIdx.x;
-    double v = j < n ? static_cast<double>(w_row[j]) : 0.0;
-    BlockScan(tmp.scan).InclusiveSum(v, v, prefix);
-    if (j < n) {
-      const float cdf = __double2float_rn(__ddiv_rn(v, total));
-      const float s = ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset));
-      span[j] = j == n - 1 ? n : static_cast<int>(s);
-    }
-    __syncthreads();  // tmp.scan is reused by the next chunk
-  }
+  smc::row_cdf(w + row * n, n, [&](int j, float cdf) {
+    const float s = ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset));
+    span[j] = j == n - 1 ? n : static_cast<int>(s);
+  });
 
   const float* xs_row = xs + row * c * n;
   float* out_row = out + row * c * n;
-  for (int o = threadIdx.x; o < n; o += kThreads) {
+  for (int o = threadIdx.x; o < n; o += smc::kThreads) {
     int lo = 0, hi = n;  // first j with s_hi_j > o
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -120,13 +78,13 @@ int smc_resample_count(const float* u0, const float* w, const float* xs,
                        cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
   const size_t smem = static_cast<size_t>(n) * sizeof(int);
-  if (smem > kDefaultSmem) {
+  if (smem > smc::kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
         resample_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  resample_count_kernel<<<m, kThreads, smem, stream>>>(u0, w, xs, out, anc, n, c);
+  resample_count_kernel<<<m, smc::kThreads, smem, stream>>>(u0, w, xs, out, anc, n, c);
   return cudaGetLastError();
 }
 

@@ -1,3 +1,21 @@
-from .core import Normal, Product, TupleProduct, Uniform, product_distribution
+from .core import (
+    LogNormal,
+    Normal,
+    Product,
+    TruncatedNormal,
+    TupleProduct,
+    Uniform,
+    product_distribution,
+)
+from .mvnormal import MvNormal
 
-__all__ = ["Normal", "Product", "TupleProduct", "Uniform", "product_distribution"]
+__all__ = [
+    "LogNormal",
+    "MvNormal",
+    "Normal",
+    "Product",
+    "TruncatedNormal",
+    "TupleProduct",
+    "Uniform",
+    "product_distribution",
+]

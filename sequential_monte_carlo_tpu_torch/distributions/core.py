@@ -1,5 +1,6 @@
-"""Distribution kit (L0) — the slice's subset of
-``sequential_monte_carlo_tpu/distributions/core.py``.
+"""Distribution kit (L0) — the port's subset of
+``sequential_monte_carlo_tpu/distributions/core.py``: Normal, LogNormal,
+TruncatedNormal, Uniform, Product and TupleProduct.
 
 Each distribution is a frozen dataclass of tensors with
 ``sample(generator, sample_shape)``, ``log_prob(x)`` and ``in_support(x)``
@@ -42,6 +43,72 @@ class Normal:
 
     def in_support(self, x):
         return torch.isfinite(x)
+
+
+@struct
+class LogNormal:
+    """log X ~ N(mu, sigma²) (Distributions.jl's ``LogNormal(mu, sigma)``)."""
+
+    mu: torch.Tensor
+    sigma: torch.Tensor
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.mu.shape, self.sigma.shape)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        eps = torch.randn(shape, generator=generator, device=self.mu.device,
+                          dtype=self.mu.dtype)
+        return torch.exp(self.mu + self.sigma * eps)
+
+    def log_prob(self, x):
+        lx = torch.log(torch.where(x > 0, x, 1.0))
+        z = (lx - self.mu) / self.sigma
+        lp = -0.5 * z * z - torch.log(self.sigma) - _HALF_LOG_2PI - lx
+        return torch.where(x > 0, lp, -math.inf)
+
+    def in_support(self, x):
+        return x > 0
+
+
+@struct
+class TruncatedNormal:
+    """N(loc, scale²) truncated to [low, high], sampled by inverse CDF with
+    the probability clipped to [1e-7, 1 − 1e-7] (as the JAX package does)."""
+
+    loc: torch.Tensor
+    scale: torch.Tensor
+    low: torch.Tensor
+    high: torch.Tensor
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape,
+                                      self.low.shape, self.high.shape)
+
+    def _cdf_bounds(self):
+        fa = torch.special.ndtr((self.low - self.loc) / self.scale)
+        fb = torch.special.ndtr((self.high - self.loc) / self.scale)
+        return fa, fb
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + tuple(self.batch_shape)
+        fa, fb = self._cdf_bounds()
+        u = torch.rand(shape, generator=generator, device=self.loc.device,
+                       dtype=self.loc.dtype)
+        p = torch.clamp(fa + u * (fb - fa), 1e-7, 1.0 - 1e-7)
+        return self.loc + self.scale * torch.special.ndtri(p)
+
+    def log_prob(self, x):
+        fa, fb = self._cdf_bounds()
+        z = (x - self.loc) / self.scale
+        lp = (-0.5 * z * z - torch.log(self.scale) - _HALF_LOG_2PI
+              - torch.log(fb - fa))
+        return torch.where(self.in_support(x), lp, -math.inf)
+
+    def in_support(self, x):
+        return (x >= self.low) & (x <= self.high)
 
 
 @struct

@@ -13,18 +13,28 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from .distributions import Normal, TupleProduct, Uniform, product_distribution
+from .distributions import (
+    LogNormal,
+    Normal,
+    TruncatedNormal,
+    TupleProduct,
+    Uniform,
+    product_distribution,
+)
+from .models.linear_gaussian import LinearGaussianModel
 from .ops.batched_filter import from_cloud
 from .samplers.base import SMC2State
 
-_KINDS = {"normal": Normal, "uniform": Uniform}
+# prior component kind -> (distribution, number of parameters)
+_KINDS = {"normal": (Normal, 2), "uniform": (Uniform, 2), "lognormal": (LogNormal, 2),
+          "truncated_normal": (TruncatedNormal, 4)}
 
 
 def _f32(a, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
-def from_numpy_state(fields: Mapping[str, np.ndarray], device="cpu") -> SMC2State:
+def from_numpy_state(fields: Mapping[str, np.ndarray], device="cuda") -> SMC2State:
     """A JAX ``SMC2State``'s fields (theta, log_omega, particles, log_w,
     log_z, ess, acc_ratio, t), as numpy arrays, → the port's state. The
     (M, N, dx) particles get the port's planar storage."""
@@ -42,14 +52,24 @@ def from_numpy_state(fields: Mapping[str, np.ndarray], device="cpu") -> SMC2Stat
     )
 
 
-def prior_from_spec(spec: Sequence[tuple[str, float, float]],
-                    device="cpu") -> TupleProduct:
-    """A product prior from ``(kind, a, b)`` rows: ``("uniform", low,
-    high)`` or ``("normal", loc, scale)`` — the JAX package's
+def from_numpy_model(fields: Mapping[str, np.ndarray], device="cuda") -> LinearGaussianModel:
+    """A JAX ``LinearGaussianModel``'s arrays (A, B, Q, R, x0, sigma0), as
+    numpy arrays with or without a leading θ axis, → the port's model."""
+    return LinearGaussianModel(**{k: _f32(fields[k], device)
+                                  for k in ("A", "B", "Q", "R", "x0", "sigma0")})
+
+
+def prior_from_spec(spec: Sequence[tuple], device="cuda") -> TupleProduct:
+    """A product prior from ``(kind, *params)`` rows: ``("uniform", low,
+    high)``, ``("normal", loc, scale)``, ``("lognormal", mu, sigma)`` or
+    ``("truncated_normal", loc, scale, low, high)`` — the JAX package's
     ``product_distribution`` of the same components."""
     comps = []
-    for kind, a, b in spec:
+    for kind, *params in spec:
         if kind not in _KINDS:
             raise ValueError(f"unknown prior component {kind!r}; one of {sorted(_KINDS)}")
-        comps.append(_KINDS[kind](_f32(a, device), _f32(b, device)))
+        dist, arity = _KINDS[kind]
+        if len(params) != arity:
+            raise ValueError(f"{kind!r} takes {arity} parameters, got {len(params)}")
+        comps.append(dist(*(_f32(p, device) for p in params)))
     return product_distribution(comps)

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA C++ kernels at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The library is keyed by a hash of the sources and flags and lives in the
-package's ``_build/`` directory, so a fresh checkout builds it once on its
+``nvcc`` compiles every ``csrc/*.cu`` of the package for Hopper (``sm_90a``),
+one process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``. The library
+is keyed by a hash of the sources (headers included) and flags and lives in
+the package's ``_build/`` directory, so a fresh checkout builds it once on its
 first kernel launch and later processes load it. Nothing is downloaded: the
 sources in the package are the only input. (PyTorch's
 ``cpp_extension.load`` is not used: a source that includes PyTorch's headers
@@ -22,10 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -52,25 +51,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsmc_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled first if this checkout has none."""
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+        srcs = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(srcs, objs)])
+        tmp = so.with_name(f"{so.name}.{tag}")
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.smc_resample_count.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.smc_resample_count.restype = i32
+    for name in ("smc_resample_count", "smc_resample_sorted"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+        fn.restype = i32
     lib.smc_error_string.argtypes = [i32]
     lib.smc_error_string.restype = ctypes.c_char_p
     return lib

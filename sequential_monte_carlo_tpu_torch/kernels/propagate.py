@@ -2,19 +2,22 @@
 filter step.
 
 Counterpart of ``sequential_monte_carlo_tpu/kernels/propagate_pallas.py::
-fused_elementwise_step`` with ``normalize=True`` (no ``carry_logw``). For
-every θ-row m and particle i it draws the model's N(0, 1) normals, applies
-the model's elementwise update (new state planes and the observation
-log-weight), and then normalizes each row:
+fused_elementwise_step`` with ``normalize=True``. For every θ-row m and
+particle i it draws the model's N(0, 1) normals, applies the model's
+elementwise update (new state planes and the observation log-weight), adds
+the optional carried log-weights ``carry_logw`` (the adaptive-resampling
+route, where the pre-propagate weights are not the constant −log N), and
+then normalizes each row:
 
     lse_m = log Σ_i exp(logw_mi),  log_norm = logw − lse,
     ess_m = (Σ e)² / Σ e²   with e = exp(logw − max_m).
 
 The kernel is Triton (:func:`_triton_kernels`). What bounds it on the H100:
-memory. It reads the cloud, writes the new cloud and log_norm, and rereads
-and rewrites log_norm: (2S + 3)·4·M·N bytes (19 MB at M=512, N=1024, S=3;
-151 MB at N=8192), about 6 and 45 µs at 3.35 TB/s, so at the smaller size
-launch overhead dominates.
+memory. It reads the cloud (and the carry), writes the new cloud and
+log_norm: (2S + 1 + carry)·4·M·N bytes counted once each (UC-SV, S=3:
+15 MB at M=512, N=1024, 117 MB at N=8192; LG dx=1 with carry: 8.4 MB at
+512×1024), a few µs at 3.35 TB/s, so at these sizes launch overhead
+dominates. Pass 2 rereads and rewrites log_norm, mostly from L2.
 Design: one program per θ-row loops over N in blocks. Pass 1 draws the
 normals in registers (Philox, ``tl.philox``), runs the update, stores the
 new planes and the raw log-weights, and keeps an online max with rescaled
@@ -28,8 +31,11 @@ unsharded run draws (the property of ``propagate_pallas.py:25-27``).
 
 The model's update is a ``@triton.jit`` function passed to the kernel as a
 ``tl.constexpr``, as the JAX builder takes ``update_fn``: further models
-add an update function, not a kernel. An update reads its row's parameters
-and state planes, stores the new planes and returns the log-weights:
+add an update function, not a kernel. The instances are UC-SV
+(``models/ucsv.py``), SV (``models/stochastic_volatility.py``) and LG at
+dx = 1 and 2 (``models/linear_gaussian.py``). An update reads its row's
+parameters and state planes, stores the new planes and returns the
+log-weights:
 
     update(par, st, new, n, offs, mask, y, z0, z1, z2, z3) -> logw
 
@@ -42,6 +48,7 @@ tensors and launches the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import os
 import types
@@ -61,7 +68,7 @@ class ElementwiseUpdate(NamedTuple):
 
 
 def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
-                                 normals):
+                                 normals, carry_logw=None):
     """Plain version with injected normals.
 
     Args:
@@ -69,12 +76,15 @@ def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
       state: (M, S, N) state planes.
       y: scalar observation (0-d tensor).
       normals: (n_normals, M, N) standard-normal draws.
+      carry_logw: optional (M, N) log-weights added before the normalize.
 
     Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
     """
     par = tuple(params[:, i:i + 1] for i in range(params.shape[1]))
     planes = tuple(state[:, s] for s in range(state.shape[1]))
     new, logw = update.plain(par, y, planes, tuple(normals))
+    if carry_logw is not None:
+        logw = logw + carry_logw
     mx = torch.amax(logw, dim=-1, keepdim=True)
     e = torch.exp(logw - mx)
     s = torch.sum(e, dim=-1, keepdim=True)
@@ -117,10 +127,53 @@ def _triton_kernels() -> types.SimpleNamespace:
         return logw
 
     @triton.jit
-    def step_kernel(par_ptr, st_ptr, new_ptr, lognorm_ptr, lse_ptr, ess_ptr,
-                    y_ptr, seed_ptr, row_offset, n,
+    def sv_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
+        # models/stochastic_volatility.py::sv_update, op for op
+        mu = tl.load(par)
+        phi = tl.load(par + 1)
+        sigma = tl.load(par + 2)
+        x = tl.load(st + offs, mask=mask, other=0.0)
+        x_new = mu + phi * (x - mu) + sigma * z0
+        logw = -0.5 * (y * y) * tl.exp(-x_new) - 0.5 * x_new - 0.9189385332046727
+        tl.store(new + offs, x_new, mask=mask)
+        return logw
+
+    @triton.jit
+    def lg1_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
+        # models/linear_gaussian.py::_lg_update(1): params (A, F, B, R)
+        a = tl.load(par)
+        f = tl.load(par + 1)
+        b = tl.load(par + 2)
+        r = tl.load(par + 3)
+        x = tl.load(st + offs, mask=mask, other=0.0)
+        x_new = a * x + f * z0
+        delta = y - b * x_new
+        logw = -0.5 * delta * delta / r - 0.5 * tl.log(r) - 0.9189385332046727
+        tl.store(new + offs, x_new, mask=mask)
+        return logw
+
+    @triton.jit
+    def lg2_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
+        # models/linear_gaussian.py::_lg_update(2): params (A row-major,
+        # F row-major, B, R), F·Fᵀ = Q
+        x0 = tl.load(st + offs, mask=mask, other=0.0)
+        x1 = tl.load(st + n + offs, mask=mask, other=0.0)
+        n0 = (tl.load(par) * x0 + tl.load(par + 1) * x1
+              + tl.load(par + 4) * z0 + tl.load(par + 5) * z1)
+        n1 = (tl.load(par + 2) * x0 + tl.load(par + 3) * x1
+              + tl.load(par + 6) * z0 + tl.load(par + 7) * z1)
+        r = tl.load(par + 10)
+        delta = y - (tl.load(par + 8) * n0 + tl.load(par + 9) * n1)
+        logw = -0.5 * delta * delta / r - 0.5 * tl.log(r) - 0.9189385332046727
+        tl.store(new + offs, n0, mask=mask)
+        tl.store(new + n + offs, n1, mask=mask)
+        return logw
+
+    @triton.jit
+    def step_kernel(par_ptr, st_ptr, new_ptr, carry_ptr, lognorm_ptr, lse_ptr,
+                    ess_ptr, y_ptr, seed_ptr, row_offset, n,
                     P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
-                    BLOCK: tl.constexpr):
+                    HAS_CARRY: tl.constexpr, BLOCK: tl.constexpr):
         row = tl.program_id(0)
         y = tl.load(y_ptr)
         seed = tl.load(seed_ptr)
@@ -129,6 +182,7 @@ def _triton_kernels() -> types.SimpleNamespace:
         st = st_ptr + row.to(tl.int64) * S * n
         new = new_ptr + row.to(tl.int64) * S * n
         ln = lognorm_ptr + row.to(tl.int64) * n
+        carry = carry_ptr + row.to(tl.int64) * n
         neg_inf = float("-inf")
         m_run = tl.full((BLOCK,), neg_inf, tl.float32)
         s1 = tl.zeros((BLOCK,), tl.float32)
@@ -144,6 +198,8 @@ def _triton_kernels() -> types.SimpleNamespace:
             z2, z3 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r2),
                                                tl.uint_to_uniform_float(r3))
             logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
+            if HAS_CARRY:
+                logw = logw + tl.load(carry + offs, mask=mask, other=0.0)
             logw = tl.where(mask, logw, neg_inf)
             tl.store(ln + offs, logw, mask=mask)
             m_new = tl.maximum(m_run, logw)
@@ -166,11 +222,12 @@ def _triton_kernels() -> types.SimpleNamespace:
             lw = tl.load(ln + offs, mask=mask)
             tl.store(ln + offs, lw - lse, mask=mask)
 
-    return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update,
+    return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update, sv=sv_update,
+                                 lg1=lg1_update, lg2=lg2_update,
                                  next_power_of_2=triton.next_power_of_2)
 
 
-def _check(params, state, y, draws, draws_name, draws_dtype):
+def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
     if state.dim() != 3:
         raise ValueError(f"state must be (M, S, N), got {tuple(state.shape)}")
     m = state.shape[0]
@@ -178,10 +235,13 @@ def _check(params, state, y, draws, draws_name, draws_dtype):
         raise ValueError(f"params must be (M, P) = ({m}, P), got {tuple(params.shape)}")
     if y.numel() != 1:
         raise ValueError(f"y must hold one observation, got shape {tuple(y.shape)}")
-    for name, t, dtype in (("params", params, torch.float32),
-                           ("state", state, torch.float32),
-                           ("y", y, torch.float32),
-                           (draws_name, draws, draws_dtype)):
+    checks = [("params", params, torch.float32), ("state", state, torch.float32),
+              ("y", y, torch.float32), (draws_name, draws, draws_dtype)]
+    if carry_logw is not None:
+        if tuple(carry_logw.shape) != tuple(state.shape[::2]):
+            raise ValueError(f"carry_logw must be (M, N), got {tuple(carry_logw.shape)}")
+        checks.append(("carry_logw", carry_logw, torch.float32))
+    for name, t, dtype in checks:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != state.device:
@@ -191,7 +251,8 @@ def _check(params, state, y, draws, draws_name, draws_dtype):
 
 
 def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
-                           seed=None, normals=None, row_offset: int = 0):
+                           seed=None, normals=None, row_offset: int = 0,
+                           carry_logw=None):
     """One fused propagate + reweight + normalize step for all (M, N)
     particles.
 
@@ -203,22 +264,27 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
       seed: (1,) int64 Philox seed on the device (CUDA tensors).
       normals: (n_normals, M, N) f32 draws (CPU tensors: the plain version).
       row_offset: global index of row 0 (θ-sharding), for the draws.
+      carry_logw: optional (M, N) f32 carried log-weights, added to the
+        observation log-weights before the normalize; the returned lse is
+        then log Σ exp(carry + logw).
 
     Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
-    CUDA launches are counted in ``fused_elementwise_step.launches``.
+    CUDA launches are counted per instance (the update's name, ``_carry``
+    appended on the carry route) in ``fused_elementwise_step.instance_launches``.
     """
     if state.device.type == "cpu":
         if normals is None:
             raise ValueError("on the CPU the plain version takes injected normals")
-        _check(params, state, y, normals, "normals", torch.float32)
+        _check(params, state, y, normals, "normals", torch.float32, carry_logw)
         if tuple(normals.shape) != (update.n_normals,) + tuple(state.shape[::2]):
             raise ValueError(f"normals must be (n_normals, M, N), got {tuple(normals.shape)}")
-        return fused_elementwise_step_plain(update, params, state, y, normals)
+        return fused_elementwise_step_plain(update, params, state, y, normals,
+                                            carry_logw)
     if state.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.device}")
     if seed is None:
         raise ValueError("the kernel draws its own normals: pass seed=")
-    _check(params, state, y, seed, "seed", torch.int64)
+    _check(params, state, y, seed, "seed", torch.int64, carry_logw)
     m, s, n = state.shape
     k = _triton_kernels()
     new = torch.empty_like(state)
@@ -226,13 +292,15 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     lse = torch.empty((m, 1), device=state.device, dtype=torch.float32)
     ess = torch.empty((m, 1), device=state.device, dtype=torch.float32)
     block = min(k.next_power_of_2(n), 1024)
+    has_carry = carry_logw is not None
     with torch.cuda.device(state.device):
-        k.step[(m,)](params, state, new, log_norm, lse, ess, y, seed,
-                     row_offset, n, P=params.shape[1], S=s,
-                     UPDATE=getattr(k, update.triton), BLOCK=block,
-                     num_warps=4)
-    fused_elementwise_step.launches += 1
+        k.step[(m,)](params, state, new, carry_logw if has_carry else log_norm,
+                     log_norm, lse, ess, y, seed, row_offset, n,
+                     P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
+                     HAS_CARRY=has_carry, BLOCK=block, num_warps=4)
+    fused_elementwise_step.instance_launches[
+        update.triton + ("_carry" if has_carry else "")] += 1
     return new, log_norm, lse, ess
 
 
-fused_elementwise_step.launches = 0
+fused_elementwise_step.instance_launches = collections.Counter()

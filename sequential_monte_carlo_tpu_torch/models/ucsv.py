@@ -65,16 +65,20 @@ class UCSVModel:
     def observation_distribution(self, s):
         return Normal(s[..., 0], torch.exp(0.5 * s[..., 2]))
 
-    def fused_propagate_reweight(self, y, cloud, seed=None, normals=None):
+    def fused_params(self):
+        """The fused kernel's (M, 2) parameter rows (γε, γη)."""
+        m = self.x0.shape[0]
+        return torch.stack([self.gamma_eps.expand(m), self.gamma_eta.expand(m)], dim=1)
+
+    def fused_propagate_reweight(self, y, cloud, seed=None, normals=None,
+                                 carry_logw=None, params=None):
         """Propagate + reweight + normalize the θ-cloud's (M, 3, N) planar
         cloud through kernel 2. Returns (new cloud, log_norm (M, N),
         lse (M, 1), ess (M, 1))."""
-        m = cloud.shape[0]
-        params = torch.stack(
-            [self.gamma_eps.expand(m), self.gamma_eta.expand(m)], dim=1
-        )
-        return fused_elementwise_step(self.update, params, cloud, y,
-                                      seed=seed, normals=normals)
+        if params is None:
+            params = self.fused_params()
+        return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
+                                      normals=normals, carry_logw=carry_logw)
 
 
 def ucsv_model(theta: torch.Tensor) -> UCSVModel:

@@ -1,22 +1,39 @@
 from .batched_filter import (
     BatchedPFOut,
+    batched_log_likelihood,
     batched_log_likelihood_masked,
     batched_pf_init,
     batched_pf_step,
 )
+from .kalman import (
+    KalmanState,
+    kalman_filter,
+    kalman_init,
+    kalman_log_likelihood,
+    kalman_log_likelihood_masked,
+    kalman_step,
+)
 from .particle_filter import PFConfig
-from .resampling import get_resampler, multinomial, systematic
+from .resampling import get_resampler, multinomial, stratified, systematic
 from .weights import ess_from_log_weights, log_normalize
 
 __all__ = [
     "BatchedPFOut",
+    "KalmanState",
     "PFConfig",
+    "batched_log_likelihood",
     "batched_log_likelihood_masked",
     "batched_pf_init",
     "batched_pf_step",
     "ess_from_log_weights",
     "get_resampler",
+    "kalman_filter",
+    "kalman_init",
+    "kalman_log_likelihood",
+    "kalman_log_likelihood_masked",
+    "kalman_step",
     "log_normalize",
     "multinomial",
+    "stratified",
     "systematic",
 ]

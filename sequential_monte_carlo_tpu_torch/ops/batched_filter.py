@@ -1,23 +1,34 @@
-"""Batched (θ-cloud-level) particle filtering — L2.5, the slice's subset of
+"""Batched (θ-cloud-level) particle filtering — L2.5, the port's subset of
 ``sequential_monte_carlo_tpu/ops/batched_filter.py``.
 
 All M per-θ filters step as one (M, N) program. Every inner step is two
-hand-written kernels: the systematic resample + ancestor gather
-(``kernels/resample_walk.py``) and the model's fused propagate + reweight +
-normalize (``kernels/propagate.py``). This slice covers the bootstrap filter
-with systematic resampling at every step (``PFConfig("systematic", 1.0)``);
-other configurations raise ``NotImplementedError`` naming the ROADMAP item
-that adds them.
+hand-written kernels: a resample + ancestor gather — systematic by offsets
+u0 (``kernels/resample_walk.py``) or stratified on an explicit sorted grid
+(``kernels/resample_sorted.py``) — and the model's fused propagate +
+reweight + normalize (``kernels/propagate.py``). This covers the bootstrap
+filter with ``PFConfig("systematic" | "stratified", ess_threshold)``; other
+configurations raise ``NotImplementedError`` naming the ROADMAP item that
+adds them.
+
+Adaptive resampling (``ess_threshold < 1``): a row fires when its ESS
+1/Σw² falls below ``ess_threshold·N``. The step reads nothing on the host to
+decide: it resamples and gathers every row, then keeps the gathered cloud and
+the weights −log N on the rows that fired and the old cloud and log-weights
+on the others (per-row selects on the device, the formulation the JAX
+package's ``lax.cond`` is bitwise equal to). The carried log-weights ride
+into the propagate kernel (``carry_logw``), whose normalize then gives the
+evidence increment log Σ w·g directly.
 
 Layout: particles are (M, N, dx) at the public functions, as in the JAX
-package, but their storage is planar — the (M, dx, N) cloud that both
+package, but their storage is planar — the (M, dx, N) cloud that the
 kernels read and write, seen through a transposed view (:func:`as_cloud`,
 :func:`from_cloud`) — so no step copies the cloud between layouts.
 
-Randomness: :func:`batched_pf_step` draws the systematic offsets u0 (M, 1)
-and, on a GPU, one Philox seed (the kernel draws its normals), on the CPU
-the normals themselves, from an explicit ``torch.Generator``; the
-deterministic rest of the step is :func:`_pf_step_from_draws`.
+Randomness: :func:`batched_pf_step` draws the resampling grid — offsets u0
+(M, 1) or a stratified grid u (M, N) — and, on a GPU, one Philox seed (the
+kernel draws its normals), on the CPU the normals themselves, from an
+explicit ``torch.Generator``; the deterministic rest of the step is
+:func:`_pf_step_from_draws`.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniforms
 from ..kernels.resample_walk import resample_gather
 from .particle_filter import PFConfig
 from .weights import log_normalize
@@ -37,7 +49,11 @@ __all__ = [
     "batched_pf_init",
     "batched_pf_step",
     "batched_log_likelihood_masked",
+    "batched_log_likelihood",
 ]
+
+# inner resampling scheme -> its resample + gather kernel
+_RESAMPLE = {"systematic": resample_gather, "stratified": resample_gather_sorted}
 
 
 class BatchedPFOut(NamedTuple):
@@ -58,7 +74,12 @@ def from_cloud(cloud: torch.Tensor) -> torch.Tensor:
     return cloud.transpose(1, 2)
 
 
-def _check_config(config: PFConfig) -> None:
+def _check_config(config: PFConfig, active_n=None) -> None:
+    if active_n is not None:
+        raise NotImplementedError(
+            "the elastic live-particle count active_n comes with ROADMAP "
+            "Queue 1 item 7"
+        )
     if config.algorithm != "bootstrap":
         raise NotImplementedError(
             f"algorithm={config.algorithm!r}: the APF comes with ROADMAP "
@@ -68,85 +89,113 @@ def _check_config(config: PFConfig) -> None:
         raise NotImplementedError(
             "guided proposals come with ROADMAP Queue 1 item 7"
         )
-    if config.resampling != "systematic":
+    if config.resampling not in _RESAMPLE:
         raise NotImplementedError(
             f"resampling={config.resampling!r}: the batched filter resamples "
-            "systematically; other schemes come with ROADMAP Queue 1 item 7"
-        )
-    if config.ess_threshold < 1.0:
-        raise NotImplementedError(
-            "adaptive resampling (ess_threshold < 1) comes with ROADMAP "
-            "Queue 1 item 7"
+            f"by one of {sorted(_RESAMPLE)}; the other schemes come with "
+            "ROADMAP Queue 1 item 7"
         )
 
 
 def batched_pf_init(generator, models, n: int, m: int, y0,
-                    config: PFConfig = PFConfig()) -> BatchedPFOut:
+                    config: PFConfig = PFConfig(), active_n=None) -> BatchedPFOut:
     """Bootstrap init of all M filters at y0: N draws from each θ's initial
     distribution, weighted by the observation density."""
-    _check_config(config)
+    _check_config(config, active_n)
     x = models.initial_distribution().sample(generator, (n,))  # (N, M, dx)
     if tuple(x.shape[:2]) != (n, m):
         raise ValueError(f"models must carry {m} θ, drew shape {tuple(x.shape)}")
-    particles = from_cloud(x.permute(1, 2, 0).contiguous())
-    logw = models.observation_distribution(particles).log_prob(y0)
+    logw = models.observation_distribution(x).log_prob(y0).T.contiguous()
     log_mean, log_norm, ess = log_normalize(logw)
-    return BatchedPFOut(particles, log_norm, log_mean, ess)
+    return BatchedPFOut(from_cloud(x.permute(1, 2, 0).contiguous()), log_norm,
+                        log_mean, ess)
 
 
-def _draws(generator, models, m: int, n: int, device):
-    """The step's randomness: u0 (M, 1), then a (1,) int64 Philox seed on
-    a GPU or (n_normals, M, N) normals on the CPU."""
-    u0 = torch.rand((m, 1), generator=generator, device=device)
+def _draws(generator, models, m: int, n: int, device,
+           config: PFConfig = PFConfig()):
+    """The step's randomness: the resampling grid — u0 (M, 1) for
+    systematic, a stratified u (M, N) — then a (1,) int64 Philox seed on a
+    GPU or (n_normals, M, N) normals on the CPU."""
+    if config.resampling == "stratified":
+        u = stratified_uniforms(generator, m, n, device)
+    else:
+        u = torch.rand((m, 1), generator=generator, device=device)
     if device.type == "cpu":
         rest = torch.randn((models.update.n_normals, m, n), generator=generator)
     else:
         rest = torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=device, dtype=torch.int64)
-    return u0, rest
+    return u, rest
 
 
-def _pf_step_from_draws(u0, seed_or_normals, models, particles, log_w, y):
-    """Deterministic core of :func:`batched_pf_step`: kernel 1 (resample +
-    gather by the systematic offsets ``u0``) then kernel 2 (propagate +
-    reweight + normalize, with its Philox seed — an int64 tensor — or its
-    injected normals — a float tensor)."""
+def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
+                        config: PFConfig = PFConfig(), params=None):
+    """Deterministic core of :func:`batched_pf_step`: the resample kernel
+    (systematic offsets u0 or sorted grid u, per ``config.resampling``),
+    the adaptive per-row selects when ``config.ess_threshold < 1``, then the
+    propagate kernel with its Philox seed — an int64 tensor — or its
+    injected normals — a float tensor. ``params`` are the model's
+    step-invariant kernel parameters (``models.fused_params()``)."""
     n = particles.shape[1]
-    xp = resample_gather(u0, torch.exp(log_w), as_cloud(particles))
+    cloud = as_cloud(particles)
+    w = torch.exp(log_w)
+    xp = _RESAMPLE[config.resampling](u, w, cloud)
+    carry = None
+    if config.ess_threshold < 1.0:
+        fire = 1.0 / torch.sum(w * w, dim=-1) < config.ess_threshold * n
+        xp = torch.where(fire[:, None, None], xp, cloud)
+        carry = torch.where(fire[:, None], -math.log(n), log_w)
     if seed_or_normals.dtype == torch.int64:
         draws = {"seed": seed_or_normals}
     else:
         draws = {"normals": seed_or_normals}
-    cloud, log_norm, lse, ess = models.fused_propagate_reweight(y, xp, **draws)
-    # kernel 2's lse is of the unnormalized weights; the evidence increment
-    # is their log-mean (the weights after resampling are all 1/N)
-    return BatchedPFOut(from_cloud(cloud), log_norm, lse[:, 0] - math.log(n),
-                        ess[:, 0])
+    new, log_norm, lse, ess = models.fused_propagate_reweight(
+        y, xp, carry_logw=carry, params=params, **draws)
+    # the evidence increment: with a carry (normalized weights), lse of
+    # carry + logw; else the log-mean of the unnormalized weights (the
+    # weights after resampling are all 1/N)
+    log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
+    return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
 
 
 def batched_pf_step(generator, models, particles, log_w, y,
-                    config: PFConfig = PFConfig()) -> BatchedPFOut:
-    """One filter step for all M clouds: resample every row, propagate,
-    reweight by y and normalize."""
-    _check_config(config)
+                    config: PFConfig = PFConfig(), params=None,
+                    active_n=None) -> BatchedPFOut:
+    """One filter step for all M clouds: resample (every row, or the rows
+    whose ESS fell below ``config.ess_threshold``·N), propagate, reweight by
+    y and normalize. ``params``: ``models.fused_params()``, computed once by
+    callers that step the same models many times."""
+    _check_config(config, active_n)
     m, n, _ = particles.shape
-    u0, rest = _draws(generator, models, m, n, particles.device)
-    return _pf_step_from_draws(u0, rest, models, particles, log_w, y)
+    u, rest = _draws(generator, models, m, n, particles.device, config)
+    return _pf_step_from_draws(u, rest, models, particles, log_w, y, config,
+                               params)
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
-                                  config: PFConfig = PFConfig()):
+                                  config: PFConfig = PFConfig(), active_n=None):
     """Log-likelihood of the observations y[t] with mask[t] > 0 for all M θ —
     the rejuvenation inner loop. Initializes at y[0] and steps only at the
     live times t ≥ 1 (a Python loop over them, where the JAX package runs a
-    masked scan over all T). ``mask`` is read on the host.
+    masked scan over all T). ``mask`` is read on the host; the model's
+    kernel parameters are packed once, outside the loop.
 
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
-    init = batched_pf_init(generator, models, n, m, y[0], config)
+    init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
+    params = models.fused_params()
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
     for t in live.tolist():
-        out = batched_pf_step(generator, models, particles, log_w, y[t], config)
+        out = batched_pf_step(generator, models, particles, log_w, y[t], config,
+                              params)
         particles, log_w = out.particles, out.log_weights
         logz = logz + out.log_mean
     return particles, log_w, logz
+
+
+def batched_log_likelihood(generator, models, n: int, m: int, y,
+                           config: PFConfig = PFConfig(), active_n=None):
+    """Full-sequence log-likelihood for all M θ (the density-tempered init).
+    Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
+    return batched_log_likelihood_masked(generator, models, n, m, y,
+                                         torch.ones(y.shape[0]), config, active_n)

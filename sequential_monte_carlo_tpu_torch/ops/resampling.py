@@ -1,11 +1,13 @@
-"""Resampling schemes as ancestor-index computations — the slice's subset of
+"""Resampling schemes as ancestor-index computations — the port's subset of
 ``sequential_monte_carlo_tpu/ops/resampling.py``: ``multinomial`` (the
-θ-resampler, ``SMCConfig.theta_resampling``) and ``systematic``.
+θ-resampler, ``SMCConfig.theta_resampling``), ``systematic`` and
+``stratified``.
 
 Each scheme is ``(generator, weights, n) -> ancestors`` over the trailing
 axis of ``weights``, by an inverse-CDF ``searchsorted``. The batched inner
-filter does not come here: its systematic resample is fused with the
-ancestor gather in ``kernels/resample_walk.py``.
+filter does not come here: its resample is fused with the ancestor gather in
+``kernels/resample_walk.py`` (systematic) and ``kernels/resample_sorted.py``
+(stratified).
 """
 from __future__ import annotations
 
@@ -38,7 +40,17 @@ def systematic(generator, weights, n=None):
     return _inverse_cdf(u, weights)
 
 
-_SCHEMES = {"multinomial": multinomial, "systematic": systematic}
+def stratified(generator, weights, n=None):
+    """One uniform per stratum: u_i = (i + v_i)/n, v_i ~ U[0, 1)."""
+    n = n or weights.shape[-1]
+    v = torch.rand(weights.shape[:-1] + (n,), generator=generator,
+                   device=weights.device, dtype=weights.dtype)
+    u = (torch.arange(n, device=weights.device, dtype=weights.dtype) + v) / n
+    return _inverse_cdf(u, weights)
+
+
+_SCHEMES = {"multinomial": multinomial, "systematic": systematic,
+            "stratified": stratified}
 
 
 def get_resampler(name: str):

@@ -13,8 +13,8 @@ from ..utils.struct import struct
 class SMCConfig(NamedTuple):
     """Static sampler configuration ≡ the JAX ``SMCConfig``, less the fields
     of what the port does not run yet: the exchange step's padding policy
-    and cap (ROADMAP Queue 1 item 8) and the density-tempered bisection
-    (item 9). ``acc_threshold > 0`` (exchange on) is refused by ``SMC2``."""
+    and cap (ROADMAP Queue 1 item 8). ``acc_threshold > 0`` (exchange on) is
+    refused by ``SMC2``."""
 
     n_particles: int = 1024  # N: state particles per θ
     n_theta: int = 512  # M: θ-particles
@@ -30,6 +30,9 @@ class SMCConfig(NamedTuple):
     cov_jitter: float = 1e-10
     # rejuvenation proposal-scale annealing: 0.5·reverse(1:chain)
     anneal_base: float = 0.5
+    # density-tempered bisection for the next temper ξ
+    bisection_tol: float = 1e-6
+    bisection_upper: float = 2.0
 
     @property
     def ess_min(self) -> float:

@@ -45,5 +45,10 @@ def propose(generator, theta: torch.Tensor, chol_sigma: torch.Tensor,
 
 
 def kernel_chol(sigma: torch.Tensor) -> torch.Tensor:
-    """Cholesky factor of the (floored, jittered) kernel covariance."""
-    return torch.linalg.cholesky(sigma)
+    """Cholesky factor of the (floored, jittered) kernel covariance. Where
+    the factorization fails (a θ-cloud collapsed onto a few points in f32),
+    the factor's lower triangle is NaN, as JAX's: every proposal then leaves
+    the support and the move is rejected, where an exception would end the
+    run."""
+    L, info = torch.linalg.cholesky_ex(sigma)
+    return torch.where(info == 0, L, torch.nan).tril()

@@ -1,6 +1,7 @@
-"""SMC² — online joint state + parameter inference (L3), the slice's subset
+"""SMC² — online joint state + parameter inference (L3), the port's subset
 of ``sequential_monte_carlo_tpu/samplers/smc2.py``: ``init``, ``step`` and
-``run`` with the exchange step off, and ``expected_parameters``.
+``run`` with the exchange step off, the resample-move core that
+density-tempered SMC shares, and ``expected_parameters``.
 
 The M inner particle filters are one batched (M, N) program
 (``ops/batched_filter.py``). Where the JAX package compiles the whole run
@@ -135,15 +136,21 @@ class SMC2:
             acc_ratio=torch.mean(accepted.to(theta.dtype)),
         )
 
+    def _resample_move(self, generator, state: SMC2State, y, mask,
+                       xi: float = 1.0) -> SMC2State:
+        """θ-resample followed by tempered rejuvenation — the resample-move
+        core shared by SMC² (ξ = 1) and density-tempered SMC."""
+        state = self._resample_theta(generator, state)
+        return self._rejuvenate(generator, state, y, mask, xi)
+
     def step(self, generator, state: SMC2State, y):
         """One online assimilation step of y[state.t]; rejuvenates first
         when the θ-ESS fell below ``ess_min``. Returns (state, StepInfo)."""
         cfg = self.config
         degenerate = bool(state.ess < cfg.ess_min)  # host sync
         if degenerate:
-            state = self._resample_theta(generator, state)
             mask = torch.arange(y.shape[0]) < state.t
-            state = self._rejuvenate(generator, state, y, mask)
+            state = self._resample_move(generator, state, y, mask)
 
         outs = batched_pf_step(generator, self.model_fn(state.theta),
                                state.particles, state.log_w, y[state.t],

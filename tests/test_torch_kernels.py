@@ -164,9 +164,9 @@ def test_fused_step_cpu_route_needs_normals():
                                seed=torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError):
         fused_elementwise_step(UCSV_UPDATE, params, state, y, normals=normals[:2])
-    before = fused_elementwise_step.launches
+    before = sum(fused_elementwise_step.instance_launches.values())
     out = fused_elementwise_step(UCSV_UPDATE, params, state, y, normals=normals)
-    assert fused_elementwise_step.launches == before
+    assert sum(fused_elementwise_step.instance_launches.values()) == before
     ref = fused_elementwise_step_plain(UCSV_UPDATE, params, state, y, normals)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)

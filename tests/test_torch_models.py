@@ -20,7 +20,7 @@ from sequential_monte_carlo_tpu.samplers import kernels as jkern
 import sequential_monte_carlo_tpu_torch as tsmc
 from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 from sequential_monte_carlo_tpu_torch.models.ucsv import ucsv_update
-from sequential_monte_carlo_tpu_torch.ops.resampling import multinomial, systematic
+from sequential_monte_carlo_tpu_torch.ops.resampling import multinomial, stratified, systematic
 from sequential_monte_carlo_tpu_torch.ops.weights import ess_from_log_weights, log_normalize
 from sequential_monte_carlo_tpu_torch.samplers import kernels as tkern
 
@@ -86,7 +86,7 @@ def test_distributions_log_prob_and_support_match_jax():
          jsmc.Uniform(jnp.asarray(-1.0), jnp.asarray(2.0))),
     ]
     pairs.append((tsmc.Product(pairs[0][0]), jsmc.Product(pairs[0][1])))
-    pairs.append((prior_from_spec(BENCH_PRIOR), _jax_prior(BENCH_PRIOR)))
+    pairs.append((prior_from_spec(BENCH_PRIOR, device="cpu"), _jax_prior(BENCH_PRIOR)))
     n_t = tsmc.Normal(torch.tensor(loc[0]), torch.tensor(scale[0]))
     n_j = jsmc.Normal(jnp.asarray(loc[0]), jnp.asarray(scale[0]))
     pairs.append((tsmc.TupleProduct((pairs[1][0], n_t, pairs[1][0], n_t)),
@@ -100,7 +100,7 @@ def test_distributions_log_prob_and_support_match_jax():
 def test_prior_samples_follow_the_prior():
     """Sampling: bench prior moments (Monte-Carlo error at 20k draws) and
     every draw inside the support."""
-    prior = prior_from_spec(BENCH_PRIOR)
+    prior = prior_from_spec(BENCH_PRIOR, device="cpu")
     th = prior.sample(torch.Generator().manual_seed(0), (20000,))
     assert th.shape == (20000, 4) and th.dtype == torch.float32
     assert bool(torch.all(prior.in_support(th)))
@@ -122,7 +122,7 @@ def test_ucsv_model_distributions_match_jax():
         np.asarray(ref.observation_distribution(jnp.asarray(s)).log_prob(1.1)), **TOL)
 
 
-@pytest.mark.parametrize("scheme", [multinomial, systematic])
+@pytest.mark.parametrize("scheme", [multinomial, systematic, stratified])
 def test_resamplers_are_unbiased(scheme):
     """E[#offspring of i] = n·w_i: mean counts over 400 draws within
     5 standard errors (multinomial variance n·w(1−w) bounds both)."""
@@ -151,6 +151,23 @@ def test_rw_kernel_matches_jax():
                                np.asarray(jkern.rw_kernel_cov(jnp.ones((8, 4)), cfg_j)))
 
 
+def test_kernel_chol_of_a_collapsed_cloud_is_nan_as_in_jax():
+    """A kernel covariance that is not positive definite in f32 (a θ-cloud
+    collapsed onto two points) gives a factor with a NaN lower triangle, as
+    JAX's cholesky does, so the proposals are rejected instead of the run
+    raising."""
+    theta = np.repeat(np.array([[0.1, 2.0, 0.5, 0.3], [0.2, 2.5, 0.4, 0.1]], np.float32), 8, 0)
+    cfg_t, cfg_j = tsmc.SMCConfig(), jsmc.SMCConfig()
+    sig_t = tkern.rw_kernel_cov(torch.from_numpy(theta), cfg_t)
+    chol_j = np.asarray(jkern.kernel_chol(jkern.rw_kernel_cov(jnp.asarray(theta), cfg_j)))
+    chol_t = tkern.kernel_chol(sig_t).numpy()
+    np.testing.assert_array_equal(np.isnan(chol_t), np.isnan(chol_j))
+    assert np.all(np.isnan(chol_t[np.tril_indices(4)]))
+    prop = tkern.propose(torch.Generator().manual_seed(0), torch.from_numpy(theta),
+                         torch.from_numpy(chol_t), 1.0)
+    assert not bool(torch.any(prior_from_spec(BENCH_PRIOR, device="cpu").in_support(prop)))
+
+
 def test_propose_has_the_kernel_covariance():
     """θ' − θ ~ N(0, scale·Σ): empirical covariance within 5% at 40k draws."""
     sigma = torch.tensor([[1.0, 0.3], [0.3, 0.5]])
@@ -166,6 +183,10 @@ def test_port_imports_without_jax():
             "import sequential_monte_carlo_tpu_torch as p\n"
             "import sequential_monte_carlo_tpu_torch.interop\n"
             "import sequential_monte_carlo_tpu_torch.kernels._build\n"
+            "import sequential_monte_carlo_tpu_torch.kernels.resample_sorted\n"
+            "import sequential_monte_carlo_tpu_torch.samplers.density_tempered\n"
+            "import sequential_monte_carlo_tpu_torch.ops.kalman\n"
+            "import sequential_monte_carlo_tpu_torch.models.base\n"
             "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules "
             "if sys.modules[k] is not None)\n"
             "print(p.SMC2.__name__)\n")

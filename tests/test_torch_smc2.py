@@ -71,7 +71,7 @@ def test_pf_step_from_draws_matches_jax_kernels():
     st_j = sampler.init(jax.random.key(3), jnp.asarray(y))
     fields = {k: np.asarray(getattr(st_j, k)) for k in (
         "theta", "log_omega", "particles", "log_w", "log_z", "ess", "acc_ratio", "t")}
-    st = from_numpy_state(fields)
+    st = from_numpy_state(fields, device="cpu")
     assert st.particles.transpose(1, 2).is_contiguous()  # planar storage
     np.testing.assert_array_equal(st.particles.numpy(), fields["particles"])
 
@@ -140,7 +140,7 @@ def test_smc2_posterior_matches_jax():
     y = _series(t)
     cfg = dict(n_particles=n, n_theta=m, chain=chain, ess_threshold=0.5)
     jax_sampler = jsmc.SMC2(jsmc.ucsv_model, _jax_prior(), jsmc.SMCConfig(**cfg))
-    port = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR), tsmc.SMCConfig(**cfg))
+    port = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"), tsmc.SMCConfig(**cfg))
     jax_means, port_means = [], []
     for s in range(seeds):
         st_j, _ = jax_sampler.run(jax.random.key(s), jnp.asarray(y))
@@ -162,7 +162,7 @@ def test_every_inner_step_is_one_kernel_pair(monkeypatch):
     monkeypatch.setattr(tbf, "_pf_step_from_draws",
                         lambda *a: calls.append(1) or inner(*a))
     t, chain = 30, 2
-    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR),
+    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
                         tsmc.SMCConfig(n_particles=64, n_theta=16, chain=chain))
     _, infos = sampler.run(torch.Generator().manual_seed(1), torch.from_numpy(_series(t)))
     rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
@@ -174,7 +174,7 @@ def test_run_is_init_then_steps():
     """``run`` is ``init`` plus one ``step`` per observation: the same
     generator seed gives the same posterior."""
     y = torch.from_numpy(_series(12))
-    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR),
+    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
                         tsmc.SMCConfig(n_particles=64, n_theta=16, chain=2))
     st_run, _ = sampler.run(torch.Generator().manual_seed(4), y)
     gen = torch.Generator().manual_seed(4)
@@ -187,12 +187,12 @@ def test_run_is_init_then_steps():
 
 @pytest.mark.parametrize("inner", [
     tsmc.PFConfig("multinomial", 1.0),
-    tsmc.PFConfig("systematic", 0.5),
+    tsmc.PFConfig("residual", 1.0),
     tsmc.PFConfig("systematic", 1.0, algorithm="apf"),
     tsmc.PFConfig("systematic", 1.0, proposal=object()),
 ])
 def test_unported_filter_configs_raise(inner):
-    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR),
+    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
                         tsmc.SMCConfig(n_particles=16, n_theta=4, inner=inner))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sampler.init(torch.Generator().manual_seed(0), torch.from_numpy(_series(3)))
@@ -200,5 +200,5 @@ def test_unported_filter_configs_raise(inner):
 
 def test_exchange_step_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR),
+        tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
                   tsmc.SMCConfig(acc_threshold=0.3))

@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's runs on one GPU.
+
+    python3 tools/profile_port.py [--out profile_port.json]
+
+For each cell — density-tempered SMC on LG at BASELINE config 4 (512 × 1024,
+T=100, chain=3) with (a) the systematic inner filter at every step and
+(b) the stratified one triggered at ESS < N/2; 512 parallel LG filters at θ*
+(config 3); online SMC² on UC-SV at 512 × 1024 (bench.py) — it runs the
+cell once to warm up, once unprofiled for the wall-clock, and once under
+``torch.profiler`` for the device time by kernel, the device's busy share
+(Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
+per cell and writes them all to ``--out``. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs  # noqa: E402
+
+
+def _cells(torch):
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    y_lg = torch.tensor(cs.lg_series(), device="cuda")
+    theta = torch.tensor(cs.LG_THETA, device="cuda").expand(cs.DT_M, 3)
+
+    def dt(inner):
+        sampler = smc.SMC2(smc.lg_model, prior_from_spec(cs.LG_PRIOR_SPEC, device="cuda"),
+                           smc.SMCConfig(n_particles=cs.DT_N, n_theta=cs.DT_M, chain=cs.DT_CHAIN,
+                                         ess_threshold=0.5, inner=smc.PFConfig(*inner)))
+        return lambda seed: smc.density_tempered(
+            sampler, torch.Generator(device="cuda").manual_seed(seed), y_lg)
+
+    def filters(seed):
+        return smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(seed),
+                                          smc.lg_model(theta), cs.DT_N, cs.DT_M, y_lg)
+
+    return {"dt_a_systematic": dt(("systematic", 1.0)),
+            "dt_b_stratified_ess0.5": dt(("stratified", 0.5)),
+            "filters_lg_512": filters,
+            "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed)}
+
+
+def _profile(torch, fn, seed: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(seed)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cs.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(seed)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    launches = {k: v for k, v in cs.launch_counts().items() if v}
+    events = prof.key_averages()
+    # device-side events only (kernels, copies): a CPU op's device time
+    # repeats that of the kernels it launched
+    device = sorted(((e.key, e.self_device_time_total, e.count) for e in events
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                    key=lambda r: -r[1])
+    device_us = sum(r[1] for r in device)
+    return {
+        "wall_s": wall, "wall_profiled_s": wall_prof, "device_s": device_us / 1e6,
+        "device_busy": device_us / 1e6 / wall_prof,
+        "host_self_cpu_s": sum(e.self_cpu_time_total for e in events
+                               if e.device_type == DeviceType.CPU) / 1e6,
+        "launches": launches,
+        "top_device": [{"name": k[:80], "us": us, "calls": n, "us_per_call": us / n}
+                       for k, us, n in device[:8]],
+    }
+
+
+def main() -> int:
+    import torch
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default="profile_port.json")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: no CUDA device")
+    from sequential_monte_carlo_tpu_torch.kernels import _build
+
+    _build.library()
+    smi = cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            check=True).stdout.strip().splitlines()[0]
+    rows = []
+    for name, fn in _cells(torch).items():
+        row = {"cell": name, "card": smi, **_profile(torch, fn, 0)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
