@@ -9,8 +9,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
      name and power limit as nvidia-smi reports them;
   2. build   — compiles the CUDA kernels from the package's csrc/ with nvcc;
   3. K1      — the systematic resample + gather kernel against its plain
-     version at 512×1024 and 512×8192 (C=3) under flat, skewed and
-     point-mass weights;
+     version at 512×1024 and 512×8192 under flat, skewed and point-mass
+     weights, on C=3 normal planes and on the auxiliary filter's clouds with
+     the lookahead plane (UC-SV C=4, LG C=2; also its first-stage weights;
+     no ancestor may differ);
   4. K2      — the fused propagate + reweight + normalize kernel, UC-SV
      instance, against its plain version at the same shapes, and the
      moments of the normals recovered from its state deltas;
@@ -34,7 +36,30 @@ Phases, one line each or more; any failure raises and exits non-zero:
   9. filters — 512 parallel filters (BASELINE config 3): LG at θ* (K1 +
      K2-LG) and Hodrick–Prescott (K3 + K2-LG dx=2), whose log Z is held
      against the Kalman filter's, and SV (K1 + K2-SV), whose log Z is held
-     against a point-mass grid filter's.
+     against a point-mass grid filter's;
+ 10. K6      — the hand-written UC-SV propagate + reweight kernel against
+     its plain version at 512×1024 and 512×8192, without and with the
+     normalize, on the strided cloud view the auxiliary filter hands it: the
+     moments of the normals recovered from its state deltas, its log-weights
+     against the density at the returned state, the normalize against a
+     torch normalize of the raw log-weights, γ = 0, the row_offset
+     (θ-sharding) property, and against K2's UC-SV instance at the same seed
+     (within 1e-5; the line says whether bitwise), all four timed;
+ 11. K2 raw  — K2's route without the normalize, per instance (UC-SV, LG
+     dx 1 and 2, SV), against the plain version, with the recovered normals'
+     moments;
+ 12. K3 grids — the sorted-grid kernel on the systematic grid
+     u = (i + u0)/N that K9's v7 builds in-kernel (512×8192, 0 ancestor
+     mismatches) and at K8's and K9's tilings (512×2048, 512×4096): K3
+     carries the ablation kernels K7–K9, which compute its function;
+ 13. apf     — the auxiliary particle filter: (a) SMC² on UC-SV at the
+     benchmark's configuration (K1 + K6 at every inner step, no K2-UC-SV),
+     posterior held against the JAX package's APF and bootstrap means; (b) the README's APF
+     SMC² on LG (K1 + K2-LG raw), posterior against the JAX package's and
+     log Z against the Kalman filter's; (c) 512 APF filters on LG at θ*
+     (K1 + K2-LG raw), Hodrick–Prescott (K3 + K2-LG dx=2 raw) and SV (K1 +
+     K2-SV raw), log Z against the exact, and 512 UC-SV filters, bootstrap
+     (K1 + K2-UC-SV) and APF (K1 + K6), log Z against the JAX package's.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -79,6 +104,24 @@ LG_PRIOR_SPEC = [("truncated_normal", 0.0, 1.0, -1.0, 1.0), ("lognormal", 0.0, 1
 DT_JAX_MEAN = [0.535525, 0.996489, 0.535857]
 DT_JAX_SD = [0.012255, 0.036463, 0.032133]
 
+# Posterior means and seed spreads of the JAX package with the auxiliary
+# particle filter inside SMC² (PFConfig("systematic", 1.0, algorithm="apf")),
+# on the CPU over seeds jax.random.key(0..7) (tools/jax_reference.py --run
+# apf_ucsv / apf_lg): UC-SV at the slice's configuration, and the LG model at
+# M=512, N=1024, chain=3 on the dt phase's prior and series (T=100).
+# The UC-SV runs spread widely: two of the 8 seeds end near γ = 0.5–0.75,
+# x0 ≈ 1.85, far from the other six and from the bootstrap's posterior.
+APF_JAX_MEAN = [0.298121, 3.144286, 0.446609, 0.297007]
+APF_JAX_SD = [0.214815, 0.904442, 0.482713, 0.27428]
+APF_LG_JAX_MEAN = [0.543813, 0.947238, 0.578904]
+APF_LG_JAX_SD = [0.012337, 0.038053, 0.025969]
+APF = ("systematic", 1.0, None, "apf")  # PFConfig(*APF)
+# log Ẑ of 512 UC-SV filters at θ = JAX_MEAN on the slice's series (N=1024,
+# T=241) in the JAX package on the CPU, pooled over jax.random.key(0..3):
+# (mean, variance, rows) per filter (tools/jax_reference.py --run ucsv_bank).
+UCSV_BANK_JAX = {"bootstrap": (-262.597221, 0.676004, 2048),
+                 "apf": (-263.338226, 1.226307, 2048)}
+
 # A sleep kernel of this many cycles (about 50 ms on an H100) holds the
 # device while time_ms queues the calls it times.
 SLEEP_CYCLES = 100_000_000
@@ -106,11 +149,15 @@ def say(phase: str, **fields) -> None:
           flush=True)
 
 
-def series(torch, device):
+def ucsv_series(t: int = T) -> np.ndarray:
     """bench.py's synthetic inflation-like series (bench.py:178-182)."""
     rng = np.random.default_rng(1998)
-    y = 3.0 + np.cumsum(rng.normal(0, 0.3, T)) + rng.normal(0, 0.5, T)
-    return torch.tensor(y, dtype=torch.float32, device=device)
+    return (3.0 + np.cumsum(rng.normal(0, 0.3, t)) + rng.normal(0, 0.5, t)).astype(np.float32)
+
+
+def series(torch, device):
+    """:func:`ucsv_series` as a tensor on ``device``."""
+    return torch.tensor(ucsv_series(), device=device)
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -139,31 +186,72 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_k1(torch, shapes, gen):
+def weight_profiles(torch, gen, m: int, n: int) -> dict:
+    """Flat, skewed (softmax of 2·N(0, 1)) and point-mass (one random slot
+    per row) weights, (m, n) each, on the card."""
+    point = torch.zeros((m, n), device="cuda")
+    point[torch.arange(m, device="cuda"),
+          torch.randint(0, n, (m,), generator=gen, device="cuda")] = 1.0
+    return {
+        "flat": torch.ones((m, n), device="cuda"),
+        "skewed": torch.softmax(2.0 * torch.randn((m, n), generator=gen, device="cuda"), -1),
+        "point": point,
+    }
+
+
+def k1_cloud(torch, gen, m: int, n: int, c: int):
+    """K1's input cloud (M, C, N): normal planes (C=3), or the auxiliary
+    filter's, built as it builds it: a UC-SV (C=4) or LG (C=2) cloud with
+    the lookahead log g(y | E[x′|x]) as the last plane, log-densities down to
+    about −120. Returns (cloud, the APF's first-stage weights or None)."""
+    if c == 3:
+        return torch.randn((m, 3, n), generator=gen, device="cuda"), None
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops.batched_filter import apf_lookahead, as_cloud
+    from sequential_monte_carlo_tpu_torch.ops.weights import log_normalize
+
+    if c == 4:
+        model = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda").expand(m, 4))
+        particles = torch.randn((m, n, 3), generator=gen, device="cuda")
+        particles[..., 0] += 3.0
+        particles[..., 1:] *= 0.5
+        y = torch.tensor(8.0, device="cuda")
+    else:
+        model = _lg_cloud(torch, smc, m, 1)
+        particles = torch.randn((m, n, 1), generator=gen, device="cuda")
+        y = torch.tensor(4.0, device="cuda")
+    log_g = apf_lookahead(model, particles, y)
+    cloud = torch.cat([as_cloud(particles), log_g[:, None, :]], dim=1)
+    log_w = torch.full((m, n), -math.log(n), device="cuda")  # weights after a resample
+    return cloud, torch.exp(log_normalize(log_w + log_g)[1])
+
+
+def check_k1(torch, cases, gen):
+    """K1 against its plain version on (M, N, C) cases, under flat, skewed
+    and point-mass weights and, on the auxiliary filter's clouds, its
+    first-stage weights: at most 1e-3 of ancestors differ on C=3, none on
+    the auxiliary filter's clouds; each case timed."""
     from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
         resample_gather,
         resample_gather_plain,
     )
 
     out = {"max_abs_err": 0.0}
-    for m, n in shapes:
-        xs = torch.randn((m, 3, n), generator=gen, device="cuda")
+    for m, n, c in cases:
+        xs, w_apf = k1_cloud(torch, gen, m, n, c)
         u0 = torch.rand((m, 1), generator=gen, device="cuda")
-        point = torch.zeros((m, n), device="cuda")
-        point[torch.arange(m, device="cuda"), torch.randint(0, n, (m,), generator=gen, device="cuda")] = 1.0
-        profiles = {
-            "flat": torch.ones((m, n), device="cuda"),
-            "skewed": torch.softmax(2.0 * torch.randn((m, n), generator=gen, device="cuda"), -1),
-            "point": point,
-        }
+        profiles = weight_profiles(torch, gen, m, n)
+        if w_apf is not None:
+            profiles["apf"] = w_apf
         for name, w in profiles.items():
             got, anc = resample_gather(u0, w, xs, return_ancestors=True)
             ref, anc_ref = resample_gather_plain(u0, w, xs)
             torch.cuda.synchronize()
             agree = anc == anc_ref
             frac = 1.0 - agree.float().mean().item()
-            if frac > 1e-3:
-                raise AssertionError(f"K1 {m}x{n} {name}: ancestors differ on {frac:.2e} of slots")
+            if frac > (1e-3 if c == 3 else 0.0):
+                raise AssertionError(f"K1 {m}x{n} C={c} {name}: ancestors differ on {frac:.2e}"
+                                     " of slots")
             idx = anc.long()[:, None, :].expand(xs.shape)
             if not torch.equal(got, torch.gather(xs, 2, idx)):
                 raise AssertionError(f"K1 {m}x{n} {name}: output != xs gathered by its ancestors")
@@ -173,12 +261,15 @@ def check_k1(torch, shapes, gen):
                 raise AssertionError(f"K1 {m}x{n} {name}: ancestors are not a systematic draw")
             err = (got - ref).abs()[agree[:, None, :].expand(xs.shape)].max().item()
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            say("K1", shape=f"{m}x{n}", weights=name, anc_mismatch=f"{frac:.2e}",
+            say("K1", shape=f"{m}x{n}", c=c, weights=name, anc_mismatch=f"{frac:.2e}",
                 max_abs_err_on_agreeing=err)
-        w = profiles["skewed"]
-        out[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather(u0, w, xs)),
-                           time_ms(torch, lambda: resample_gather_plain(u0, w, xs)))
-        say("K1", shape=f"{m}x{n}", ms=out[f"{m}x{n}"][0], plain_ms=out[f"{m}x{n}"][1])
+        w = profiles["apf" if w_apf is not None else "skewed"]
+        key = f"{m}x{n}" if c == 3 else f"c{c}_{m}x{n}"
+        out[key] = (time_ms(torch, lambda: resample_gather(u0, w, xs)),
+                    time_ms(torch, lambda: resample_gather_plain(u0, w, xs)),
+                    *bound_ms(*resample_cost(m, n, c, grid=False)))
+        say("K1", shape=f"{m}x{n}", c=c, ms=out[key][0], plain_ms=out[key][1],
+            bound_ms=out[key][2])
     return out
 
 
@@ -236,9 +327,7 @@ def check_k2(torch, shapes, gen):
         torch.testing.assert_close(ess[:, 0], ess_ref, **tol)
         # the normals the kernel drew, recovered from the state deltas, into
         # the plain version: it must give the kernel's outputs
-        z = torch.stack([(new[:, 0] - state[:, 0]) / torch.exp(0.5 * state[:, 1]),
-                         (new[:, 1] - state[:, 1]) / gamma[0],
-                         (new[:, 2] - state[:, 2]) / gamma[1]])
+        z = _recover_normals(torch, "ucsv", params, state, new)
         ref = fused_elementwise_step_plain(UCSV_UPDATE, params, state, y, z)
         for got, want in zip((new, log_norm, lse, ess), ref):
             torch.testing.assert_close(got, want, **tol)
@@ -289,6 +378,34 @@ def propagate_cost(m: int, n: int, s: int, p: int, carry: bool):
     return nbytes, m * n * K2_OPS_PER_PARTICLE
 
 
+def check_k3_case(torch, label: str, u, w, xs, limit: float, out) -> tuple:
+    """K3 on the sorted grid u against its plain version: at most ``limit``
+    ancestors differ, the ancestors are in range and sorted, and the output
+    is xs gathered by them. Folds the largest error on agreeing slots and
+    the mismatch share into ``out``; returns (mismatches, that error)."""
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+    )
+
+    m, _, n = xs.shape
+    got, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    torch.cuda.synchronize()
+    agree = anc == anc_ref
+    mismatches = int((~agree).sum().item())
+    if mismatches > limit:
+        raise AssertionError(f"K3 {label}: {mismatches} ancestors differ")
+    if not torch.equal(got, torch.gather(xs, 2, anc.long()[:, None, :].expand(xs.shape))):
+        raise AssertionError(f"K3 {label}: output != xs gathered by its ancestors")
+    if not (torch.all((anc >= 0) & (anc < n)) and torch.all(anc[:, 1:] >= anc[:, :-1])):
+        raise AssertionError(f"K3 {label}: ancestors out of range or unsorted")
+    err = (got - ref).abs()[agree[:, None, :].expand(xs.shape)].max().item()
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["anc_mismatch"] = max(out["anc_mismatch"], mismatches / (m * n))
+    return mismatches, err
+
+
 def check_k3(torch, shapes, gen):
     from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
         resample_gather_sorted,
@@ -300,32 +417,11 @@ def check_k3(torch, shapes, gen):
     for m, n, c in shapes:
         xs = torch.randn((m, c, n), generator=gen, device="cuda")
         u = stratified_uniforms(gen, m, n, device="cuda")
-        point = torch.zeros((m, n), device="cuda")
-        point[torch.arange(m, device="cuda"),
-              torch.randint(0, n, (m,), generator=gen, device="cuda")] = 1.0
-        profiles = {
-            "flat": torch.ones((m, n), device="cuda"),
-            "skewed": torch.softmax(2.0 * torch.randn((m, n), generator=gen, device="cuda"), -1),
-            "point": point,
-        }
+        profiles = weight_profiles(torch, gen, m, n)
         for name, w in profiles.items():
-            got, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
-            ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
-            torch.cuda.synchronize()
-            agree = anc == anc_ref
-            frac = 1.0 - agree.float().mean().item()
-            if frac > 1e-3:
-                raise AssertionError(f"K3 {m}x{n} {name}: ancestors differ on {frac:.2e} of slots")
-            idx = anc.long()[:, None, :].expand(xs.shape)
-            if not torch.equal(got, torch.gather(xs, 2, idx)):
-                raise AssertionError(f"K3 {m}x{n} {name}: output != xs gathered by its ancestors")
-            if not (torch.all((anc >= 0) & (anc < n)) and torch.all(anc[:, 1:] >= anc[:, :-1])):
-                raise AssertionError(f"K3 {m}x{n} {name}: ancestors out of range or unsorted")
-            err = (got - ref).abs()[agree[:, None, :].expand(xs.shape)].max().item()
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-            out["anc_mismatch"] = max(out["anc_mismatch"], frac)
-            say("K3", shape=f"{m}x{n}", c=c, weights=name, anc_mismatch=f"{frac:.2e}",
-                max_abs_err_on_agreeing=err)
+            mismatches, err = check_k3_case(torch, f"{m}x{n} {name}", u, w, xs, 1e-3 * m * n, out)
+            say("K3", shape=f"{m}x{n}", c=c, weights=name,
+                anc_mismatch=f"{mismatches / (m * n):.2e}", max_abs_err_on_agreeing=err)
         w = profiles["skewed"]
         out[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
                            time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
@@ -359,6 +455,10 @@ def _broadcast_model(torch, model, m: int):
 def _recover_normals(torch, name, params, state, new):
     """The normals the kernel drew, from its state deltas."""
     m = params.shape[0]
+    if name.startswith("ucsv"):
+        return torch.stack([(new[:, 0] - state[:, 0]) / torch.exp(0.5 * state[:, 1]),
+                            (new[:, 1] - state[:, 1]) / params[:, :1],
+                            (new[:, 2] - state[:, 2]) / params[:, 1:]])
     if name.startswith("sv"):
         mu, phi, sig = (params[:, i:i + 1] for i in range(3))
         return ((new[:, 0] - mu - phi * (state[:, 0] - mu)) / sig)[None]
@@ -368,11 +468,13 @@ def _recover_normals(torch, name, params, state, new):
     return torch.linalg.solve(f, new - a @ state).transpose(0, 1)
 
 
-def check_k2_instances(torch, shapes, gen):
+def check_k2_instances(torch, shapes, gen, names=("lg1", "lg1_carry", "lg2", "sv")):
     """K2's LG and SV instances and the carry route against the plain
     version, fed the normals recovered from the kernel's state deltas, and
     those normals' moments (the plain version, given them, reproduces the
-    kernel whatever its update does; the moments show the update right)."""
+    kernel whatever its update does; the moments show the update right).
+    A name ending in ``_raw`` runs the route without the normalize on a
+    strided view of a wider cloud, as the auxiliary filter calls it."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.kernels.propagate import (
         fused_elementwise_step,
@@ -381,41 +483,48 @@ def check_k2_instances(torch, shapes, gen):
 
     out = {}
     y = torch.tensor(0.6, device="cuda")
-    for name in ("lg1", "lg1_carry", "lg2", "sv"):
+    for name in names:
         res = out[name] = {"max_abs_err": 0.0}
+        raw = name.endswith("_raw")
         for m, n in shapes:
-            if name == "sv":
+            if name.startswith("sv"):
                 model = smc.sv_model(torch.tensor([-1.0, 0.95, 0.3], device="cuda").expand(m, 3))
+            elif name.startswith("ucsv"):
+                model = smc.ucsv_model(torch.tensor([0.3, 3.0, 0.2, 0.3], device="cuda").expand(m, 4))
             else:
                 model = _lg_cloud(torch, smc, m, int(name[2]))
             update, params = model.update, model.fused_params()
-            state = torch.randn((m, update.n_normals, n), generator=gen, device="cuda")
+            s = 3 if name.startswith("ucsv") else update.n_normals
+            state = torch.randn((m, s + raw, n), generator=gen, device="cuda")[:, :s]
+            if name.startswith("ucsv"):
+                state[:, 1:] *= 0.5
             carry = None
             if name.endswith("_carry"):
                 carry = torch.log_softmax(3.0 * torch.randn((m, n), generator=gen, device="cuda"), -1)
                 carry[1] = -60.0  # a row carrying very negative log-weights
             seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
-            got = fused_elementwise_step(update, params, state, y, seed=seed, carry_logw=carry)
+            got = fused_elementwise_step(update, params, state, y, seed=seed, carry_logw=carry,
+                                         normalize=not raw)
             z = _recover_normals(torch, name, params, state, got[0])
-            ref = fused_elementwise_step_plain(update, params, state, y, z, carry)
+            ref = fused_elementwise_step_plain(update, params, state, y, z, carry, not raw)
             for a, b in zip(got, ref):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-            if not torch.all(torch.isfinite(got[2])):
-                raise AssertionError(f"K2 {name} {m}x{n}: lse not finite")
+            if not torch.all(torch.isfinite(got[1 if raw else 2])):
+                raise AssertionError(f"K2 {name} {m}x{n}: log-weights not finite")
             err = max((a - b).abs().max().item() for a, b in zip(got, ref))
             res["max_abs_err"] = max(res["max_abs_err"], err)
             moments = check_normals(torch, f"K2 {name} {m}x{n}", z)
 
             def plain():
                 zz = torch.randn((update.n_normals, m, n), generator=gen, device="cuda")
-                return fused_elementwise_step_plain(update, params, state, y, zz, carry)
+                return fused_elementwise_step_plain(update, params, state, y, zz, carry, not raw)
 
             res[f"{m}x{n}"] = (
                 time_ms(torch, lambda: fused_elementwise_step(update, params, state, y, seed=seed,
-                                                              carry_logw=carry)),
+                                                              carry_logw=carry,
+                                                              normalize=not raw)),
                 time_ms(torch, plain),
-                *bound_ms(*propagate_cost(m, n, update.n_normals, params.shape[1],
-                                          carry is not None)))
+                *bound_ms(*propagate_cost(m, n, s, params.shape[1], carry is not None)))
             say("K2", instance=name, shape=f"{m}x{n}", max_abs_err=err, ms=res[f"{m}x{n}"][0],
                 plain_ms=res[f"{m}x{n}"][1], bound_ms=res[f"{m}x{n}"][2], **moments)
     return out
@@ -443,10 +552,13 @@ def launch_counts():
     from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
     from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import resample_gather_sorted
     from sequential_monte_carlo_tpu_torch.kernels.resample_walk import resample_gather
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import ucsv_propagate_reweight
 
     counts = {"resample_count": resample_gather.launches,
-              "resample_sorted": resample_gather_sorted.launches}
-    for inst in ("ucsv", "lg1", "lg1_carry", "lg2", "lg2_carry", "sv", "sv_carry"):
+              "resample_sorted": resample_gather_sorted.launches,
+              "ucsv_propagate": ucsv_propagate_reweight.launches}
+    for inst in ("ucsv", "lg1", "lg1_carry", "lg2", "lg2_carry", "sv", "sv_carry",
+                 "ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw"):
         counts[f"fused_propagate_{inst}"] = fused_elementwise_step.instance_launches[inst]
     return counts
 
@@ -455,9 +567,11 @@ def reset_counts():
     from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
     from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import resample_gather_sorted
     from sequential_monte_carlo_tpu_torch.kernels.resample_walk import resample_gather
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import ucsv_propagate_reweight
 
     resample_gather.launches = 0
     resample_gather_sorted.launches = 0
+    ucsv_propagate_reweight.launches = 0
     fused_elementwise_step.instance_launches.clear()
 
 
@@ -582,38 +696,43 @@ def sv_series(mu: float, phi: float, sigma: float, t: int = DT_T) -> np.ndarray:
     return ys.astype(np.float32)
 
 
-def check_delta(model: str, lz, kz: float, wall: float, steps: int) -> None:
+def check_delta(model: str, lz, kz: float, wall: float, steps: int,
+                phase: str = "filters") -> None:
     """Hold the rows' PF log Z against the exact log Z of the filter's
     target: E[Ẑ] = Z gives mean + var/2 ≈ log Z (delta method), within 5
     standard errors of that estimate from the rows' mean and variance."""
     mean, var = lz.mean().item(), lz.var().item()
     se = math.sqrt(var / DT_M + var**2 / (2 * (DT_M - 1)))
     if abs(mean + var / 2 - kz) > 5 * se:
-        raise AssertionError(f"filters ({model}): mean {mean} + var/2 {var / 2} vs exact {kz}"
+        raise AssertionError(f"{phase} ({model}): mean {mean} + var/2 {var / 2} vs exact {kz}"
                              f" beyond 5·{se}")
-    say("filters", model=model, rows=DT_M, n=DT_N, T=DT_T, wall_s=round(wall, 4),
+    say(phase, model=model, rows=DT_M, n=DT_N, T=DT_T, wall_s=round(wall, 4),
         logz_mean=round(mean, 5), logz_var=round(var, 5), exact_logz=round(kz, 5),
         delta=round(mean + var / 2 - kz, 5), five_se=round(5 * se, 5), launches=steps)
 
 
-def check_filters(torch):
+def check_filters(torch, algorithm: str = "bootstrap", seed: int = 3):
     """BASELINE config 3 (512 parallel LG filters at θ*) and Hodrick–Prescott
     (the sorted-grid kernel and K2's dx = 2 instance) against the Kalman
-    filter; SV filters (K2's SV instance) against the grid filter. Returns
-    the launch counts of the runs."""
+    filter; SV filters (K2's SV instance) against the grid filter. With
+    ``algorithm="apf"`` the auxiliary particle filter, whose second stage
+    is K2's route without the normalize. Returns the runs' launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
 
+    phase, raw = ("apf", "_raw") if algorithm == "apf" else ("filters", "")
     y = torch.tensor(lg_series(), device="cuda")
     steps = DT_T - 1
     # LG at θ*, systematic at every step (run_benchmarks.py:109-126). The
     # Kalman filter predicts x₁ from (x0, Σ0) while the particle filter
     # draws x₁ ~ N(x0, Σ0): the filter's own target is the Kalman log Z
     # from Σ0' = (Σ0 − Q)/A², whose prediction is N(0, 1).
-    lz, wall, total = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y, ("systematic", 1.0), 3)
-    expect_counts("filters (lg)", total, {"resample_count": steps, "fused_propagate_lg1": steps})
+    lz, wall, total = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y,
+                                  ("systematic", 1.0, None, algorithm), seed)
+    expect_counts(f"{phase} (lg)", total, {"resample_count": steps,
+                                           f"fused_propagate_lg1{raw}": steps})
     a, q, r = LG_THETA
     target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
-    check_delta("lg", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps)
+    check_delta("lg", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps, phase)
 
     # Hodrick–Prescott (λ = 1600, singular Q) on the same series, stratified;
     # its target likewise, from x0' = A⁻¹x0 and Σ0' = A⁻¹(Σ0 − Q)A⁻ᵀ. The
@@ -622,13 +741,14 @@ def check_filters(torch):
     # collapses in its first two weightings, and its log Z is no estimate.
     hp = smc.hodrick_prescott(1600.0, y, init_cov=1.0)
     lz, wall, counts = run_filters(torch, _broadcast_model(torch, hp, DT_M), y,
-                                   ("stratified", 1.0), 4)
-    expect_counts("filters (hp)", counts, {"resample_sorted": steps, "fused_propagate_lg2": steps})
+                                   ("stratified", 1.0, None, algorithm), seed + 1)
+    expect_counts(f"{phase} (hp)", counts, {"resample_sorted": steps,
+                                            f"fused_propagate_lg2{raw}": steps})
     total = {k: v + counts[k] for k, v in total.items()}
     a_inv = torch.linalg.inv(hp.A)
     target = smc.multivariate_linear_gaussian(hp.A, hp.B, hp.Q, hp.R, X0=a_inv @ hp.x0,
                                               Sigma0=a_inv @ (hp.sigma0 - hp.Q) @ a_inv.T)
-    check_delta("hp", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps)
+    check_delta("hp", lz, smc.kalman_log_likelihood(target, y)[1].item(), wall, steps, phase)
 
     # SV at (mu, phi, sigma) = (−1, 0.95, 0.3) on a series drawn from it;
     # x₁ is drawn from the stationary law, so the grid filter's target is
@@ -637,10 +757,261 @@ def check_filters(torch):
     ys = sv_series(mu, phi, sig)
     sv = smc.sv_model(torch.tensor([mu, phi, sig], device="cuda").expand(DT_M, 3))
     lz, wall, counts = run_filters(torch, sv, torch.tensor(ys, device="cuda"),
-                                   ("systematic", 1.0), 5)
-    expect_counts("filters (sv)", counts, {"resample_count": steps, "fused_propagate_sv": steps})
-    check_delta("sv", lz, sv_grid_log_z(ys, mu, phi, sig), wall, steps)
+                                   ("systematic", 1.0, None, algorithm), seed + 2)
+    expect_counts(f"{phase} (sv)", counts, {"resample_count": steps,
+                                            f"fused_propagate_sv{raw}": steps})
+    check_delta("sv", lz, sv_grid_log_z(ys, mu, phi, sig), wall, steps, phase)
     return {k: v + counts[k] for k, v in total.items()}
+
+
+def check_k6(torch, shapes, gen):
+    """K6, the hand-written UC-SV kernel, on the (M, 3, N) strided view of a
+    (M, 4, N) cloud (the auxiliary filter's split-off planes): against its
+    plain version fed the normals recovered from its state deltas (and those
+    normals' moments), its log-weights against the density at the returned
+    state, the normalize against a torch normalize of the raw log-weights at
+    the same seed, γ = 0, the row_offset property, and K2's UC-SV instance
+    at the same seed within 1e-5. Times K6 and K2-UC-SV, raw and normalized."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import (
+        ucsv_propagate_reweight,
+        ucsv_propagate_reweight_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.models.ucsv import UCSV_UPDATE
+    from sequential_monte_carlo_tpu_torch.ops.weights import log_normalize
+
+    out = {"max_abs_err": 0.0, "k2_max_abs_diff": 0.0, "k2_bitwise": True}
+    tol = dict(rtol=1e-5, atol=1e-5)
+    y = torch.tensor(1.3, device="cuda")
+    for m, n in shapes:
+        wide = torch.randn((m, 4, n), generator=gen, device="cuda")
+        wide[:, 1:3] *= 0.5
+        cloud = wide[:, :3]
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+        zero = torch.zeros(m, device="cuda")
+        new0, _ = ucsv_propagate_reweight(seed, y, zero, zero, cloud)
+        if not torch.equal(new0[:, 1:], cloud[:, 1:]):
+            raise AssertionError(f"K6 {m}x{n}: with γ=0 the log-vol planes moved")
+
+        params = torch.tensor((0.3, 0.2), device="cuda").expand(m, 2).contiguous()
+        ge, gn = params[:, 0], params[:, 1]
+        raw = ucsv_propagate_reweight(seed, y, ge, gn, cloud)
+        norm = ucsv_propagate_reweight(seed, y, ge, gn, cloud, normalize=True)
+        new, logw = raw
+        if not torch.equal(norm[0], new):
+            raise AssertionError(f"K6 {m}x{n}: the normalize moved the state")
+        # the normalize ≡ a torch normalize of the raw log-weights
+        log_mean_ref, log_norm_ref, ess_ref = log_normalize(logw)
+        torch.testing.assert_close(norm[1], log_norm_ref, **tol)
+        torch.testing.assert_close(norm[2][:, 0], log_mean_ref + math.log(n), **tol)
+        torch.testing.assert_close(norm[3][:, 0], ess_ref, **tol)
+        # logw is the observation density at the returned state
+        zz = (y - new[:, 0]) * torch.exp(-0.5 * new[:, 2])
+        torch.testing.assert_close(logw, -0.5 * zz * zz - 0.5 * new[:, 2] - 0.5 * math.log(2 * math.pi),
+                                   **tol)
+        # the normals it drew, recovered from the state deltas, into the
+        # plain version; their moments show the update right
+        z = _recover_normals(torch, "ucsv", params, cloud, new)
+        err = 0.0
+        for normalize, got in ((False, raw), (True, norm)):
+            ref = ucsv_propagate_reweight_plain(y, ge, gn, cloud, z, normalize)
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, **tol)
+                err = max(err, (a - b).abs().max().item())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        moments = check_normals(torch, f"K6 {m}x{n}", z)
+        # θ-sharding: rows r.. at row_offset r are rows r.. of the full call
+        r = m // 2
+        half = ucsv_propagate_reweight(seed, y, ge[r:], gn[r:], cloud[r:], row_offset=r,
+                                       normalize=True)
+        if not all(torch.equal(a, b[r:]) for a, b in zip(half, norm)):
+            raise AssertionError(f"K6 {m}x{n}: rows at row_offset {r} differ from the full call's")
+        # against K2's UC-SV instance at the same seed
+        diff, bitwise = 0.0, True
+        for normalize, k6 in ((False, raw), (True, norm)):
+            k2 = fused_elementwise_step(UCSV_UPDATE, params, cloud, y, seed=seed,
+                                        normalize=normalize)
+            for a, b in zip(k6, k2):
+                torch.testing.assert_close(a, b, **tol)
+                diff = max(diff, (a - b).abs().max().item())
+                bitwise = bitwise and torch.equal(a, b)
+        out["k2_max_abs_diff"] = max(out["k2_max_abs_diff"], diff)
+        out["k2_bitwise"] = out["k2_bitwise"] and bitwise
+        say("K6", shape=f"{m}x{n}", max_abs_err=err, k2_max_abs_diff=diff, k2_bitwise=bitwise,
+            **moments)
+
+        def plain(normalize):
+            zz = torch.randn((3, m, n), generator=gen, device="cuda")
+            return ucsv_propagate_reweight_plain(y, ge, gn, cloud, zz, normalize)
+
+        bound = bound_ms(*propagate_cost(m, n, 3, 2, False))
+        for label, normalize in (("", False), ("normalized_", True)):
+            out[f"{label}{m}x{n}"] = (
+                time_ms(torch, lambda: ucsv_propagate_reweight(seed, y, ge, gn, cloud,
+                                                               normalize=normalize)),
+                time_ms(torch, lambda: plain(normalize)), *bound)
+            out[f"k2_{label}{m}x{n}"] = (
+                time_ms(torch, lambda: fused_elementwise_step(UCSV_UPDATE, params, cloud, y,
+                                                              seed=seed, normalize=normalize)),
+                out[f"{label}{m}x{n}"][1], *bound)
+        say("K6", shape=f"{m}x{n}", ms=out[f"{m}x{n}"][0],
+            ms_normalized=out[f"normalized_{m}x{n}"][0], k2_ucsv_raw_ms=out[f"k2_{m}x{n}"][0],
+            k2_ucsv_normalized_ms=out[f"k2_normalized_{m}x{n}"][0],
+            plain_ms=out[f"{m}x{n}"][1], bound_ms=bound[0])
+    return out
+
+
+def check_k3_grids(torch, gen, res):
+    """K3 on the systematic grid u = (i + u0)/N in f32 that K9's v7 builds
+    in-kernel (512×8192, C=3: no ancestor may differ from the plain
+    version's), and at K8's and K9's default tilings (512×2048, 512×4096,
+    C=3), under flat, skewed and point-mass weights; the latter two timed
+    into ``res``."""
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+    )
+
+    for label, m, n in (("v7", 512, 8192), ("K8/K9 tiling", 512, 2048),
+                        ("K8/K9 tiling", 512, 4096)):
+        xs = torch.randn((m, 3, n), generator=gen, device="cuda")
+        u0 = torch.rand((m, 1), generator=gen, device="cuda")
+        u = (torch.arange(n, device="cuda", dtype=torch.float32) + u0) / n
+        profiles = weight_profiles(torch, gen, m, n)
+        for name, w in profiles.items():
+            limit = 0 if label == "v7" else 1e-3 * m * n
+            mismatches, err = check_k3_case(torch, f"{label} {m}x{n} {name}", u, w, xs, limit, res)
+            say("K3", grid=label, shape=f"{m}x{n}", c=3, weights=name,
+                anc_mismatches=mismatches, max_abs_err_on_agreeing=err)
+        if label != "v7":
+            w = profiles["skewed"]
+            res[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
+                               time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
+                               *bound_ms(*resample_cost(m, n, 3, grid=True)))
+            say("K3", grid=label, shape=f"{m}x{n}", c=3, ms=res[f"{m}x{n}"][0],
+                plain_ms=res[f"{m}x{n}"][1], bound_ms=res[f"{m}x{n}"][2])
+
+
+def run_apf_smc2(torch, model_fn, prior_spec, y, chain: int, seed: int):
+    """Online SMC² (M=512, N=1024) with APF inner filters through the public
+    entry points: (state, infos, wall-clock s, launch counts)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=chain, ess_threshold=0.5,
+                        inner=smc.PFConfig(*APF))
+    sampler = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cuda"), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, infos = sampler.run(gen, y)
+    torch.cuda.synchronize()
+    return state, infos, time.perf_counter() - t0, launch_counts()
+
+
+def check_apf_smc2(torch, label, model_fn, prior_spec, y, chain, k_propagate, ref_mean, ref_sd):
+    """One checked APF SMC² run (seed 0): launch counts (one resample and
+    one propagate launch per inner step, T − 1 online steps plus
+    chain·(t_r − 1) per rejuvenation at t_r), a finite θ-ESS and the
+    posterior mean within 5·sd·√(1 + 1/8) of the JAX package's; then a warm
+    run of seed 1, timed. Returns (state, counts, posterior mean)."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    state, infos, wall, counts = run_apf_smc2(torch, model_fn, prior_spec, y, chain, SEED)
+    rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
+    expected = (y.shape[0] - 1) + sum(chain * (t - 1) for t in rejuv_t)
+    expect_counts(f"apf ({label})", counts, {"resample_count": expected, k_propagate: expected})
+    ess = state.ess.item()
+    if not math.isfinite(ess):
+        raise AssertionError(f"apf ({label}): θ-ESS is {ess}")
+    mean = smc.expected_parameters(state).cpu().numpy()
+    tol = TOL_Z * np.asarray(ref_sd) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    if not np.all(np.abs(mean - np.asarray(ref_mean)) <= tol):
+        raise AssertionError(f"apf ({label}): posterior mean {mean} vs JAX {ref_mean} beyond {tol}")
+    _, _, wall2, _ = run_apf_smc2(torch, model_fn, prior_spec, y, chain, SEED + 1)
+    say("apf", run=label, shape=f"{DT_M}x{DT_N}", T=y.shape[0], chain=chain,
+        wall_s=round(wall, 4), warm_wall_s_seed1=round(wall2, 4), rejuvenations=len(rejuv_t),
+        launches=expected, ess=round(ess, 3), posterior_mean=np.round(mean, 5).tolist(),
+        jax_apf_mean=list(ref_mean), tolerance=np.round(tol, 5).tolist())
+    return state, counts, mean
+
+
+def check_apf(torch):
+    """The auxiliary particle filter on the main paths: (a) SMC² on UC-SV
+    at the slice's configuration (K1 + K6), (b) the README's APF SMC² on LG
+    (K1 + K2-LG raw), (c) 512 parallel APF filters on LG, Hodrick–Prescott,
+    SV and UC-SV. Returns the launch counts of the runs."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    # (a) the same posterior as the slice's bootstrap run, so also held
+    # against the bootstrap's JAX mean with the slice's tolerance (the JAX
+    # APF's 8 seeds spread too widely to gate much: PERF.md §7)
+    _, total, mean = check_apf_smc2(torch, "ucsv", smc.ucsv_model, PRIOR_SPEC,
+                                    series(torch, "cuda"), CHAIN, "ucsv_propagate",
+                                    APF_JAX_MEAN, APF_JAX_SD)
+    boot_tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    distance = np.abs(mean - np.asarray(JAX_MEAN)) / boot_tol
+    if not np.all(distance <= 1.0):
+        raise AssertionError(f"apf (ucsv): posterior mean {mean} vs the bootstrap's JAX mean"
+                             f" {JAX_MEAN} beyond {boot_tol}")
+    say("apf", run="ucsv", bootstrap_jax_mean=JAX_MEAN,
+        distance_in_bootstrap_tolerances=np.round(distance, 4).tolist())
+
+    # (b) LG: the posterior, and the final θ-cloud's log Z against the Kalman filter's
+    y = torch.tensor(lg_series(), device="cuda")
+    state, counts, _ = check_apf_smc2(torch, "lg", smc.lg_model, LG_PRIOR_SPEC, y, DT_CHAIN,
+                                      "fused_propagate_lg1_raw", APF_LG_JAX_MEAN, APF_LG_JAX_SD)
+    total = {k: v + counts[k] for k, v in total.items()}
+    dz = state.log_z - smc.kalman_log_likelihood(smc.lg_model(state.theta), y)[1]
+    median = dz.median().item()
+    if not (torch.all(torch.isfinite(dz)) and abs(median) < 2.0):
+        raise AssertionError(f"apf (lg): median log Z − Kalman {median}")
+    say("apf", run="lg", median_logz_minus_kalman=round(median, 5))
+
+    # (c) 512 parallel APF filters, as the filters phase, and on UC-SV
+    counts = check_filters(torch, "apf", seed=6)
+    total = {k: v + counts[k] for k, v in total.items()}
+    counts = check_ucsv_banks(torch, seed=9)
+    return {k: v + counts[k] for k, v in total.items()}
+
+
+def check_ucsv_banks(torch, seed: int):
+    """512 UC-SV filters at θ = JAX_MEAN on the slice's series (N=1024,
+    T=241), bootstrap (K1 + K2-UC-SV) and APF (K1 on the cloud with the
+    lookahead plane + K6): each bank's mean log Ẑ against the JAX package's
+    bank at the same θ (UCSV_BANK_JAX) within 5 combined standard errors.
+    Both filters are unbiased for the same Z, but the APF's correction
+    weights are heavy-tailed on UC-SV (its lookahead at the transition mean
+    is narrower than the predictive), so the delta method's mean + var/2
+    understates its log E[Ẑ], by about 0.4–0.5 here as in the JAX
+    package's APF: that difference is printed, not gated (PERF.md §7).
+    Returns the runs' launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    models = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
+    y, steps = series(torch, "cuda"), T - 1
+    total, delta = None, {}
+    for i, (alg, k_propagate) in enumerate((("bootstrap", "fused_propagate_ucsv"),
+                                            ("apf", "ucsv_propagate"))):
+        lz, wall, counts = run_filters(torch, models, y, ("systematic", 1.0, None, alg), seed + i)
+        expect_counts(f"apf (ucsv bank, {alg})", counts, {"resample_count": steps,
+                                                          k_propagate: steps})
+        mean, var = lz.mean().item(), lz.var().item()
+        ref_mean, ref_var, ref_rows = UCSV_BANK_JAX[alg]
+        se = math.sqrt(var / DT_M + ref_var / ref_rows)
+        if abs(mean - ref_mean) > 5 * se:
+            raise AssertionError(f"apf (ucsv bank, {alg}): mean log Z {mean} vs JAX {ref_mean}"
+                                 f" beyond 5·{se}")
+        delta[alg] = (mean + var / 2, var / DT_M + var**2 / (2 * (DT_M - 1)))
+        say("apf", model="ucsv", filter=alg, rows=DT_M, n=DT_N, T=T, wall_s=round(wall, 4),
+            logz_mean=round(mean, 5), logz_var=round(var, 5), jax_logz_mean=ref_mean,
+            jax_logz_var=ref_var, five_se=round(5 * se, 5), launches=steps)
+        total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+    diff = delta["apf"][0] - delta["bootstrap"][0]
+    say("apf", model="ucsv", apf_minus_bootstrap_delta_method=round(diff, 5),
+        combined_se=round(math.sqrt(delta["apf"][1] + delta["bootstrap"][1]), 5))
+    return total
 
 
 def main() -> int:
@@ -669,7 +1040,7 @@ def main() -> int:
     # -- 3 to 6. kernels against their plain versions
     shapes = [(512, 1024), (512, 8192)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    k1 = check_k1(torch, shapes, gen)
+    k1 = check_k1(torch, [(m, n, c) for c in (3, 4, 2) for m, n in shapes], gen)
     k2 = check_k2(torch, shapes, gen)
     k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1)], gen)
     k2i = check_k2_instances(torch, shapes, gen)
@@ -716,11 +1087,21 @@ def main() -> int:
     # -- 9. parallel filters
     filter_counts = check_filters(torch)
 
-    # launches of each kernel over the main paths (slice, dt, filters), each
-    # read just after its run
-    launches = {k: slice_counts[k] + dt_counts[k] + filter_counts[k] for k in slice_counts}
+    # -- 10 to 12. K6, K2's route without the normalize, K3 on K7–K9's grids
+    k6 = check_k6(torch, shapes, gen)
+    k2r = check_k2_instances(torch, shapes, gen, names=("ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw"))
+    check_k3_grids(torch, gen, k3)
+
+    # -- 13. the auxiliary particle filter
+    apf_counts = check_apf(torch)
+
+    # launches of each kernel over the main paths (slice, dt, filters, apf),
+    # each read just after its run
+    launches = {k: slice_counts[k] + dt_counts[k] + filter_counts[k] + apf_counts[k]
+                for k in slice_counts}
     for name, n in launches.items():
-        if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry") and n == 0:
+        if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",
+                        "fused_propagate_ucsv_raw") and n == 0:
             raise AssertionError(f"kernel {name} was not launched on any path")
 
     def entry(name, route, source, replaces, res, key="512x1024"):
@@ -729,14 +1110,16 @@ def main() -> int:
              "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         for other, val in res.items():
-            if other not in (key, "max_abs_err", "anc_mismatch"):
+            if other in (key, "max_abs_err", "anc_mismatch"):
+                continue
+            if isinstance(val, tuple):
                 e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"] = val[:3]
+            else:
+                e[other] = val
         return e
 
     pkg = "sequential_monte_carlo_tpu_torch"
     propagate = "sequential_monte_carlo_tpu/kernels/propagate_pallas.py:48"
-    k1["512x1024"] += bound_ms(*resample_cost(512, 1024, 3, grid=False))
-    k1["512x8192"] += bound_ms(*resample_cost(512, 8192, 3, grid=False))
     for shape, (m, n) in (("512x1024", (512, 1024)), ("512x8192", (512, 8192))):
         k2[shape] += bound_ms(*propagate_cost(m, n, 3, 2, False))
     kernels = [
@@ -745,12 +1128,21 @@ def main() -> int:
         entry("resample_sorted", "cuda", f"{pkg}/csrc/resample_sorted.cu",
               "sequential_monte_carlo_tpu/kernels/resample_walk.py:125; "
               "sequential_monte_carlo_tpu/kernels/resample_pallas.py:74; "
-              "sequential_monte_carlo_tpu/kernels/resample_pallas.py:180", k3),
+              "sequential_monte_carlo_tpu/kernels/resample_pallas.py:180; "
+              "benchmarks/ablations/resample_take_walk.py:123; "
+              "benchmarks/ablations/resample_banded.py:148; "
+              "benchmarks/proto_walk4.py:98; benchmarks/proto_walk4.py:300; "
+              "benchmarks/proto_walk4.py:413; benchmarks/proto_walk4.py:531", k3),
         entry("fused_propagate_ucsv", "triton", f"{pkg}/kernels/propagate.py", propagate, k2),
+        entry("ucsv_propagate", "cuda", f"{pkg}/csrc/ucsv_propagate.cu",
+              "sequential_monte_carlo_tpu/kernels/ucsv_pallas.py:54", k6),
     ]
     for inst in ("lg1", "lg1_carry", "lg2", "sv"):
         kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
                              propagate, k2i[inst]))
+    for inst in ("lg1_raw", "lg2_raw", "sv_raw"):
+        kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
+                             propagate, k2r[inst]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,10 +3,11 @@
 TruncatedNormal, Uniform, Product and TupleProduct.
 
 Each distribution is a frozen dataclass of tensors with
-``sample(generator, sample_shape)``, ``log_prob(x)`` and ``in_support(x)``
-that broadcast over batch shapes, as in the JAX package. Draws come from an
-explicit ``torch.Generator`` on the parameters' device (the counterpart of
-a ``jax.random`` key). Conventions match Distributions.jl: ``Normal``'s
+``sample(generator, sample_shape)``, ``log_prob(x)``, ``in_support(x)`` and
+``mean()`` (and ``variance()`` where the JAX package has it) that broadcast
+over batch shapes, as in the JAX package. Draws come from an explicit
+``torch.Generator`` on the parameters' device (the counterpart of a
+``jax.random`` key). Conventions match Distributions.jl: ``Normal``'s
 ``scale`` is the standard deviation.
 """
 from __future__ import annotations
@@ -18,6 +19,11 @@ import torch
 from ..utils.struct import struct
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _std_pdf(t):
+    """The standard normal density φ(t)."""
+    return torch.exp(-0.5 * t * t) / math.sqrt(2.0 * math.pi)
 
 
 @struct
@@ -43,6 +49,12 @@ class Normal:
 
     def in_support(self, x):
         return torch.isfinite(x)
+
+    def mean(self):
+        return self.loc.expand(self.batch_shape)
+
+    def variance(self):
+        return (self.scale**2).expand(self.batch_shape)
 
 
 @struct
@@ -70,6 +82,9 @@ class LogNormal:
 
     def in_support(self, x):
         return x > 0
+
+    def mean(self):
+        return torch.exp(self.mu + 0.5 * self.sigma**2)
 
 
 @struct
@@ -110,6 +125,23 @@ class TruncatedNormal:
     def in_support(self, x):
         return (x >= self.low) & (x <= self.high)
 
+    def mean(self):
+        fa, fb = self._cdf_bounds()
+        a = (self.low - self.loc) / self.scale
+        b = (self.high - self.loc) / self.scale
+        return self.loc + self.scale * (_std_pdf(a) - _std_pdf(b)) / (fb - fa)
+
+    def variance(self):
+        """σ²·[1 + (αφ(α) − βφ(β))/Z − ((φ(α) − φ(β))/Z)²] with
+        Z = Φ(β) − Φ(α); the t·φ(t) terms vanish at infinite bounds."""
+        fa, fb = self._cdf_bounds()
+        z = fb - fa
+        a = (self.low - self.loc) / self.scale
+        b = (self.high - self.loc) / self.scale
+        tphi = lambda t: torch.where(torch.isfinite(t), t * _std_pdf(t), 0.0)  # noqa: E731
+        m1 = (_std_pdf(a) - _std_pdf(b)) / z
+        return self.scale**2 * (1.0 + (tphi(a) - tphi(b)) / z - m1 * m1)
+
 
 @struct
 class Uniform:
@@ -135,6 +167,9 @@ class Uniform:
     def in_support(self, x):
         return (x >= self.low) & (x <= self.high)
 
+    def mean(self):
+        return 0.5 * (self.low + self.high)
+
 
 @struct
 class Product:
@@ -155,6 +190,9 @@ class Product:
 
     def in_support(self, x):
         return torch.all(self.base.in_support(x), dim=-1)
+
+    def mean(self):
+        return self.base.mean()
 
 
 @struct
@@ -182,6 +220,10 @@ class TupleProduct:
         for i, c in enumerate(self.components[1:], start=1):
             out = out & c.in_support(x[..., i])
         return out
+
+    def mean(self):
+        return torch.stack([c.mean().expand(self.batch_shape) for c in self.components],
+                           dim=-1)
 
 
 def product_distribution(dists) -> TupleProduct:

@@ -99,3 +99,6 @@ class MvNormal:
 
     def in_support(self, x):
         return torch.all(torch.isfinite(x), dim=-1)
+
+    def mean(self):
+        return self.mean_.expand(tuple(self.batch_shape) + (self.event_dim,))

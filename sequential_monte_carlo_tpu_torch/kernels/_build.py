@@ -78,11 +78,14 @@ def library() -> ctypes.CDLL:
             obj.unlink()
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("smc_resample_count", "smc_resample_sorted"):
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
         fn.restype = i32
+    lib.smc_ucsv_propagate.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i64,
+                                       ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.smc_ucsv_propagate.restype = i32
     lib.smc_error_string.argtypes = [i32]
     lib.smc_error_string.restype = ctypes.c_char_p
     return lib

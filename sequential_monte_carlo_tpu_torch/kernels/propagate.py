@@ -2,22 +2,26 @@
 filter step.
 
 Counterpart of ``sequential_monte_carlo_tpu/kernels/propagate_pallas.py::
-fused_elementwise_step`` with ``normalize=True``. For every θ-row m and
-particle i it draws the model's N(0, 1) normals, applies the model's
-elementwise update (new state planes and the observation log-weight), adds
-the optional carried log-weights ``carry_logw`` (the adaptive-resampling
-route, where the pre-propagate weights are not the constant −log N), and
-then normalizes each row:
+fused_elementwise_step``. For every θ-row m and particle i it draws the
+model's N(0, 1) normals, applies the model's elementwise update (new state
+planes and the observation log-weight), adds the optional carried
+log-weights ``carry_logw`` (the adaptive-resampling route, where the
+pre-propagate weights are not the constant −log N), and then normalizes each
+row:
 
     lse_m = log Σ_i exp(logw_mi),  log_norm = logw − lse,
     ess_m = (Σ e)² / Σ e²   with e = exp(logw − max_m).
 
+With ``normalize=False`` (the auxiliary particle filter's second stage,
+which corrects the log-weights before it normalizes) the kernel stores the
+raw log-weights and skips the normalize, as the JAX builder does.
+
 The kernel is Triton (:func:`_triton_kernels`). What bounds it on the H100:
 memory. It reads the cloud (and the carry), writes the new cloud and
-log_norm: (2S + 1 + carry)·4·M·N bytes counted once each (UC-SV, S=3:
-15 MB at M=512, N=1024, 117 MB at N=8192; LG dx=1 with carry: 8.4 MB at
-512×1024), a few µs at 3.35 TB/s, so at these sizes launch overhead
-dominates. Pass 2 rereads and rewrites log_norm, mostly from L2.
+log_norm (or the raw logw): (2S + 1 + carry)·4·M·N bytes counted once each
+(UC-SV, S=3: 15 MB at M=512, N=1024, 117 MB at N=8192; LG dx=1 with carry:
+8.4 MB at 512×1024), a few µs at 3.35 TB/s, so at these sizes launch
+overhead dominates. Pass 2 rereads and rewrites log_norm, mostly from L2.
 Design: one program per θ-row loops over N in blocks. Pass 1 draws the
 normals in registers (Philox, ``tl.philox``), runs the update, stores the
 new planes and the raw log-weights, and keeps an online max with rescaled
@@ -68,7 +72,7 @@ class ElementwiseUpdate(NamedTuple):
 
 
 def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
-                                 normals, carry_logw=None):
+                                 normals, carry_logw=None, normalize: bool = True):
     """Plain version with injected normals.
 
     Args:
@@ -77,14 +81,18 @@ def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
       y: scalar observation (0-d tensor).
       normals: (n_normals, M, N) standard-normal draws.
       carry_logw: optional (M, N) log-weights added before the normalize.
+      normalize: False returns the raw log-weights.
 
-    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
+    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)),
+    or (new state, logw (M, N)) with ``normalize=False``.
     """
     par = tuple(params[:, i:i + 1] for i in range(params.shape[1]))
     planes = tuple(state[:, s] for s in range(state.shape[1]))
     new, logw = update.plain(par, y, planes, tuple(normals))
     if carry_logw is not None:
         logw = logw + carry_logw
+    if not normalize:
+        return torch.stack(new, dim=1), logw
     mx = torch.amax(logw, dim=-1, keepdim=True)
     e = torch.exp(logw - mx)
     s = torch.sum(e, dim=-1, keepdim=True)
@@ -171,15 +179,16 @@ def _triton_kernels() -> types.SimpleNamespace:
 
     @triton.jit
     def step_kernel(par_ptr, st_ptr, new_ptr, carry_ptr, lognorm_ptr, lse_ptr,
-                    ess_ptr, y_ptr, seed_ptr, row_offset, n,
+                    ess_ptr, y_ptr, seed_ptr, row_offset, n, st_row_stride,
                     P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
-                    HAS_CARRY: tl.constexpr, BLOCK: tl.constexpr):
+                    HAS_CARRY: tl.constexpr, NORMALIZE: tl.constexpr,
+                    BLOCK: tl.constexpr):
         row = tl.program_id(0)
         y = tl.load(y_ptr)
         seed = tl.load(seed_ptr)
         grow = (row + row_offset).to(tl.uint32)
         par = par_ptr + row * P
-        st = st_ptr + row.to(tl.int64) * S * n
+        st = st_ptr + row.to(tl.int64) * st_row_stride
         new = new_ptr + row.to(tl.int64) * S * n
         ln = lognorm_ptr + row.to(tl.int64) * n
         carry = carry_ptr + row.to(tl.int64) * n
@@ -200,27 +209,31 @@ def _triton_kernels() -> types.SimpleNamespace:
             logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
             if HAS_CARRY:
                 logw = logw + tl.load(carry + offs, mask=mask, other=0.0)
-            logw = tl.where(mask, logw, neg_inf)
-            tl.store(ln + offs, logw, mask=mask)
-            m_new = tl.maximum(m_run, logw)
-            alpha = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - m_new))
-            e = tl.where(logw == neg_inf, 0.0, tl.exp(logw - m_new))
-            s1 = s1 * alpha + e
-            s2 = s2 * alpha * alpha + e * e
-            m_run = m_new
-        mx = tl.max(m_run, axis=0)
-        scale = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - mx))
-        t1 = tl.sum(s1 * scale, axis=0)
-        t2 = tl.sum(s2 * scale * scale, axis=0)
-        lse = mx + tl.log(t1)
-        tl.store(lse_ptr + row, lse)
-        tl.store(ess_ptr + row, (t1 * t1) / t2)
-        tl.debug_barrier()  # pass 1's stores are visible to every thread
-        for start in range(0, n, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            mask = offs < n
-            lw = tl.load(ln + offs, mask=mask)
-            tl.store(ln + offs, lw - lse, mask=mask)
+            if NORMALIZE:
+                logw = tl.where(mask, logw, neg_inf)
+                tl.store(ln + offs, logw, mask=mask)
+                m_new = tl.maximum(m_run, logw)
+                alpha = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - m_new))
+                e = tl.where(logw == neg_inf, 0.0, tl.exp(logw - m_new))
+                s1 = s1 * alpha + e
+                s2 = s2 * alpha * alpha + e * e
+                m_run = m_new
+            else:  # the raw log-weights, no normalize
+                tl.store(ln + offs, logw, mask=mask)
+        if NORMALIZE:
+            mx = tl.max(m_run, axis=0)
+            scale = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - mx))
+            t1 = tl.sum(s1 * scale, axis=0)
+            t2 = tl.sum(s2 * scale * scale, axis=0)
+            lse = mx + tl.log(t1)
+            tl.store(lse_ptr + row, lse)
+            tl.store(ess_ptr + row, (t1 * t1) / t2)
+            tl.debug_barrier()  # pass 1's stores are visible to every thread
+            for start in range(0, n, BLOCK):
+                offs = start + tl.arange(0, BLOCK)
+                mask = offs < n
+                lw = tl.load(ln + offs, mask=mask)
+                tl.store(ln + offs, lw - lse, mask=mask)
 
     return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update, sv=sv_update,
                                  lg1=lg1_update, lg2=lg2_update,
@@ -246,32 +259,40 @@ def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != state.device:
             raise ValueError(f"{name} is on {t.device}, state on {state.device}")
-        if not t.is_contiguous():
+        if name != "state" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if state.stride(2) != 1 or state.stride(1) != state.shape[2]:
+        raise ValueError("state's planes must be contiguous rows of N")
 
 
 def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
                            seed=None, normals=None, row_offset: int = 0,
-                           carry_logw=None):
-    """One fused propagate + reweight + normalize step for all (M, N)
+                           carry_logw=None, normalize: bool = True):
+    """One fused propagate + reweight (+ normalize) step for all (M, N)
     particles.
 
     Args:
       update: the model's :class:`ElementwiseUpdate`.
       params: (M, P) f32 per-θ parameters.
-      state: (M, S, N) f32 state planes.
+      state: (M, S, N) f32 state planes, contiguous within a row; rows may
+        be strided (a view of a wider cloud is not copied).
       y: the observation, a one-element f32 tensor on the state's device.
       seed: (1,) int64 Philox seed on the device (CUDA tensors).
       normals: (n_normals, M, N) f32 draws (CPU tensors: the plain version).
       row_offset: global index of row 0 (θ-sharding), for the draws.
       carry_logw: optional (M, N) f32 carried log-weights, added to the
         observation log-weights before the normalize; the returned lse is
-        then log Σ exp(carry + logw).
+        then log Σ exp(carry + logw). Requires ``normalize``.
+      normalize: False skips the normalize and returns the raw log-weights.
 
-    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)).
-    CUDA launches are counted per instance (the update's name, ``_carry``
-    appended on the carry route) in ``fused_elementwise_step.instance_launches``.
+    Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)),
+    or (new state, logw (M, N)) with ``normalize=False``. CUDA launches are
+    counted per instance (the update's name, with ``_carry`` appended on the
+    carry route and ``_raw`` on the route without normalize) in
+    ``fused_elementwise_step.instance_launches``.
     """
+    if carry_logw is not None and not normalize:
+        raise ValueError("carry_logw requires normalize=True")
     if state.device.type == "cpu":
         if normals is None:
             raise ValueError("on the CPU the plain version takes injected normals")
@@ -279,7 +300,7 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
         if tuple(normals.shape) != (update.n_normals,) + tuple(state.shape[::2]):
             raise ValueError(f"normals must be (n_normals, M, N), got {tuple(normals.shape)}")
         return fused_elementwise_step_plain(update, params, state, y, normals,
-                                            carry_logw)
+                                            carry_logw, normalize)
     if state.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.device}")
     if seed is None:
@@ -289,17 +310,21 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     k = _triton_kernels()
     new = torch.empty_like(state)
     log_norm = torch.empty((m, n), device=state.device, dtype=torch.float32)
-    lse = torch.empty((m, 1), device=state.device, dtype=torch.float32)
-    ess = torch.empty((m, 1), device=state.device, dtype=torch.float32)
+    # lse and ess: (M, 1) outputs of the normalize; unused pointers without it
+    lse = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
+    ess = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
     block = min(k.next_power_of_2(n), 1024)
     has_carry = carry_logw is not None
     with torch.cuda.device(state.device):
         k.step[(m,)](params, state, new, carry_logw if has_carry else log_norm,
-                     log_norm, lse, ess, y, seed, row_offset, n,
+                     log_norm, lse, ess, y, seed, row_offset, n, state.stride(0),
                      P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
-                     HAS_CARRY=has_carry, BLOCK=block, num_warps=4)
+                     HAS_CARRY=has_carry, NORMALIZE=normalize, BLOCK=block,
+                     num_warps=4)
     fused_elementwise_step.instance_launches[
-        update.triton + ("_carry" if has_carry else "")] += 1
+        update.triton + ("_carry" if has_carry else "") + ("" if normalize else "_raw")] += 1
+    if not normalize:
+        return new, log_norm
     return new, log_norm, lse, ess
 
 

@@ -33,13 +33,17 @@ _CDF_LAST = 1.0 + 1e-6  # the last bucket covers every u < 1
 
 
 def systematic_uniforms(generator, m: int, n: int, device=None) -> torch.Tensor:
-    """Per-row systematic grids u_i = (i + u0)/n, one u0 per row, (m, n)."""
+    """Per-row systematic grids u_i = (i + u0)/n, one u0 per row, (m, n), on
+    ``device`` or, when it is not given, on the generator's device."""
+    device = generator.device if device is None else device
     u0 = torch.rand((m, 1), generator=generator, device=device)
     return (torch.arange(n, device=device, dtype=torch.float32) + u0) / n
 
 
 def stratified_uniforms(generator, m: int, n: int, device=None) -> torch.Tensor:
-    """Per-row stratified grids u_i = (i + v_i)/n, (m, n)."""
+    """Per-row stratified grids u_i = (i + v_i)/n, (m, n), on ``device`` or,
+    when it is not given, on the generator's device."""
+    device = generator.device if device is None else device
     v = torch.rand((m, n), generator=generator, device=device)
     return (torch.arange(n, device=device, dtype=torch.float32) + v) / n
 

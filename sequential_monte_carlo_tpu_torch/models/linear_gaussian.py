@@ -123,15 +123,17 @@ class LinearGaussianModel:
                          dim=1).contiguous()
 
     def fused_propagate_reweight(self, y, cloud, seed=None, normals=None,
-                                 carry_logw=None, params=None):
-        """Propagate + reweight + normalize the θ-cloud's (M, dx, N) planar
-        cloud through kernel 2 (``params`` from :meth:`fused_params`, packed
-        here when not given). Returns (new cloud, log_norm (M, N),
-        lse (M, 1), ess (M, 1))."""
+                                 carry_logw=None, params=None, normalize=True):
+        """Propagate + reweight (+ normalize) the θ-cloud's (M, dx, N)
+        planar cloud through kernel 2 (``params`` from :meth:`fused_params`,
+        packed here when not given). Returns (new cloud, log_norm (M, N),
+        lse (M, 1), ess (M, 1)), or with ``normalize=False`` (new cloud,
+        logw (M, N))."""
         if params is None:
             params = self.fused_params()
         return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
-                                      normals=normals, carry_logw=carry_logw)
+                                      normals=normals, carry_logw=carry_logw,
+                                      normalize=normalize)
 
 
 def _as_tensors(*vals, device="cuda"):

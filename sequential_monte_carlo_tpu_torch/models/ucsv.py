@@ -9,9 +9,11 @@ counterpart of ``sequential_monte_carlo_tpu/models/ucsv.py``.
   y_t      ~ N(x_t,          exp(½ log ση,t))
 
 A model's fields are tensors of one shape: scalars for one θ, (M,) for the
-θ-cloud (``ucsv_model`` of an (M, 4) θ). The propagate + reweight step runs
-through the fused kernel (``kernels/propagate.py``) with :func:`ucsv_update`
-as its per-particle math.
+θ-cloud (``ucsv_model`` of an (M, 4) θ). The propagate + reweight +
+normalize step runs through the fused kernel (``kernels/propagate.py``) with
+:func:`ucsv_update` as its per-particle math; the step without the normalize
+(the auxiliary particle filter's second stage) runs through the hand-written
+UC-SV kernel (``kernels/ucsv.py``), which draws the same normals.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from ..distributions import Normal, TupleProduct
 from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
+from ..kernels.ucsv import ucsv_propagate_reweight
 from ..utils.struct import struct
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -62,6 +65,14 @@ class UCSVModel:
             Normal(self.log_sigma_eta0, self.gamma_eta),
         ))
 
+    def transition_distribution(self, s):
+        x, log_se, log_sn = s[..., 0], s[..., 1], s[..., 2]
+        return TupleProduct((
+            Normal(x, torch.exp(0.5 * log_se)),
+            Normal(log_se, self.gamma_eps),
+            Normal(log_sn, self.gamma_eta),
+        ))
+
     def observation_distribution(self, s):
         return Normal(s[..., 0], torch.exp(0.5 * s[..., 2]))
 
@@ -71,14 +82,20 @@ class UCSVModel:
         return torch.stack([self.gamma_eps.expand(m), self.gamma_eta.expand(m)], dim=1)
 
     def fused_propagate_reweight(self, y, cloud, seed=None, normals=None,
-                                 carry_logw=None, params=None):
-        """Propagate + reweight + normalize the θ-cloud's (M, 3, N) planar
-        cloud through kernel 2. Returns (new cloud, log_norm (M, N),
-        lse (M, 1), ess (M, 1))."""
+                                 carry_logw=None, params=None, normalize=True):
+        """Propagate + reweight the θ-cloud's (M, 3, N) planar cloud. With
+        ``normalize`` (kernel 2) returns (new cloud, log_norm (M, N),
+        lse (M, 1), ess (M, 1)); without (the UC-SV kernel, which takes no
+        carried log-weights) returns (new cloud, logw (M, N))."""
         if params is None:
             params = self.fused_params()
-        return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
-                                      normals=normals, carry_logw=carry_logw)
+        if normalize:
+            return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
+                                          normals=normals, carry_logw=carry_logw)
+        if carry_logw is not None:
+            raise ValueError("carry_logw requires normalize=True")
+        return ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], cloud,
+                                       normals=normals)
 
 
 def ucsv_model(theta: torch.Tensor) -> UCSVModel:

@@ -5,10 +5,21 @@ All M per-θ filters step as one (M, N) program. Every inner step is two
 hand-written kernels: a resample + ancestor gather — systematic by offsets
 u0 (``kernels/resample_walk.py``) or stratified on an explicit sorted grid
 (``kernels/resample_sorted.py``) — and the model's fused propagate +
-reweight + normalize (``kernels/propagate.py``). This covers the bootstrap
-filter with ``PFConfig("systematic" | "stratified", ess_threshold)``; other
-configurations raise ``NotImplementedError`` naming the ROADMAP item that
-adds them.
+reweight (``kernels/propagate.py``, or ``kernels/ucsv.py`` for the UC-SV
+auxiliary filter). This covers ``PFConfig("systematic" | "stratified",
+ess_threshold)`` with the bootstrap filter or, at ``ess_threshold`` 1, the
+auxiliary particle filter (``algorithm="apf"``); other configurations raise
+``NotImplementedError`` naming the ROADMAP item that adds them.
+
+Auxiliary particle filter (Pitt & Shephard 1999), ≡ the JAX package's
+``_batched_apf_step``: the first-stage weights look ahead through the
+transition mean, λ = log w + log g(y | E[x′ | x]) (plain tensor glue over the
+models' distributions); the resample kernel draws ancestors by λ and gathers
+the cloud with log g as one extra plane, so the ancestors' lookahead comes
+out of the same launch; the model's step without the normalize gives the
+raw log-weights of the propagated cloud, corrected by the ancestors'
+lookahead and normalized here, with the evidence increment
+log Σ exp(λ) + log mean exp(corr).
 
 Adaptive resampling (``ess_threshold < 1``): a row fires when its ESS
 1/Σw² falls below ``ess_threshold·N``. The step reads nothing on the host to
@@ -75,14 +86,31 @@ def from_cloud(cloud: torch.Tensor) -> torch.Tensor:
 
 
 def _check_config(config: PFConfig, active_n=None) -> None:
+    if config.algorithm not in ("bootstrap", "apf"):
+        raise ValueError(
+            f"unknown algorithm {config.algorithm!r}; one of ['bootstrap', 'apf']"
+        )
+    if config.algorithm == "apf":  # the JAX package's errors
+        if active_n is not None:
+            raise ValueError(
+                "algorithm='apf' is not defined for the elastic padded-N mode "
+                "(use elastic_pad='grow' samplers or bootstrap)"
+            )
+        if config.proposal is not None:
+            raise ValueError(
+                "algorithm='apf' propagates from the transition (the lookahead "
+                "replaces the proposal role); proposal= composes with the "
+                "bootstrap algorithm only"
+            )
+        if config.ess_threshold < 1.0:
+            raise ValueError(
+                "algorithm='apf' resamples by construction every step (the "
+                "first-stage lookahead IS the resample); ess_threshold < 1 "
+                "composes with the bootstrap algorithm only"
+            )
     if active_n is not None:
         raise NotImplementedError(
             "the elastic live-particle count active_n comes with ROADMAP "
-            "Queue 1 item 7"
-        )
-    if config.algorithm != "bootstrap":
-        raise NotImplementedError(
-            f"algorithm={config.algorithm!r}: the APF comes with ROADMAP "
             "Queue 1 item 7"
         )
     if config.proposal is not None:
@@ -99,8 +127,9 @@ def _check_config(config: PFConfig, active_n=None) -> None:
 
 def batched_pf_init(generator, models, n: int, m: int, y0,
                     config: PFConfig = PFConfig(), active_n=None) -> BatchedPFOut:
-    """Bootstrap init of all M filters at y0: N draws from each θ's initial
-    distribution, weighted by the observation density."""
+    """Init of all M filters at y0 (the bootstrap's, for the auxiliary
+    filter too): N draws from each θ's initial distribution, weighted by the
+    observation density."""
     _check_config(config, active_n)
     x = models.initial_distribution().sample(generator, (n,))  # (N, M, dx)
     if tuple(x.shape[:2]) != (n, m):
@@ -128,6 +157,14 @@ def _draws(generator, models, m: int, n: int, device,
     return u, rest
 
 
+def _propagate_draws(seed_or_normals) -> dict:
+    """The propagate kernel's draws: its Philox seed (an int64 tensor) or
+    its injected normals (a float tensor)."""
+    if seed_or_normals.dtype == torch.int64:
+        return {"seed": seed_or_normals}
+    return {"normals": seed_or_normals}
+
+
 def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
                         config: PFConfig = PFConfig(), params=None):
     """Deterministic core of :func:`batched_pf_step`: the resample kernel
@@ -145,12 +182,8 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         fire = 1.0 / torch.sum(w * w, dim=-1) < config.ess_threshold * n
         xp = torch.where(fire[:, None, None], xp, cloud)
         carry = torch.where(fire[:, None], -math.log(n), log_w)
-    if seed_or_normals.dtype == torch.int64:
-        draws = {"seed": seed_or_normals}
-    else:
-        draws = {"normals": seed_or_normals}
     new, log_norm, lse, ess = models.fused_propagate_reweight(
-        y, xp, carry_logw=carry, params=params, **draws)
+        y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals))
     # the evidence increment: with a carry (normalized weights), lse of
     # carry + logw; else the log-mean of the unnormalized weights (the
     # weights after resampling are all 1/N)
@@ -158,18 +191,48 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
 
 
+def apf_lookahead(models, particles, y) -> torch.Tensor:
+    """The auxiliary filter's lookahead log g(y | E[x′ | x]), (M, N), of the
+    (M, N, dx) particles."""
+    # the models' distributions take states with the θ axis just before the
+    # state axis: the (N, M, dx) view of the particles
+    mu = models.transition_distribution(particles.transpose(0, 1)).mean()
+    return models.observation_distribution(mu).log_prob(y).T
+
+
+def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
+                         config: PFConfig = PFConfig(), params=None):
+    """Deterministic core of the auxiliary particle filter's step (the
+    draws as in :func:`_pf_step_from_draws`): the lookahead, one resample
+    launch on the (M, dx + 1, N) cloud with the lookahead plane, the model's
+    step without the normalize on the split-off planes (a strided view, not
+    copied), then the correction and the normalize."""
+    n, dx = particles.shape[1], particles.shape[2]
+    log_n = math.log(n)
+    log_g_mu = apf_lookahead(models, particles, y)
+    lam_mean, lam_norm, _ = log_normalize(log_w + log_g_mu)
+    aug = torch.cat([as_cloud(particles), log_g_mu[:, None, :]], dim=1)
+    gathered = _RESAMPLE[config.resampling](u, torch.exp(lam_norm), aug)
+    new, incr = models.fused_propagate_reweight(y, gathered[:, :dx], params=params,
+                                                normalize=False,
+                                                **_propagate_draws(seed_or_normals))
+    corr_mean, log_norm, ess = log_normalize(incr - gathered[:, dx])
+    return BatchedPFOut(from_cloud(new), log_norm, lam_mean + log_n + corr_mean, ess)
+
+
 def batched_pf_step(generator, models, particles, log_w, y,
                     config: PFConfig = PFConfig(), params=None,
                     active_n=None) -> BatchedPFOut:
     """One filter step for all M clouds: resample (every row, or the rows
     whose ESS fell below ``config.ess_threshold``·N), propagate, reweight by
-    y and normalize. ``params``: ``models.fused_params()``, computed once by
-    callers that step the same models many times."""
+    y and normalize — or, with ``config.algorithm == "apf"``, the auxiliary
+    particle filter's step. ``params``: ``models.fused_params()``, computed
+    once by callers that step the same models many times."""
     _check_config(config, active_n)
     m, n, _ = particles.shape
     u, rest = _draws(generator, models, m, n, particles.device, config)
-    return _pf_step_from_draws(u, rest, models, particles, log_w, y, config,
-                               params)
+    step = _apf_step_from_draws if config.algorithm == "apf" else _pf_step_from_draws
+    return step(u, rest, models, particles, log_w, y, config, params)
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,

@@ -16,10 +16,16 @@ from sequential_monte_carlo_tpu_torch.kernels.propagate import (
 from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
     resample_gather_sorted,
     resample_gather_sorted_plain,
+    stratified_uniforms,
+    systematic_uniforms,
 )
 from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
     resample_gather,
     resample_gather_plain,
+)
+from sequential_monte_carlo_tpu_torch.kernels.ucsv import (
+    ucsv_propagate_reweight,
+    ucsv_propagate_reweight_plain,
 )
 from sequential_monte_carlo_tpu_torch.models.linear_gaussian import LG_UPDATES
 from sequential_monte_carlo_tpu_torch.models.stochastic_volatility import SV_UPDATE
@@ -36,7 +42,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("n", [1024, 8192])
-@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("c", [2, 3, 4])
 def test_resample_kernel_matches_plain(cuda, n, c):
     """Kernel 1: ancestors equal to the plain version's on all but < 1e-3
     of slots (both sum in f64), output ≡ xs gathered by them, one launch
@@ -69,9 +75,7 @@ def test_fused_step_kernel_matches_plain(cuda, n):
     y = torch.tensor(1.3, device=cuda)
     seed = torch.tensor([12345], device=cuda)
     new, log_norm, lse, ess = fused_elementwise_step(UCSV_UPDATE, params, state, y, seed=seed)
-    z = torch.stack([(new[:, 0] - state[:, 0]) / torch.exp(0.5 * state[:, 1]),
-                     (new[:, 1] - state[:, 1]) / params[:, :1],
-                     (new[:, 2] - state[:, 2]) / params[:, 1:]])
+    z = _recover_normals("ucsv", params, state, new)
     ref = fused_elementwise_step_plain(UCSV_UPDATE, params, state, y, z)
     for a, b in zip((new, log_norm, lse, ess), ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
@@ -139,6 +143,10 @@ def _assert_standard_normals(z):
 
 def _recover_normals(name, params, state, new):
     """The normals the kernel drew, from the state deltas."""
+    if name == "ucsv":
+        return torch.stack([(new[:, 0] - state[:, 0]) / torch.exp(0.5 * state[:, 1]),
+                            (new[:, 1] - state[:, 1]) / params[:, :1],
+                            (new[:, 2] - state[:, 2]) / params[:, 1:]])
     if name == "sv":
         mu, phi, sig = (params[:, i:i + 1] for i in range(3))
         return ((new[:, 0] - mu - phi * (state[:, 0] - mu)) / sig)[None]
@@ -179,3 +187,110 @@ def test_fused_step_instances_match_plain(cuda, n, name, carry):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert bool(torch.all(torch.isfinite(got[2])))
     _assert_standard_normals(z)
+
+
+@pytest.mark.parametrize("n", [1000, 8192])
+@pytest.mark.parametrize("name", ["ucsv", "lg1", "lg2", "sv"])
+def test_fused_step_raw_route_matches_plain(cuda, n, name):
+    """Kernel 2's route without the normalize (the auxiliary filter's
+    second stage), per instance, on a strided view of a wider cloud: the
+    plain version, fed the normals recovered from the kernel's state deltas,
+    gives its planes and raw log-weights to rtol 1e-5, those normals have
+    standard moments, and the launch is counted under the ``_raw`` key."""
+    rng = np.random.default_rng(11)
+    m = 512
+    if name == "ucsv":
+        update, p = UCSV_UPDATE, rng.uniform(0.05, 0.5, (m, 2))
+    else:
+        update, p = _instance(name, rng, m)
+    params = torch.tensor(p, dtype=torch.float32, device=cuda)
+    s = 3 if name == "ucsv" else update.n_normals
+    wide = torch.tensor(0.5 * rng.standard_normal((m, s + 1, n)), dtype=torch.float32, device=cuda)
+    state = wide[:, :s]
+    y = torch.tensor(0.6, device=cuda)
+    seed = torch.tensor([2468], device=cuda)
+    before = fused_elementwise_step.instance_launches[update.triton + "_raw"]
+    got = fused_elementwise_step(update, params, state, y, seed=seed, normalize=False)
+    assert fused_elementwise_step.instance_launches[update.triton + "_raw"] == before + 1
+    assert len(got) == 2
+    z = _recover_normals(name, params, state, got[0])
+    ref = fused_elementwise_step_plain(update, params, state, y, z, normalize=False)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    _assert_standard_normals(z)
+
+
+def _ucsv_cloud(rng, m, n, cuda):
+    """A (M, 3, N) UC-SV cloud as a strided view of a (M, 4, N) one, and γ."""
+    scale = np.array([1.0, 0.5, 0.5, 1.0])[None, :, None]
+    wide = torch.tensor(rng.standard_normal((m, 4, n)) * scale, dtype=torch.float32, device=cuda)
+    gam = torch.tensor(rng.uniform(0.05, 0.5, (m, 2)), dtype=torch.float32, device=cuda)
+    return wide[:, :3], gam
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 8192])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_ucsv_kernel_matches_plain(cuda, n, normalize):
+    """The hand-written UC-SV kernel on a strided cloud view: the plain
+    version, fed the normals recovered from its state deltas, gives its
+    outputs to rtol 1e-5; those normals have standard moments; the
+    log-weights are the observation density at the returned state; a call
+    on rows 256.. at row_offset 256 returns rows 256.. of the full call,
+    bitwise; one launch is counted."""
+    rng = np.random.default_rng(12)
+    m = 512
+    cloud, gam = _ucsv_cloud(rng, m, n, cuda)
+    ge, gn = gam[:, 0], gam[:, 1]
+    y = torch.tensor(1.3, device=cuda)
+    seed = torch.tensor([97531], device=cuda)
+    before = ucsv_propagate_reweight.launches
+    got = ucsv_propagate_reweight(seed, y, ge, gn, cloud, normalize=normalize)
+    assert ucsv_propagate_reweight.launches == before + 1
+    new = got[0]
+    z = _recover_normals("ucsv", gam, cloud, new)
+    ref = ucsv_propagate_reweight_plain(y, ge, gn, cloud, z, normalize)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    _assert_standard_normals(z)
+    zz = (y - new[:, 0]) * torch.exp(-0.5 * new[:, 2])
+    logw = -0.5 * zz * zz - 0.5 * new[:, 2] - 0.5 * np.log(2 * np.pi)
+    torch.testing.assert_close(got[1] + got[2] if normalize else got[1], logw,
+                               rtol=1e-5, atol=1e-5)
+    half = ucsv_propagate_reweight(seed, y, ge[256:], gn[256:], cloud[256:], row_offset=256,
+                                   normalize=normalize)
+    for a, b in zip(half, got):
+        assert torch.equal(a, b[256:])
+
+
+def test_ucsv_kernel_zero_gamma_freezes_the_vols(cuda):
+    rng = np.random.default_rng(13)
+    cloud, _ = _ucsv_cloud(rng, 64, 1024, cuda)
+    zero = torch.zeros(64, device=cuda)
+    new, _ = ucsv_propagate_reweight(torch.tensor([5], device=cuda), torch.tensor(0.2, device=cuda),
+                                     zero, zero, cloud)
+    assert torch.equal(new[:, 1:], cloud[:, 1:])
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_ucsv_kernel_matches_kernel2_at_the_same_seed(cuda, n, normalize):
+    """The two UC-SV routes, written independently (CUDA C++ and Triton),
+    draw the same normals at the same seed: every output within rtol = atol
+    = 1e-5 (exp, log, sin and cos in two libraries)."""
+    rng = np.random.default_rng(14)
+    m = 512
+    cloud, gam = _ucsv_cloud(rng, m, n, cuda)
+    y = torch.tensor(1.1, device=cuda)
+    seed = torch.tensor([(1 << 40) + 12345], device=cuda)  # both halves of the key in use
+    k6 = ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], cloud, normalize=normalize)
+    k2 = fused_elementwise_step(UCSV_UPDATE, gam.contiguous(), cloud, y, seed=seed,
+                                normalize=normalize)
+    for a, b in zip(k6, k2):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid", [systematic_uniforms, stratified_uniforms])
+def test_uniform_grids_draw_on_the_card(cuda, grid):
+    """A CUDA generator draws its grid on the card when no device is given."""
+    u = grid(torch.Generator(device=cuda).manual_seed(0), 8, 256)
+    assert u.device.type == "cuda" and u.shape == (8, 256)

@@ -188,7 +188,6 @@ def test_run_is_init_then_steps():
 @pytest.mark.parametrize("inner", [
     tsmc.PFConfig("multinomial", 1.0),
     tsmc.PFConfig("residual", 1.0),
-    tsmc.PFConfig("systematic", 1.0, algorithm="apf"),
     tsmc.PFConfig("systematic", 1.0, proposal=object()),
 ])
 def test_unported_filter_configs_raise(inner):

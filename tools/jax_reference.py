@@ -1,15 +1,29 @@
 #!/usr/bin/env python3
-"""Reference numbers of the JAX package for ``chip_smoke.py``'s
-density-tempered phase, computed on the CPU.
+"""Reference numbers of the JAX package for ``chip_smoke.py``'s posterior
+checks, computed on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/jax_reference.py [--seeds 8] [--m 512] [--n 1024]
+    JAX_PLATFORMS=cpu python tools/jax_reference.py [--run dt|apf_ucsv|apf_lg|ucsv_bank]
+                                                    [--seeds 8] [--m 512] [--n 1024]
 
-Runs ``density_tempered`` on the linear-Gaussian model at BASELINE config 4
-(M=512, N=1024, T=100, chain=3, inner filter systematic at every step) with
-the TruncatedNormal(0, 1, −1, 1) × LogNormal(0, 1)² prior, on the series
-``chip_smoke.lg_series`` makes, over ``jax.random.key(0..seeds-1)``, and
-prints the mean of the runs' posterior means and their standard deviation —
-the ``DT_JAX_MEAN`` and ``DT_JAX_SD`` constants of ``chip_smoke.py``.
+Each sampler run repeats one sampler over ``jax.random.key(0..seeds-1)`` and
+prints the mean of the runs' posterior means and their standard deviation:
+
+- ``dt``: ``density_tempered`` on the linear-Gaussian model at BASELINE
+  config 4 (M=512, N=1024, T=100, chain=3, inner filter systematic at every
+  step) with the TruncatedNormal(0, 1, −1, 1) × LogNormal(0, 1)² prior, on
+  the series ``chip_smoke.lg_series`` makes — ``DT_JAX_MEAN``/``DT_JAX_SD``;
+- ``apf_ucsv``: online SMC² on UC-SV with the auxiliary particle filter
+  inside (``PFConfig("systematic", 1.0, algorithm="apf")``) at bench.py's
+  configuration (M=512, N=1024, T=241, chain=5) with bench.py's prior, on
+  ``chip_smoke.ucsv_series`` — ``APF_JAX_MEAN``/``APF_JAX_SD``;
+- ``apf_lg``: the README's APF SMC² on the linear-Gaussian model (M=512,
+  N=1024, chain=3) with the ``dt`` run's prior and series —
+  ``APF_LG_JAX_MEAN``/``APF_LG_JAX_SD``.
+
+``ucsv_bank`` runs M parallel UC-SV filters at θ = ``chip_smoke.JAX_MEAN``
+on ``chip_smoke.ucsv_series`` (N=1024, T=241), bootstrap and APF, over the
+same keys, and prints per filter the pooled mean and variance of log Ẑ
+over seeds·M rows — ``UCSV_BANK_JAX``.
 """
 from __future__ import annotations
 
@@ -25,35 +39,103 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import sequential_monte_carlo_tpu as smc  # noqa: E402
-from chip_smoke import DT_CHAIN, DT_T, lg_series  # noqa: E402
+from chip_smoke import CHAIN, DT_CHAIN, DT_T, JAX_MEAN, T, lg_series, ucsv_series  # noqa: E402
+from sequential_monte_carlo_tpu.ops.batched_filter import batched_log_likelihood  # noqa: E402
+
+
+def _lg_prior():
+    f = lambda v: jnp.asarray(v, jnp.float32)  # noqa: E731
+    return smc.product_distribution([
+        smc.TruncatedNormal(f(0.0), f(1.0), f(-1.0), f(1.0)),
+        smc.LogNormal(f(0.0), f(1.0)),
+        smc.LogNormal(f(0.0), f(1.0)),
+    ])
+
+
+def _ucsv_prior():  # bench.py:105-112
+    f = lambda v: jnp.asarray(v, jnp.float32)  # noqa: E731
+    return smc.product_distribution([
+        smc.Uniform(f(0.0), f(1.0)), smc.Normal(f(3.0), f(2.0)),
+        smc.Uniform(f(0.0), f(2.0)), smc.Uniform(f(0.0), f(2.0)),
+    ])
+
+
+def _runner(name: str, m: int, n: int):
+    """(run(key) -> (state, stage or step summary), the series)."""
+    if name == "dt":
+        cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=DT_CHAIN, ess_threshold=0.5,
+                            inner=smc.PFConfig("systematic", 1.0))
+        sampler = smc.SMC2(smc.lg_model, _lg_prior(), cfg)
+        y = jnp.asarray(lg_series(DT_T))
+
+        def run(key):
+            state, trace = smc.density_tempered(sampler, key, y)
+            return state, {"stages": [round(t.xi, 5) for t in trace]}
+        return run
+    apf = smc.PFConfig("systematic", 1.0, algorithm="apf")
+    if name == "apf_ucsv":
+        cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=CHAIN, ess_threshold=0.5, inner=apf)
+        sampler = smc.SMC2(smc.ucsv_model, _ucsv_prior(), cfg)
+        y = jnp.asarray(ucsv_series(T))
+    elif name == "apf_lg":
+        cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=DT_CHAIN, ess_threshold=0.5,
+                            inner=apf)
+        sampler = smc.SMC2(smc.lg_model, _lg_prior(), cfg)
+        y = jnp.asarray(lg_series(DT_T))
+    else:
+        raise SystemExit(f"unknown run {name!r}")
+
+    def run(key):
+        state, infos = sampler.run(key, y)
+        return state, {"rejuvenations": int(np.asarray(infos.rejuvenated).sum()),
+                       "ess": float(state.ess)}
+    return run
+
+
+def ucsv_bank(seeds: int, m: int, n: int) -> None:
+    """log Ẑ of m UC-SV filters at θ = JAX_MEAN, bootstrap and APF, pooled
+    over seeds·m rows."""
+    models = jax.vmap(smc.ucsv_model)(jnp.broadcast_to(jnp.asarray(JAX_MEAN, jnp.float32), (m, 4)))
+    y = jnp.asarray(ucsv_series(T))
+    for alg in ("bootstrap", "apf"):
+        cfg = smc.PFConfig("systematic", 1.0, algorithm=alg)
+        rows = []
+        for s in range(seeds):
+            t0 = time.perf_counter()
+            lz = np.asarray(batched_log_likelihood(jax.random.key(s), models, n, m, y, cfg)[-1],
+                            np.float64)
+            rows.append(lz)
+            print(json.dumps({"run": "ucsv_bank", "algorithm": alg, "seed": s,
+                              "seconds": round(time.perf_counter() - t0, 2),
+                              "logz_mean": round(lz.mean(), 6),
+                              "logz_var": round(lz.var(ddof=1), 6)}), flush=True)
+        lz = np.concatenate(rows)
+        print(json.dumps({"run": "ucsv_bank", "algorithm": alg, "m": m, "n": n, "T": T,
+                          "rows": lz.size, "logz_mean": round(lz.mean(), 6),
+                          "logz_var": round(lz.var(ddof=1), 6)}), flush=True)
 
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--run", default="dt", choices=("dt", "apf_ucsv", "apf_lg", "ucsv_bank"))
     p.add_argument("--seeds", type=int, default=8)
     p.add_argument("--m", type=int, default=512)
     p.add_argument("--n", type=int, default=1024)
     args = p.parse_args()
-    prior = smc.product_distribution([
-        smc.TruncatedNormal(jnp.asarray(0.0), jnp.asarray(1.0), jnp.asarray(-1.0),
-                            jnp.asarray(1.0)),
-        smc.LogNormal(jnp.asarray(0.0), jnp.asarray(1.0)),
-        smc.LogNormal(jnp.asarray(0.0), jnp.asarray(1.0)),
-    ])
-    cfg = smc.SMCConfig(n_particles=args.n, n_theta=args.m, chain=DT_CHAIN,
-                        ess_threshold=0.5, inner=smc.PFConfig("systematic", 1.0))
-    sampler = smc.SMC2(smc.lg_model, prior, cfg)
-    y = jnp.asarray(lg_series(DT_T))
+    if args.run == "ucsv_bank":
+        ucsv_bank(args.seeds, args.m, args.n)
+        return 0
+    run = _runner(args.run, args.m, args.n)
     means = []
     for s in range(args.seeds):
         t0 = time.perf_counter()
-        state, trace = smc.density_tempered(sampler, jax.random.key(s), y)
+        state, summary = run(jax.random.key(s))
         means.append(np.asarray(smc.expected_parameters(state), np.float64))
-        print(json.dumps({"seed": s, "seconds": round(time.perf_counter() - t0, 2),
-                          "stages": [round(t.xi, 5) for t in trace],
+        print(json.dumps({"run": args.run, "seed": s,
+                          "seconds": round(time.perf_counter() - t0, 2), **summary,
                           "posterior_mean": means[-1].round(6).tolist()}), flush=True)
     means = np.asarray(means)
-    print(json.dumps({"m": args.m, "n": args.n, "seeds": args.seeds,
+    print(json.dumps({"run": args.run, "m": args.m, "n": args.n, "seeds": args.seeds,
                       "mean": means.mean(0).round(6).tolist(),
                       "sd": means.std(0, ddof=1).round(6).tolist()}), flush=True)
     return 0

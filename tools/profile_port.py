@@ -6,7 +6,8 @@
 For each cell — density-tempered SMC on LG at BASELINE config 4 (512 × 1024,
 T=100, chain=3) with (a) the systematic inner filter at every step and
 (b) the stratified one triggered at ESS < N/2; 512 parallel LG filters at θ*
-(config 3); online SMC² on UC-SV at 512 × 1024 (bench.py) — it runs the
+(config 3); online SMC² on UC-SV at 512 × 1024 (bench.py); the same SMC²
+and LG filters with the auxiliary particle filter inside — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
@@ -38,14 +39,18 @@ def _cells(torch):
         return lambda seed: smc.density_tempered(
             sampler, torch.Generator(device="cuda").manual_seed(seed), y_lg)
 
-    def filters(seed):
-        return smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(seed),
-                                          smc.lg_model(theta), cs.DT_N, cs.DT_M, y_lg)
+    def filters(inner):
+        return lambda seed: smc.batched_log_likelihood(
+            torch.Generator(device="cuda").manual_seed(seed), smc.lg_model(theta), cs.DT_N,
+            cs.DT_M, y_lg, smc.PFConfig(*inner))
 
     return {"dt_a_systematic": dt(("systematic", 1.0)),
             "dt_b_stratified_ess0.5": dt(("stratified", 0.5)),
-            "filters_lg_512": filters,
-            "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed)}
+            "filters_lg_512": filters(("systematic", 1.0)),
+            "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed),
+            "filters_lg_apf_512": filters(cs.APF),
+            "smc2_ucsv_apf_512x1024": lambda seed: cs.run_apf_smc2(
+                torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed)}
 
 
 def _profile(torch, fn, seed: int) -> dict:
