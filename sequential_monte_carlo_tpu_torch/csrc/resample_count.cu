@@ -11,64 +11,250 @@
 //   a_o    = #{j : s_hi_j <= o}, clipped to N - 1
 //   out[m, c, o] = xs[m, c, a_o]          for every component c < C
 //
-// What bounds it on the H100: memory. The cloud is 6 MB at M=512, N=1024, C=3
-// and 50 MB at N=8192. A call reads w and xs and writes the gathered cloud,
-// (2C + 1) * 4 * M * N bytes: 15 MB and 117 MB, about 4 and 35 microseconds at
-// 3.35 TB/s. At the smaller size launch and host overhead dominate.
+// What bounds it on the H100: memory. A call reads w and xs and writes the
+// gathered cloud, (2C + 1) * 4 * M * N bytes: 15 MB at M=512, N=1024, C=3 and
+// 117 MB at N=8192, about 4 and 35 microseconds at 3.35 TB/s. At the smaller
+// size launch and host overhead dominate.
 //
-// Design: one block per θ-row. The row's f32 cdf comes from the f64 block
-// scan of row_cdf.cuh, and each span goes to shared memory as an int (4 N
-// bytes, so N up to about 58,000). Each output slot then finds its ancestor by
-// a binary search over the spans in shared memory, and the gather reads xs
-// directly: Hopper has a fast dynamic gather, so the TPU kernel's byte planes,
-// int8 selection matmuls, chunk-walk bounds and autotuned tiles have no
-// counterpart here. Ancestors are non-decreasing in o, so neighbouring threads
-// read neighbouring addresses of xs. The f32 arithmetic that decides a span
-// (product, difference, ceil) is rounded op by op, as on the host.
+// Design: one block per θ-row (256 threads up to N=2048, 512 above), with the
+// row's ancestors in shared memory (4 N bytes: N up to kMaxN = 56,832). Warp w
+// owns the contiguous chunk [w K, (w + 1) K) of the row, K the least power of
+// two >= 128 that covers N with the block's warps, both of weights and of
+// output slots. Every step of a warp covers 128 neighbours, 4 a lane, so
+// loads, stores and shared-memory accesses are coalesced. (A thread per
+// contiguous segment, tried first, puts a warp's loads 128 bytes apart and
+// its shared-memory marks in one bank, 32-way conflicts: no faster than the
+// binary search it replaced.)
+//  1. One read of w from HBM. Each warp sums its chunk in f64 with 16-byte
+//     loads; the chunk sums give each warp its prefix and the row total, with
+//     no block-wide reduce or scan over the row. The walk reads the chunk
+//     again, from L2: at 40 registers a thread more rows are resident than
+//     with the chunk held in registers (measured faster at 512x8192).
+//  2. Spans without a search per slot. The count formula says that slots
+//     [s_hi_{j-1}, s_hi_j) take ancestor j. Each warp walks its chunk 128
+//     weights a step, with a running f64 sum: 4 serial sums in each lane and a
+//     shuffle scan across the lanes. It rounds each cdf to f32 (cdf_of: the
+//     quotient's f32 rounding from a multiply by 1 / total, dividing only
+//     where that rounding could differ) and each span op by op in f32, as the
+//     host does, and marks the first slot of every non-empty run with its j
+//     (a shared-memory atomicMax). A run's length costs nothing, so a
+//     point-mass row, whose one j owns all N slots, costs one mark, and the
+//     work is the same for every row.
+//  3. Ancestors by a max-scan of the marks: a_o = the largest mark at or
+//     before o. Each warp scans the marks of its slot chunk 4 a lane with
+//     shuffles, carrying the running ancestor; the carry into a chunk is the
+//     largest mark of the chunks before it, which the walk records. This is
+//     the count formula whenever the spans are non-decreasing, and a
+//     non-decreasing systematic draw whatever the marks, so two summation
+//     orders can only move the slot at an f64 error that straddles an f32
+//     rounding point.
+//  4. Coalesced gather: lane l takes 4 neighbouring slots, gathers xs by their
+//     ancestors (non-decreasing, so neighbouring lanes read neighbouring
+//     addresses) and writes one 16-byte store per plane.
+// Two block barriers per row (marks initialised, marks complete). What holds
+// it back now (PERF.md): the walk is compute (an f64 scan and a span per
+// weight) that the gather cannot start before, and the resident rows' walks
+// and gathers overlap only in part.
 #include <cuda_runtime.h>
-
-#include "row_cdf.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(smc::kThreads)
+constexpr int kStep = 128;    // weights or slots per warp step, 4 a lane
+constexpr int kMaxN = 56832;  // 222 KB of ancestors, within the 227 KB a block may use
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The f32 rounding of the correctly rounded f64 quotient cum / total, as the
+// host computes it. cum * (1 / total) is within 2^-51 of that quotient,
+// relatively, so where both ends of q (1 -+ 2^-50) round to the same f32, so
+// does the quotient; only the rare q near an f32 rounding point divides.
+__device__ __forceinline__ float cdf_of(double cum, double total, double inv) {
+  const double q = __dmul_rn(cum, inv);
+  const float lo = __double2float_rn(__dmul_rn(q, 1.0 - 0x1p-50));
+  const float hi = __double2float_rn(__dmul_rn(q, 1.0 + 0x1p-50));
+  return lo == hi ? lo : __double2float_rn(__ddiv_rn(cum, total));
+}
+
+// s_hi of a cumulative weight: N * cdf - u0 rounded op by op, then ceil
+__device__ __forceinline__ int span_of(double cum, double total, double inv, float nf,
+                                       float offset) {
+  const float cdf = cdf_of(cum, total, inv);
+  return static_cast<int>(ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset)));
+}
+
+// the 4 weights of a lane at j, j + 1, j + 2, j + 3 (0 past the row's end)
+__device__ __forceinline__ float4 load4(const float* __restrict__ w_row, int j, int n, bool vec) {
+  if (vec && j < n) return *reinterpret_cast<const float4*>(w_row + j);
+  return make_float4(j < n ? w_row[j] : 0.0f, j + 1 < n ? w_row[j + 1] : 0.0f,
+                     j + 2 < n ? w_row[j + 2] : 0.0f, j + 3 < n ? w_row[j + 3] : 0.0f);
+}
+
+// kThreads: 256 for rows up to 2048, 512 above; warp chunks of 2^shift slots
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
 resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
                       const float* __restrict__ xs, float* __restrict__ out,
-                      int* __restrict__ anc, int n, int c) {
-  extern __shared__ int span[];  // n ints: s_hi
+                      int* __restrict__ anc, int n, int c, int shift) {
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ int marks[];  // n ints: j at the first slot of j's run, else -1
+  __shared__ double chunk_sum[kWarps];
+  __shared__ int chunk_max[kWarps];  // the largest mark in each slot chunk
 
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const long long row = blockIdx.x;
-  const float offset = u0[row];
-  const float nf = static_cast<float>(n);
-  smc::row_cdf(w + row * n, n, [&](int j, float cdf) {
-    const float s = ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset));
-    span[j] = j == n - 1 ? n : static_cast<int>(s);
-  });
+  const float* w_row = w + row * n;
+  const bool vec = (n & 3) == 0;
+  const int chunk = 1 << shift;
+  const int begin = min(warp << shift, n), end = min(begin + chunk, n);
+  const int steps = begin < end ? (end - begin + kStep - 1) / kStep : 0;
 
+  if (vec) {
+    for (int i = 4 * t; i < n; i += 4 * kThreads) {
+      *reinterpret_cast<int4*>(marks + i) = make_int4(-1, -1, -1, -1);
+    }
+  } else {
+    for (int i = t; i < n; i += kThreads) marks[i] = -1;
+  }
+  if (t < kWarps) chunk_max[t] = -1;
+
+  // 1. the warp's chunk of w, summed in f64
+  double part = 0.0;
+  for (int s = 0; s < steps; ++s) {
+    const float4 q = load4(w_row, begin + s * kStep + 4 * lane, end, vec);
+    part += (static_cast<double>(q.x) + q.y) + (static_cast<double>(q.z) + q.w);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFull, part, d);
+  if (lane == 0) chunk_sum[warp] = part;
+  __syncthreads();  // marks, chunk_max and chunk_sum are in
+
+  double prefix = 0.0, total = 0.0;
+  for (int q = 0; q < kWarps; ++q) {
+    if (q < warp) prefix += chunk_sum[q];
+    total += chunk_sum[q];
+  }
+  const double inv = __drcp_rn(total);
+
+  // 2. the chunk's spans, 128 a step; a mark at the first slot of every
+  // non-empty run
+  const float nf = static_cast<float>(n);
+  const float offset = u0[row];
+  int prev = warp == 0 ? 0 : span_of(prefix, total, inv, nf, offset);  // s_hi before the chunk
+  double run = prefix;
+  auto walk = [&](int s, float4 q) {
+    const int j = begin + s * kStep + 4 * lane;
+    const double l0 = q.x, l1 = l0 + q.y, l2 = l1 + q.z, l3 = l2 + q.w;
+    double incl = l3;  // inclusive scan of the lanes' sums
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const double up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += up;
+    }
+    double before = __shfl_up_sync(kFull, incl, 1);
+    before = run + (lane == 0 ? 0.0 : before);
+    const double cum[4] = {before + l0, before + l1, before + l2, before + l3};
+    int hi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[i] = j + i >= end ? -1 : j + i == n - 1 ? n : span_of(cum[i], total, inv, nf, offset);
+    }
+    int lo = __shfl_up_sync(kFull, hi[3], 1);
+    if (lane == 0) lo = prev;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (hi[i] < 0) break;  // past the chunk's end
+      if (hi[i] > lo) {
+        atomicMax(&marks[lo], j + i);
+        atomicMax(&chunk_max[lo >> shift], j + i);
+      }
+      lo = hi[i];
+    }
+    // the last lane that holds a weight hands its span to the next step
+    const unsigned held = __ballot_sync(kFull, hi[0] >= 0);
+    prev = __shfl_sync(kFull, lo, 31 - __clz(held));
+    run += __shfl_sync(kFull, incl, 31);
+  };
+  // the chunk again, from cache
+  for (int s = 0; s < steps; ++s) walk(s, load4(w_row, begin + s * kStep + 4 * lane, end, vec));
+  __syncthreads();  // every mark is in
+
+  // 3 and 4. the slot chunk: max-scan of the marks, then the gather
+  int carry = -1;
+  for (int q = 0; q < warp; ++q) carry = max(carry, chunk_max[q]);
   const float* xs_row = xs + row * c * n;
   float* out_row = out + row * c * n;
-  for (int o = threadIdx.x; o < n; o += smc::kThreads) {
-    int lo = 0, hi = n;  // first j with s_hi_j > o
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (span[mid] <= o) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
+  const int per_lane = vec ? 4 : 1;
+  for (int b = begin; b < end; b += 32 * per_lane) {
+    const int o = b + lane * per_lane;
+    int p[4];
+    if (vec) {
+      const int4 mk = o < end ? *reinterpret_cast<const int4*>(marks + o)
+                              : make_int4(-1, -1, -1, -1);
+      p[0] = mk.x, p[1] = max(p[0], mk.y), p[2] = max(p[1], mk.z), p[3] = max(p[2], mk.w);
+    } else {
+      p[0] = p[1] = p[2] = p[3] = o < end ? marks[o] : -1;
+    }
+    int incl = p[3];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl = max(incl, up);
+    }
+    int before = __shfl_up_sync(kFull, incl, 1);
+    before = max(lane == 0 ? -1 : before, carry);
+    carry = max(carry, __shfl_sync(kFull, incl, 31));
+    if (o >= end) continue;
+    if (vec) {
+      const int4 a = make_int4(max(before, p[0]), max(before, p[1]), max(before, p[2]),
+                               max(before, p[3]));
+      if (anc != nullptr) *reinterpret_cast<int4*>(anc + row * n + o) = a;
+      for (int k = 0; k < c; ++k) {
+        const float* src = xs_row + static_cast<long long>(k) * n;
+        *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n + o) =
+            make_float4(src[a.x], src[a.y], src[a.z], src[a.w]);
+      }
+    } else {
+      const int a = max(before, p[0]);
+      if (anc != nullptr) anc[row * n + o] = a;
+      for (int k = 0; k < c; ++k) {
+        out_row[static_cast<long long>(k) * n + o] = xs_row[static_cast<long long>(k) * n + a];
       }
     }
-    const int a = lo < n - 1 ? lo : n - 1;
-    if (anc != nullptr) anc[row * n + o] = a;
-    for (int k = 0; k < c; ++k) {
-      out_row[static_cast<long long>(k) * n + o] =
-          xs_row[static_cast<long long>(k) * n + a];
-    }
   }
+}
+
+template <int kThreads>
+cudaError_t launch(const float* u0, const float* w, const float* xs, float* out, int* anc,
+                   int m, int n, int c, cudaStream_t stream) {
+  constexpr int kWarps = kThreads / 32;
+  int shift = 7;  // warp chunks: the least power of two >= 128 that covers N in kWarps
+  while ((kWarps << shift) < n) ++shift;
+  const size_t smem = static_cast<size_t>(n) * sizeof(int);
+  static bool carveout = false;  // once per instance: all of the SM's shared memory
+  if (!carveout) {
+    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    carveout = true;
+  }
+  if (smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  resample_count_kernel<kThreads><<<m, kThreads, smem, stream>>>(u0, w, xs, out, anc, n, c,
+                                                                 shift);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
+// The largest N the kernel takes (its ancestors live in shared memory).
+int smc_resample_count_max_n() { return kMaxN; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
 // `anc` may be null. Pointers are device pointers to contiguous f32 / int32
@@ -77,15 +263,9 @@ int smc_resample_count(const float* u0, const float* w, const float* xs,
                        float* out, int* anc, int m, int n, int c,
                        cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  const size_t smem = static_cast<size_t>(n) * sizeof(int);
-  if (smem > smc::kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        resample_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  resample_count_kernel<<<m, smc::kThreads, smem, stream>>>(u0, w, xs, out, anc, n, c);
-  return cudaGetLastError();
+  if (n > kMaxN || c <= 0) return cudaErrorInvalidValue;
+  if (n <= 2048) return launch<256>(u0, w, xs, out, anc, m, n, c, stream);
+  return launch<512>(u0, w, xs, out, anc, m, n, c, stream);
 }
 
 const char* smc_error_string(int err) {

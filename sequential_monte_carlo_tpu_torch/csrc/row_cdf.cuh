@@ -1,5 +1,6 @@
-// The cumulative distribution of one row of weights, shared by the resample
-// kernels (resample_count.cu, resample_sorted.cu).
+// The cumulative distribution of one row of weights, for the sorted-grid
+// resample kernel (resample_sorted.cu). The systematic kernel
+// (resample_count.cu) has its own single-read segment scan.
 //
 // The row's sum, then its inclusive cumulative sum, are block-wide reductions
 // over chunks of the row (cub::BlockReduce, BlockScan), accumulated in f64 and

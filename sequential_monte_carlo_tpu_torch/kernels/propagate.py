@@ -19,14 +19,31 @@ raw log-weights and skips the normalize, as the JAX builder does.
 The kernel is Triton (:func:`_triton_kernels`). What bounds it on the H100:
 memory. It reads the cloud (and the carry), writes the new cloud and
 log_norm (or the raw logw): (2S + 1 + carry)·4·M·N bytes counted once each
-(UC-SV, S=3: 15 MB at M=512, N=1024, 117 MB at N=8192; LG dx=1 with carry:
-8.4 MB at 512×1024), a few µs at 3.35 TB/s, so at these sizes launch
-overhead dominates. Pass 2 rereads and rewrites log_norm, mostly from L2.
-Design: one program per θ-row loops over N in blocks. Pass 1 draws the
-normals in registers (Philox, ``tl.philox``), runs the update, stores the
-new planes and the raw log-weights, and keeps an online max with rescaled
-Σe and Σe² per lane; pass 2 rewrites log_norm once lse is known, from the
-row's log-weights that pass 1 left in L2. The normals never touch memory.
+(UC-SV, S=3: 15 MB at M=512, N=1024, 117 MB at N=8192, 4.4 and 35 µs at
+3.35 TB/s; LG dx=1 with carry: 8.4 MB at 512×1024). Design
+(:func:`_launch_config`):
+
+- A program takes 1024 particles at a time with 8 warps, 4 a thread, so
+  loads and stores are 16 bytes wide where the row allows (Triton
+  specializes on pointers and N divisible by 16).
+- With the normalize, a row of up to 1024 particles is one program that
+  keeps the row's log-weights in registers between the row reduction and
+  the subtraction of lse: log_norm is written once. A longer row is one
+  program that loops over it (loads two blocks ahead): pass 1 stores the
+  raw log-weights, marked to stay in L2 while the streamed planes are marked
+  to leave it first, with the row's running max (a scalar, so one exp a
+  particle) and the rescaled Σe, Σe²; pass 2 rewrites log_norm from L2.
+  Holding a row of 8192 in registers instead (one program of 16 or 32 warps,
+  or 4–16 blocks kept as a tuple) measured slower on the H100: fewer rows in
+  flight and spilled registers.
+- Without the normalize a row is split over programs of 1024, grid
+  (M, ⌈N / 1024⌉), so that many warps are in flight.
+- Only the normals a model takes are computed: the second Box–Muller pair
+  only for more than two (UC-SV), and an unused sine or cosine is dead code.
+
+What holds it back now (PERF.md): at N=8192 the normalized route's pass 2
+and its one program per row; the UC-SV update's Philox, Box–Muller and
+exps are about as much issue time as its bytes take at the memory rate.
 
 Draws are keyed by (seed, row_offset + row, particle index) — Philox
 counters (i, row) — so they do not depend on the block size, and a
@@ -44,7 +61,8 @@ log-weights:
     update(par, st, new, n, offs, mask, y, z0, z1, z2, z3) -> logw
 
 with ``par`` the row's P parameters, ``st``/``new`` the row's (S, N) planes,
-and z0..z3 four independent N(0, 1) draws per particle.
+and z0..z3 the particle's independent N(0, 1) draws (the update's
+``n_normals`` of them; with two or fewer, z2 and z3 are 0).
 
 :func:`fused_elementwise_step_plain` is the same function in plain PyTorch
 with the normals injected. :func:`fused_elementwise_step` takes it for CPU
@@ -115,23 +133,27 @@ def _triton_kernels() -> types.SimpleNamespace:
     import triton
     import triton.language as tl
 
+    # The streamed planes, once read or written, leave L2 first
+    # ("evict_first"), so that the loop route's raw log-weights stay there
+    # until its second pass
+
     @triton.jit
     def ucsv_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
         # models/ucsv.py::ucsv_update, op for op
         ge = tl.load(par)
         gn = tl.load(par + 1)
-        x = tl.load(st + offs, mask=mask, other=0.0)
-        lse = tl.load(st + n + offs, mask=mask, other=0.0)
-        lsn = tl.load(st + 2 * n + offs, mask=mask, other=0.0)
+        x = tl.load(st + offs, mask=mask, other=0.0, eviction_policy="evict_first")
+        lse = tl.load(st + n + offs, mask=mask, other=0.0, eviction_policy="evict_first")
+        lsn = tl.load(st + 2 * n + offs, mask=mask, other=0.0, eviction_policy="evict_first")
         x_new = x + tl.exp(0.5 * lse) * z0
         lse_new = lse + ge * z1
         lsn_new = lsn + gn * z2
         s_inv = tl.exp(-0.5 * lsn_new)
         zz = (y - x_new) * s_inv
         logw = -0.5 * zz * zz - 0.5 * lsn_new - 0.9189385332046727  # ½log 2π
-        tl.store(new + offs, x_new, mask=mask)
-        tl.store(new + n + offs, lse_new, mask=mask)
-        tl.store(new + 2 * n + offs, lsn_new, mask=mask)
+        tl.store(new + offs, x_new, mask=mask, eviction_policy="evict_first")
+        tl.store(new + n + offs, lse_new, mask=mask, eviction_policy="evict_first")
+        tl.store(new + 2 * n + offs, lsn_new, mask=mask, eviction_policy="evict_first")
         return logw
 
     @triton.jit
@@ -140,10 +162,10 @@ def _triton_kernels() -> types.SimpleNamespace:
         mu = tl.load(par)
         phi = tl.load(par + 1)
         sigma = tl.load(par + 2)
-        x = tl.load(st + offs, mask=mask, other=0.0)
+        x = tl.load(st + offs, mask=mask, other=0.0, eviction_policy="evict_first")
         x_new = mu + phi * (x - mu) + sigma * z0
         logw = -0.5 * (y * y) * tl.exp(-x_new) - 0.5 * x_new - 0.9189385332046727
-        tl.store(new + offs, x_new, mask=mask)
+        tl.store(new + offs, x_new, mask=mask, eviction_policy="evict_first")
         return logw
 
     @triton.jit
@@ -153,19 +175,19 @@ def _triton_kernels() -> types.SimpleNamespace:
         f = tl.load(par + 1)
         b = tl.load(par + 2)
         r = tl.load(par + 3)
-        x = tl.load(st + offs, mask=mask, other=0.0)
+        x = tl.load(st + offs, mask=mask, other=0.0, eviction_policy="evict_first")
         x_new = a * x + f * z0
         delta = y - b * x_new
         logw = -0.5 * delta * delta / r - 0.5 * tl.log(r) - 0.9189385332046727
-        tl.store(new + offs, x_new, mask=mask)
+        tl.store(new + offs, x_new, mask=mask, eviction_policy="evict_first")
         return logw
 
     @triton.jit
     def lg2_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3):
         # models/linear_gaussian.py::_lg_update(2): params (A row-major,
         # F row-major, B, R), F·Fᵀ = Q
-        x0 = tl.load(st + offs, mask=mask, other=0.0)
-        x1 = tl.load(st + n + offs, mask=mask, other=0.0)
+        x0 = tl.load(st + offs, mask=mask, other=0.0, eviction_policy="evict_first")
+        x1 = tl.load(st + n + offs, mask=mask, other=0.0, eviction_policy="evict_first")
         n0 = (tl.load(par) * x0 + tl.load(par + 1) * x1
               + tl.load(par + 4) * z0 + tl.load(par + 5) * z1)
         n1 = (tl.load(par + 2) * x0 + tl.load(par + 3) * x1
@@ -173,16 +195,34 @@ def _triton_kernels() -> types.SimpleNamespace:
         r = tl.load(par + 10)
         delta = y - (tl.load(par + 8) * n0 + tl.load(par + 9) * n1)
         logw = -0.5 * delta * delta / r - 0.5 * tl.log(r) - 0.9189385332046727
-        tl.store(new + offs, n0, mask=mask)
-        tl.store(new + n + offs, n1, mask=mask)
+        tl.store(new + offs, n0, mask=mask, eviction_policy="evict_first")
+        tl.store(new + n + offs, n1, mask=mask, eviction_policy="evict_first")
         return logw
+
+    @triton.jit
+    def draw_normals(seed, offs, grow, N_NORMALS: tl.constexpr):
+        # Philox-4x32-10 at counter (particle, row, 0, 0); Box–Muller pairs,
+        # the second only for models that take more than two normals
+        c0 = offs.to(tl.uint32)
+        zero = c0 * 0
+        r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero, zero)
+        z0, z1 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r0),
+                                           tl.uint_to_uniform_float(r1))
+        if N_NORMALS > 2:
+            z2, z3 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r2),
+                                               tl.uint_to_uniform_float(r3))
+        else:
+            z2 = z0 * 0.0
+            z3 = z2
+        return z0, z1, z2, z3
 
     @triton.jit
     def step_kernel(par_ptr, st_ptr, new_ptr, carry_ptr, lognorm_ptr, lse_ptr,
                     ess_ptr, y_ptr, seed_ptr, row_offset, n, st_row_stride,
                     P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
-                    HAS_CARRY: tl.constexpr, NORMALIZE: tl.constexpr,
-                    BLOCK: tl.constexpr):
+                    N_NORMALS: tl.constexpr, HAS_CARRY: tl.constexpr,
+                    NORMALIZE: tl.constexpr, LOOP: tl.constexpr, BLOCK: tl.constexpr,
+                    BLOCK2: tl.constexpr, STAGES: tl.constexpr):
         row = tl.program_id(0)
         y = tl.load(y_ptr)
         seed = tl.load(seed_ptr)
@@ -193,51 +233,66 @@ def _triton_kernels() -> types.SimpleNamespace:
         ln = lognorm_ptr + row.to(tl.int64) * n
         carry = carry_ptr + row.to(tl.int64) * n
         neg_inf = float("-inf")
-        m_run = tl.full((BLOCK,), neg_inf, tl.float32)
-        s1 = tl.zeros((BLOCK,), tl.float32)
-        s2 = tl.zeros((BLOCK,), tl.float32)
-        for start in range(0, n, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
+        if not LOOP:
+            # one tile: the whole row (the normalize), or the program's part
+            # of it (no normalize, grid (M, cdiv(N, BLOCK)))
+            offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
             mask = offs < n
-            c0 = offs.to(tl.uint32)
-            zero = c0 * 0
-            r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero, zero)
-            z0, z1 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r0),
-                                               tl.uint_to_uniform_float(r1))
-            z2, z3 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r2),
-                                               tl.uint_to_uniform_float(r3))
+            z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
             logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
             if HAS_CARRY:
-                logw = logw + tl.load(carry + offs, mask=mask, other=0.0)
+                logw += tl.load(carry + offs, mask=mask, other=0.0, eviction_policy="evict_first")
             if NORMALIZE:
+                # the row's log-weights stay in registers: log_norm written once
                 logw = tl.where(mask, logw, neg_inf)
+                mx = tl.max(logw, axis=0)
+                e = tl.where(logw == neg_inf, 0.0, tl.exp(logw - mx))
+                t1 = tl.sum(e, axis=0)
+                t2 = tl.sum(e * e, axis=0)
+                lse = mx + tl.log(t1)
+                tl.store(lse_ptr + row, lse)
+                tl.store(ess_ptr + row, (t1 * t1) / t2)
+                tl.store(ln + offs, logw - lse, mask=mask)
+            else:
                 tl.store(ln + offs, logw, mask=mask)
-                m_new = tl.maximum(m_run, logw)
+        else:
+            # longer rows, normalized: pass 1 stores the raw log-weights (kept
+            # in L2) and the row's running max (a scalar, so one exp a
+            # particle) with Σe and Σe² rescaled to it; pass 2 rewrites them,
+            # BLOCK2 at a time, once lse is known
+            m_run = tl.full((), neg_inf, tl.float32)
+            s1 = tl.zeros((BLOCK,), tl.float32)
+            s2 = tl.zeros((BLOCK,), tl.float32)
+            for start in tl.range(0, n, BLOCK, num_stages=STAGES):
+                offs = start + tl.arange(0, BLOCK)
+                mask = offs < n
+                z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
+                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
+                if HAS_CARRY:
+                    logw += tl.load(carry + offs, mask=mask, other=0.0,
+                                    eviction_policy="evict_first")
+                logw = tl.where(mask, logw, neg_inf)
+                tl.store(ln + offs, logw, mask=mask, eviction_policy="evict_last")
+                m_new = tl.maximum(m_run, tl.max(logw, axis=0))
                 alpha = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - m_new))
                 e = tl.where(logw == neg_inf, 0.0, tl.exp(logw - m_new))
                 s1 = s1 * alpha + e
-                s2 = s2 * alpha * alpha + e * e
+                s2 = s2 * (alpha * alpha) + e * e
                 m_run = m_new
-            else:  # the raw log-weights, no normalize
-                tl.store(ln + offs, logw, mask=mask)
-        if NORMALIZE:
-            mx = tl.max(m_run, axis=0)
-            scale = tl.where(m_run == neg_inf, 0.0, tl.exp(m_run - mx))
-            t1 = tl.sum(s1 * scale, axis=0)
-            t2 = tl.sum(s2 * scale * scale, axis=0)
-            lse = mx + tl.log(t1)
+            t1 = tl.sum(s1, axis=0)
+            t2 = tl.sum(s2, axis=0)
+            lse = m_run + tl.log(t1)
             tl.store(lse_ptr + row, lse)
             tl.store(ess_ptr + row, (t1 * t1) / t2)
             tl.debug_barrier()  # pass 1's stores are visible to every thread
-            for start in range(0, n, BLOCK):
-                offs = start + tl.arange(0, BLOCK)
+            for start in range(0, n, BLOCK2):
+                offs = start + tl.arange(0, BLOCK2)
                 mask = offs < n
-                lw = tl.load(ln + offs, mask=mask)
+                lw = tl.load(ln + offs, mask=mask, eviction_policy="evict_first")
                 tl.store(ln + offs, lw - lse, mask=mask)
 
     return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update, sv=sv_update,
-                                 lg1=lg1_update, lg2=lg2_update,
-                                 next_power_of_2=triton.next_power_of_2)
+                                 lg1=lg1_update, lg2=lg2_update)
 
 
 def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
@@ -263,6 +318,24 @@ def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
             raise ValueError(f"{name} must be contiguous")
     if state.stride(2) != 1 or state.stride(1) != state.shape[2]:
         raise ValueError("state's planes must be contiguous rows of N")
+
+
+# Launch shapes, from sweeps on the H100 at 512×1024 and 512×8192: a
+# program takes BLOCK particles at a time with WARPS warps. A normalized row
+# of up to BLOCK particles is one program that holds it in registers; a
+# longer one is one program that loops over it and rewrites log_norm in
+# blocks of up to BLOCK2. Without the normalize a row is split over programs
+# of BLOCK. The loop's loads run STAGES blocks ahead (Triton's pipelining).
+BLOCK, BLOCK2, WARPS, STAGES = 1024, 8192, 8, 2
+
+
+def _launch_config(n: int, normalize: bool):
+    """(BLOCK, BLOCK2, programs per row, num_warps, LOOP) for rows of n."""
+    pow2 = max(1 << max(n - 1, 0).bit_length(), 128)  # a power of two ≥ n
+    block = min(pow2, BLOCK)
+    loop = normalize and pow2 > BLOCK
+    tiles = 1 if normalize else -(-n // block)
+    return block, min(pow2, BLOCK2), tiles, min(WARPS, block // 128), loop
 
 
 def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
@@ -313,14 +386,15 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     # lse and ess: (M, 1) outputs of the normalize; unused pointers without it
     lse = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
     ess = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
-    block = min(k.next_power_of_2(n), 1024)
+    block, block2, tiles, num_warps, loop = _launch_config(n, normalize)
     has_carry = carry_logw is not None
     with torch.cuda.device(state.device):
-        k.step[(m,)](params, state, new, carry_logw if has_carry else log_norm,
-                     log_norm, lse, ess, y, seed, row_offset, n, state.stride(0),
-                     P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
-                     HAS_CARRY=has_carry, NORMALIZE=normalize, BLOCK=block,
-                     num_warps=4)
+        k.step[(m, tiles)](params, state, new, carry_logw if has_carry else log_norm,
+                           log_norm, lse, ess, y, seed, row_offset, n, state.stride(0),
+                           P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
+                           N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
+                           NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2,
+                           STAGES=STAGES, num_warps=num_warps)
     fused_elementwise_step.instance_launches[
         update.triton + ("_carry" if has_carry else "") + ("" if normalize else "_raw")] += 1
     if not normalize:

@@ -44,9 +44,8 @@ def cuda():
 @pytest.mark.parametrize("n", [1024, 8192])
 @pytest.mark.parametrize("c", [2, 3, 4])
 def test_resample_kernel_matches_plain(cuda, n, c):
-    """Kernel 1: ancestors equal to the plain version's on all but < 1e-3
-    of slots (both sum in f64), output ≡ xs gathered by them, one launch
-    counted."""
+    """Kernel 1: ancestors equal to the plain version's (both sum in f64),
+    output ≡ xs gathered by them, one launch counted."""
     rng = np.random.default_rng(7)
     a = 2.0 * rng.standard_normal((64, n))
     w = np.exp(a - a.max(-1, keepdims=True))
@@ -57,11 +56,55 @@ def test_resample_kernel_matches_plain(cuda, n, c):
     out, anc = resample_gather(u0, w, xs, return_ancestors=True)
     assert resample_gather.launches == before + 1
     ref, anc_ref = resample_gather_plain(u0, w, xs)
-    assert (anc != anc_ref).float().mean().item() < 1e-3
+    assert torch.equal(anc, anc_ref)
     assert torch.equal(out, torch.gather(xs, 2, anc.long()[:, None, :].expand(xs.shape)))
 
 
-@pytest.mark.parametrize("n", [1000, 1024, 8192])
+@pytest.mark.parametrize("n", [1, 1000, 8191])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("weights", ["skewed", "first", "last"])
+def test_resample_kernel_edge_shapes(cuda, n, c, weights):
+    """Kernel 1 on shapes its warp chunks and 16-byte accesses must take
+    (N=1, N not a multiple of 4, one particle short of 8192, C=1) and on a
+    point mass at slot 0 and at slot N−1, whose one run covers every slot:
+    no ancestor differs from the plain version's; output ≡ xs gathered."""
+    rng = np.random.default_rng(15)
+    m = 64
+    if weights == "skewed":
+        a = 2.0 * rng.standard_normal((m, n))
+        w = np.exp(a - a.max(-1, keepdims=True))
+    else:
+        w = np.zeros((m, n))
+        w[:, 0 if weights == "first" else -1] = 1.0
+    w = torch.tensor(w, dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((m, c, n)), dtype=torch.float32, device=cuda)
+    u0 = torch.tensor(rng.random((m, 1)), dtype=torch.float32, device=cuda)
+    u0[0] = 0.0
+    out, anc = resample_gather(u0, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_plain(u0, w, xs)
+    assert torch.equal(anc, anc_ref)
+    assert torch.equal(out, torch.gather(xs, 2, anc.long()[:, None, :].expand(xs.shape)))
+    if weights != "skewed":
+        assert bool(torch.all(anc == (0 if weights == "first" else n - 1)))
+
+
+def test_resample_kernel_refuses_rows_beyond_its_limit(cuda):
+    """The kernel keeps a row's ancestors in shared memory: past its N limit
+    the wrapper raises before launching."""
+    from sequential_monte_carlo_tpu_torch.kernels import _build
+
+    n = _build.library().smc_resample_count_max_n() + 1
+    w = torch.ones((1, n), device=cuda)
+    with pytest.raises(ValueError):
+        resample_gather(torch.zeros((1, 1), device=cuda), w, w[:, None, :].contiguous())
+
+
+def _enough_draws(z):
+    """The moment checks need ≥ 5·10⁵ draws a normal (small N has fewer)."""
+    return z[0].numel() >= 500_000
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 8192])
 def test_fused_step_kernel_matches_plain(cuda, n):
     """Kernel 2: the plain version, fed the normals recovered from the
     kernel's state deltas, gives the kernel's outputs to rtol 1e-5 (exp and
@@ -157,7 +200,7 @@ def _recover_normals(name, params, state, new):
     return torch.linalg.solve_triangular(f, new - a @ state, upper=False).transpose(0, 1)
 
 
-@pytest.mark.parametrize("n", [1000, 8192])
+@pytest.mark.parametrize("n", [1, 1000, 3000, 8192])
 @pytest.mark.parametrize("name,carry", [("lg1", False), ("lg1", True), ("lg2", False),
                                         ("sv", False), ("sv", True)])
 def test_fused_step_instances_match_plain(cuda, n, name, carry):
@@ -186,10 +229,11 @@ def test_fused_step_instances_match_plain(cuda, n, name, carry):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert bool(torch.all(torch.isfinite(got[2])))
-    _assert_standard_normals(z)
+    if _enough_draws(z):
+        _assert_standard_normals(z)
 
 
-@pytest.mark.parametrize("n", [1000, 8192])
+@pytest.mark.parametrize("n", [1, 1000, 3000, 8192])
 @pytest.mark.parametrize("name", ["ucsv", "lg1", "lg2", "sv"])
 def test_fused_step_raw_route_matches_plain(cuda, n, name):
     """Kernel 2's route without the normalize (the auxiliary filter's
@@ -217,7 +261,8 @@ def test_fused_step_raw_route_matches_plain(cuda, n, name):
     ref = fused_elementwise_step_plain(update, params, state, y, z, normalize=False)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    _assert_standard_normals(z)
+    if _enough_draws(z):
+        _assert_standard_normals(z)
 
 
 def _ucsv_cloud(rng, m, n, cuda):

@@ -6,12 +6,16 @@
 For each cell — density-tempered SMC on LG at BASELINE config 4 (512 × 1024,
 T=100, chain=3) with (a) the systematic inner filter at every step and
 (b) the stratified one triggered at ESS < N/2; 512 parallel LG filters at θ*
-(config 3); online SMC² on UC-SV at 512 × 1024 (bench.py); the same SMC²
-and LG filters with the auxiliary particle filter inside — it runs the
+(config 3); online SMC² on UC-SV at 512 × 1024 (bench.py) and at the
+flagship 512 × 8192; the 512 × 1024 SMC² and the LG filters with the
+auxiliary particle filter inside — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
-per cell and writes them all to ``--out``. Needs a CUDA device.
+per cell and writes them all to ``--out``; ``--cells`` picks cells by name.
+Needs a CUDA device.
+
+    python3 tools/profile_port.py --cells smc2_ucsv_512x8192   # the flagship
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ def _cells(torch):
             "dt_b_stratified_ess0.5": dt(("stratified", 0.5)),
             "filters_lg_512": filters(("systematic", 1.0)),
             "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed),
+            "smc2_ucsv_512x8192": lambda seed: cs.run_slice(torch, 8192, seed),
             "filters_lg_apf_512": filters(cs.APF),
             "smc2_ucsv_apf_512x1024": lambda seed: cs.run_apf_smc2(
                 torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed)}
@@ -79,6 +84,7 @@ def _profile(torch, fn, seed: int) -> dict:
     device_us = sum(r[1] for r in device)
     return {
         "wall_s": wall, "wall_profiled_s": wall_prof, "device_s": device_us / 1e6,
+        "device_calls": sum(r[2] for r in device),
         "device_busy": device_us / 1e6 / wall_prof,
         "host_self_cpu_s": sum(e.self_cpu_time_total for e in events
                                if e.device_type == DeviceType.CPU) / 1e6,
@@ -93,6 +99,7 @@ def main() -> int:
 
     p = argparse.ArgumentParser()
     p.add_argument("--out", default="profile_port.json")
+    p.add_argument("--cells", nargs="*", help="cells to run (default: all)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
@@ -103,7 +110,13 @@ def main() -> int:
                              "--format=csv,noheader"], capture_output=True, text=True,
                             check=True).stdout.strip().splitlines()[0]
     rows = []
-    for name, fn in _cells(torch).items():
+    cells = _cells(torch)
+    unknown = set(args.cells or ()) - set(cells)
+    if unknown:
+        raise SystemExit(f"profile_port: unknown cells {sorted(unknown)}; one of {sorted(cells)}")
+    for name, fn in cells.items():
+        if args.cells and name not in args.cells:
+            continue
         row = {"cell": name, "card": smi, **_profile(torch, fn, 0)}
         print(json.dumps(row), flush=True)
         rows.append(row)
