@@ -45,7 +45,7 @@ Phases, one line each or more; any failure raises and exits non-zero:
      against the density at the returned state, the normalize against a
      torch normalize of the raw log-weights, γ = 0, the row_offset
      (θ-sharding) property, and against K2's UC-SV instance at the same seed
-     (within 1e-5; the line says whether bitwise), all four timed;
+     (within 1e-5; the line says per route whether bitwise), all four timed;
  11. K2 raw  — K2's route without the normalize, per instance (UC-SV, LG
      dx 1 and 2, SV), against the plain version, with the recovered normals'
      moments;
@@ -67,6 +67,7 @@ the last the card's name and power limit; the last line is
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -127,9 +128,47 @@ UCSV_BANK_JAX = {"bootstrap": (-262.597221, 0.676004, 2048),
 # device while time_ms queues the calls it times.
 SLEEP_CYCLES = 100_000_000
 
-# Card peaks for the bound (NVIDIA's H100 SXM data sheet, at 700 W): HBM
-# bytes/s and f32 operations/s outside the tensor cores.
+# Card rates for the bound. NVIDIA's H100 SXM data sheet, at 700 W: HBM
+# bytes/s and f32 operations/s outside the tensor cores. Per SM and clock at
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput): 4 warp instructions issued (128 thread instructions), 64
+# 32-bit integer multiplies (a product's low or high half) and 16 MUFU
+# operations (ex2, lg2, sqrt, rsqrt, rcp, sin, cos); 132 SMs at the SM clock
+# that nvidia-smi reports as clocks.max.sm.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+SMS, INSTR_PER_CLOCK, IMAD_PER_CLOCK, MUFU_PER_CLOCK = 132, 128, 64, 16
+
+# Work per particle that a propagate function needs, whatever kernel computes
+# it: issued instructions, 32-bit integer multiplies and MUFU operations, with
+# what is the same for a whole row (Philox's key schedule, the row's counter
+# word and its products, the parameters) done once a row.
+#  - Philox-4x32-10 at counter (i, row, 0, 0), by the words the model uses:
+#    round 0 has one product (the other is of a zero word), round 1 one (the
+#    other is of a word fixed by the row), rounds 2-9 two. All four words
+#    (UC-SV): 18 products of 32x32 -> 64 bits, 19 three-way XORs and the
+#    counter, 38 issued; r0 and r1 only (LG, SV): the last three rounds drop
+#    the halves no output needs, 17 products, 17 XORs, 35 issued. Multiplies,
+#    a half each: round 0's product is of the particle index, so for
+#    neighbouring particles it can be the last one's plus the round constant,
+#    a 64-bit add; the others 34 (four words) and 29 (two).
+#  - A uniform from a word: sign fold, int to float, scale (3). Box-Muller:
+#    the math library's accurate log of max(1e-7, u1), whose argument in
+#    [1e-7, 1] needs no special case (exponent split and conversion 5, 13
+#    multiply-adds), the max, -2x and the sqrt (MUFU): 21; 2 pi u2: 1; sin and
+#    cos of it in [0, 2 pi) (reduction 5, the square 1, both polynomials 8,
+#    quadrant selects and signs 5): 19, or 17 for cos alone; the radius times
+#    each: 1 a normal. Both normals of a pair 6 + 21 + 1 + 19 + 2 = 49; the
+#    cos one alone 46 (LG dx=1, SV, UC-SV's third).
+#  - The update op for op, an exp as a scale and an ex2 (MUFU): UC-SV 14 with
+#    2 exps, SV 8 with 1, LG dx=1 6, dx=2 13; the carry's add 1.
+#  - 16-byte loads and stores of the planes, log-weights and carry.
+#  - The normalize: max, exp(logw - max) (scale, subtract, ex2), two sums,
+#    logw - lse: 7 with 1 MUFU; above 1024 the log-weights' second pass.
+# tools/sass_count.py holds these against the kernels' machine code.
+PHILOX_WORK = {4: (38, 34), 2: (35, 29)}  # words used: (issued, multiplies)
+BOX_MULLER_INSTR = {1: 46, 2: 49, 3: 49 + 46}  # by normals drawn, uniforms included
+# model: (normals drawn, the update's issued instructions, its exps)
+UPDATE_WORK = {"ucsv": (3, 14, 2), "sv": (1, 8, 1), "lg1": (1, 6, 0), "lg2": (2, 13, 0)}
 
 
 def lg_series(t: int = DT_T) -> np.ndarray:
@@ -267,7 +306,7 @@ def check_k1(torch, cases, gen):
         key = f"{m}x{n}" if c == 3 else f"c{c}_{m}x{n}"
         out[key] = (time_ms(torch, lambda: resample_gather(u0, w, xs)),
                     time_ms(torch, lambda: resample_gather_plain(u0, w, xs)),
-                    *bound_ms(*resample_cost(m, n, c, grid=False)))
+                    *bound_ms(**resample_cost(m, n, c, grid=False)))
         say("K1", shape=f"{m}x{n}", c=c, ms=out[key][0], plain_ms=out[key][1],
             bound_ms=out[key][2])
     return out
@@ -348,34 +387,62 @@ def check_k2(torch, shapes, gen):
     return out
 
 
-def bound_ms(nbytes: float, ops: float):
-    """(least time in ms, what bounds it): the bytes a call must move over
-    the card's memory rate, or its f32 operations over the peak rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    return 1e6 * float(mhz)
 
 
-def resample_cost(m: int, n: int, c: int, grid: bool):
+def bound_ms(nbytes: float, f32: float = 0.0, issue: float = 0.0, imad: float = 0.0,
+             mufu: float = 0.0):
+    """(least time in ms, "bytes" or "operations", what bounds it): the
+    bytes a call must move over the card's memory rate, or the longest of
+    its operations on one pipe at that pipe's rate: f32 operations at the
+    f32 peak; issued thread instructions, 32-bit integer multiplies and
+    MUFU operations at their per-SM rates."""
+    clock = SMS * sm_clock_hz()
+    times = {"bytes": nbytes / PEAK_BYTES, "f32": f32 / PEAK_F32,
+             "issue": issue / (INSTR_PER_CLOCK * clock), "imad": imad / (IMAD_PER_CLOCK * clock),
+             "mufu": mufu / (MUFU_PER_CLOCK * clock)}
+    limit = max(times, key=times.get)
+    return 1e3 * times[limit], "bytes" if limit == "bytes" else "operations", limit
+
+
+def resample_cost(m: int, n: int, c: int, grid: bool) -> dict:
     """Bytes and operations of one resample + gather call: weights and the
     cloud read, the cloud written, and the grid u read (K3) or the offsets
-    u0 (K1); per slot a scan step, a divide and a log2(N)-step search."""
+    u0 (K1); per slot a scan step, a divide and a log2(N)-step search, as f32
+    operations (an estimate: these kernels are bound by bytes)."""
     nbytes = 4 * m * n * (2 * c + 1 + (1 if grid else 0)) + (0 if grid else 4 * m)
-    return nbytes, m * n * (math.log2(n) + 3)
+    return {"nbytes": nbytes, "f32": m * n * (math.log2(n) + 3)}
 
 
-# Operations per particle of the propagate kernel: Philox (10 rounds of
-# about 6 integer operations for 4 draws), Box–Muller (log, sqrt, sin, cos,
-# about 20), the model update and observation density (about 15) and the
-# normalize (about 10). An estimate; the kernel is bound by bytes.
-K2_OPS_PER_PARTICLE = 105
+def propagate_work(model: str, s: int, carry: bool, normalize: bool, n: int) -> tuple:
+    """(issued instructions, 32-bit multiplies, MUFU operations) per particle
+    that the propagate function of ``model`` (S state planes) needs: the
+    constants above."""
+    normals, upd_issue, exps = UPDATE_WORK[model]
+    issue, imad = PHILOX_WORK[4 if normals > 2 else 2]
+    issue += BOX_MULLER_INSTR[normals] + upd_issue + carry + (2 * s + 1 + carry) / 4
+    mufu = (normals + 1) // 2 + exps  # a sqrt a pair, an ex2 an exp
+    if normalize:
+        issue += 7 + (0.5 if n > 1024 else 0)
+        mufu += 1
+    return issue, imad, mufu
 
 
-def propagate_cost(m: int, n: int, s: int, p: int, carry: bool):
+def propagate_cost(m: int, n: int, s: int, p: int, carry: bool, model: str,
+                   normalize: bool) -> dict:
     """Bytes and operations of one fused propagate call: the cloud (S planes)
     and the carry read, the new cloud and log_norm written, (M, P)
-    parameters read and lse, ess written."""
+    parameters read and lse, ess written; :func:`propagate_work`'s
+    operations for every particle."""
     nbytes = 4 * m * n * (2 * s + 1 + (1 if carry else 0)) + 4 * m * (p + 2)
-    return nbytes, m * n * K2_OPS_PER_PARTICLE
+    issue, imad, mufu = propagate_work(model, s, carry, normalize, n)
+    return {"nbytes": nbytes, "issue": m * n * issue, "imad": m * n * imad, "mufu": m * n * mufu}
 
 
 def check_k3_case(torch, label: str, u, w, xs, limit: float, out) -> tuple:
@@ -425,7 +492,7 @@ def check_k3(torch, shapes, gen):
         w = profiles["skewed"]
         out[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
                            time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
-                           *bound_ms(*resample_cost(m, n, c, grid=True)))
+                           *bound_ms(**resample_cost(m, n, c, grid=True)))
         say("K3", shape=f"{m}x{n}", c=c, ms=out[f"{m}x{n}"][0], plain_ms=out[f"{m}x{n}"][1],
             bound_ms=out[f"{m}x{n}"][2])
     return out
@@ -524,7 +591,8 @@ def check_k2_instances(torch, shapes, gen, names=("lg1", "lg1_carry", "lg2", "sv
                                                               carry_logw=carry,
                                                               normalize=not raw)),
                 time_ms(torch, plain),
-                *bound_ms(*propagate_cost(m, n, s, params.shape[1], carry is not None)))
+                *bound_ms(**propagate_cost(m, n, s, params.shape[1], carry is not None,
+                                           name.split("_")[0], not raw)))
             say("K2", instance=name, shape=f"{m}x{n}", max_abs_err=err, ms=res[f"{m}x{n}"][0],
                 plain_ms=res[f"{m}x{n}"][1], bound_ms=res[f"{m}x{n}"][2], **moments)
     return out
@@ -780,7 +848,8 @@ def check_k6(torch, shapes, gen):
     from sequential_monte_carlo_tpu_torch.models.ucsv import UCSV_UPDATE
     from sequential_monte_carlo_tpu_torch.ops.weights import log_normalize
 
-    out = {"max_abs_err": 0.0, "k2_max_abs_diff": 0.0, "k2_bitwise": True}
+    out = {"max_abs_err": 0.0, "k2_max_abs_diff": 0.0, "k2_bitwise_raw": True,
+           "k2_bitwise_normalized": True}
     tol = dict(rtol=1e-5, atol=1e-5)
     y = torch.tensor(1.3, device="cuda")
     for m, n in shapes:
@@ -826,26 +895,26 @@ def check_k6(torch, shapes, gen):
                                        normalize=True)
         if not all(torch.equal(a, b[r:]) for a, b in zip(half, norm)):
             raise AssertionError(f"K6 {m}x{n}: rows at row_offset {r} differ from the full call's")
-        # against K2's UC-SV instance at the same seed
-        diff, bitwise = 0.0, True
-        for normalize, k6 in ((False, raw), (True, norm)):
+        # against K2's UC-SV instance at the same seed, per route
+        diff, bitwise = 0.0, {}
+        for route, k6 in (("raw", raw), ("normalized", norm)):
             k2 = fused_elementwise_step(UCSV_UPDATE, params, cloud, y, seed=seed,
-                                        normalize=normalize)
+                                        normalize=route == "normalized")
             for a, b in zip(k6, k2):
                 torch.testing.assert_close(a, b, **tol)
                 diff = max(diff, (a - b).abs().max().item())
-                bitwise = bitwise and torch.equal(a, b)
+            bitwise[route] = all(torch.equal(a, b) for a, b in zip(k6, k2))
+            out[f"k2_bitwise_{route}"] = out[f"k2_bitwise_{route}"] and bitwise[route]
         out["k2_max_abs_diff"] = max(out["k2_max_abs_diff"], diff)
-        out["k2_bitwise"] = out["k2_bitwise"] and bitwise
-        say("K6", shape=f"{m}x{n}", max_abs_err=err, k2_max_abs_diff=diff, k2_bitwise=bitwise,
-            **moments)
+        say("K6", shape=f"{m}x{n}", max_abs_err=err, k2_max_abs_diff=diff,
+            k2_bitwise_raw=bitwise["raw"], k2_bitwise_normalized=bitwise["normalized"], **moments)
 
         def plain(normalize):
             zz = torch.randn((3, m, n), generator=gen, device="cuda")
             return ucsv_propagate_reweight_plain(y, ge, gn, cloud, zz, normalize)
 
-        bound = bound_ms(*propagate_cost(m, n, 3, 2, False))
         for label, normalize in (("", False), ("normalized_", True)):
+            bound = bound_ms(**propagate_cost(m, n, 3, 2, False, "ucsv", normalize))  # K2's too
             out[f"{label}{m}x{n}"] = (
                 time_ms(torch, lambda: ucsv_propagate_reweight(seed, y, ge, gn, cloud,
                                                                normalize=normalize)),
@@ -857,7 +926,8 @@ def check_k6(torch, shapes, gen):
         say("K6", shape=f"{m}x{n}", ms=out[f"{m}x{n}"][0],
             ms_normalized=out[f"normalized_{m}x{n}"][0], k2_ucsv_raw_ms=out[f"k2_{m}x{n}"][0],
             k2_ucsv_normalized_ms=out[f"k2_normalized_{m}x{n}"][0],
-            plain_ms=out[f"{m}x{n}"][1], bound_ms=bound[0])
+            plain_ms=out[f"{m}x{n}"][1], bound_ms=out[f"{m}x{n}"][2],
+            bound_ms_normalized=out[f"normalized_{m}x{n}"][2])
     return out
 
 
@@ -887,7 +957,7 @@ def check_k3_grids(torch, gen, res):
             w = profiles["skewed"]
             res[f"{m}x{n}"] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
                                time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
-                               *bound_ms(*resample_cost(m, n, 3, grid=True)))
+                               *bound_ms(**resample_cost(m, n, 3, grid=True)))
             say("K3", grid=label, shape=f"{m}x{n}", c=3, ms=res[f"{m}x{n}"][0],
                 plain_ms=res[f"{m}x{n}"][1], bound_ms=res[f"{m}x{n}"][2])
 
@@ -1114,15 +1184,17 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on any path")
 
     def entry(name, route, source, replaces, res, key="512x1024"):
-        ms, plain_ms, b_ms, b_by = res[key]
+        ms, plain_ms, b_ms, b_by, b_limit = res[key]
         e = {"name": name, "route": route, "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": res["max_abs_err"], "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_limit": b_limit,
+             "library_ms": None}
         for other, val in res.items():
             if other in (key, "max_abs_err", "anc_mismatch"):
                 continue
             if isinstance(val, tuple):
-                e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"] = val[:3]
+                (e[f"ms_{other}"], e[f"plain_ms_{other}"], e[f"bound_ms_{other}"], _,
+                 e[f"bound_limit_{other}"]) = val
             else:
                 e[other] = val
         return e
@@ -1130,7 +1202,7 @@ def main() -> int:
     pkg = "sequential_monte_carlo_tpu_torch"
     propagate = "sequential_monte_carlo_tpu/kernels/propagate_pallas.py:48"
     for shape, (m, n) in (("512x1024", (512, 1024)), ("512x8192", (512, 8192))):
-        k2[shape] += bound_ms(*propagate_cost(m, n, 3, 2, False))
+        k2[shape] += bound_ms(**propagate_cost(m, n, 3, 2, False, "ucsv", True))
     kernels = [
         entry("resample_count", "cuda", f"{pkg}/csrc/resample_count.cu",
               "sequential_monte_carlo_tpu/kernels/resample_walk.py:258", k1),

@@ -29,7 +29,9 @@
 //     loads; the chunk sums give each warp its prefix and the row total, with
 //     no block-wide reduce or scan over the row. The walk reads the chunk
 //     again, from L2: at 40 registers a thread more rows are resident than
-//     with the chunk held in registers (measured faster at 512x8192).
+//     with the chunk held in registers (measured faster at 512x8192). The
+//     chunk sum, the lane scan and cdf_of are row_cdf.cuh's, shared with the
+//     sorted-grid kernel.
 //  2. Spans without a search per slot. The count formula says that slots
 //     [s_hi_{j-1}, s_hi_j) take ancestor j. Each warp walks its chunk 128
 //     weights a step, with a running f64 sum: 4 serial sums in each lane and a
@@ -57,36 +59,22 @@
 // and gathers overlap only in part.
 #include <cuda_runtime.h>
 
+#include "row_cdf.cuh"
+
 namespace {
 
-constexpr int kStep = 128;    // weights or slots per warp step, 4 a lane
-constexpr int kMaxN = 56832;  // 222 KB of ancestors, within the 227 KB a block may use
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr unsigned kFull = 0xffffffffu;
+using smc::kFull;
+using smc::kStep;
+using smc::cdf_of;
+using smc::load4;
 
-// The f32 rounding of the correctly rounded f64 quotient cum / total, as the
-// host computes it. cum * (1 / total) is within 2^-51 of that quotient,
-// relatively, so where both ends of q (1 -+ 2^-50) round to the same f32, so
-// does the quotient; only the rare q near an f32 rounding point divides.
-__device__ __forceinline__ float cdf_of(double cum, double total, double inv) {
-  const double q = __dmul_rn(cum, inv);
-  const float lo = __double2float_rn(__dmul_rn(q, 1.0 - 0x1p-50));
-  const float hi = __double2float_rn(__dmul_rn(q, 1.0 + 0x1p-50));
-  return lo == hi ? lo : __double2float_rn(__ddiv_rn(cum, total));
-}
+constexpr int kMaxN = 56832;  // 222 KB of ancestors, within the 227 KB a block may use
 
 // s_hi of a cumulative weight: N * cdf - u0 rounded op by op, then ceil
 __device__ __forceinline__ int span_of(double cum, double total, double inv, float nf,
                                        float offset) {
   const float cdf = cdf_of(cum, total, inv);
   return static_cast<int>(ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset)));
-}
-
-// the 4 weights of a lane at j, j + 1, j + 2, j + 3 (0 past the row's end)
-__device__ __forceinline__ float4 load4(const float* __restrict__ w_row, int j, int n, bool vec) {
-  if (vec && j < n) return *reinterpret_cast<const float4*>(w_row + j);
-  return make_float4(j < n ? w_row[j] : 0.0f, j + 1 < n ? w_row[j + 1] : 0.0f,
-                     j + 2 < n ? w_row[j + 2] : 0.0f, j + 3 < n ? w_row[j + 3] : 0.0f);
 }
 
 // kThreads: 256 for rows up to 2048, 512 above; warp chunks of 2^shift slots
@@ -118,13 +106,7 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
   if (t < kWarps) chunk_max[t] = -1;
 
   // 1. the warp's chunk of w, summed in f64
-  double part = 0.0;
-  for (int s = 0; s < steps; ++s) {
-    const float4 q = load4(w_row, begin + s * kStep + 4 * lane, end, vec);
-    part += (static_cast<double>(q.x) + q.y) + (static_cast<double>(q.z) + q.w);
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(kFull, part, d);
+  const double part = smc::chunk_sum(w_row, begin, end, vec, lane);
   if (lane == 0) chunk_sum[warp] = part;
   __syncthreads();  // marks, chunk_max and chunk_sum are in
 
@@ -143,16 +125,8 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
   double run = prefix;
   auto walk = [&](int s, float4 q) {
     const int j = begin + s * kStep + 4 * lane;
-    const double l0 = q.x, l1 = l0 + q.y, l2 = l1 + q.z, l3 = l2 + q.w;
-    double incl = l3;  // inclusive scan of the lanes' sums
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const double up = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += up;
-    }
-    double before = __shfl_up_sync(kFull, incl, 1);
-    before = run + (lane == 0 ? 0.0 : before);
-    const double cum[4] = {before + l0, before + l1, before + l2, before + l3};
+    double cum[4];
+    smc::lane_scan(q, lane, run, cum);
     int hi[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -172,7 +146,6 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
     // the last lane that holds a weight hands its span to the next step
     const unsigned held = __ballot_sync(kFull, hi[0] >= 0);
     prev = __shfl_sync(kFull, lo, 31 - __clz(held));
-    run += __shfl_sync(kFull, incl, 31);
   };
   // the chunk again, from cache
   for (int s = 0; s < steps; ++s) walk(s, load4(w_row, begin + s * kStep + 4 * lane, end, vec));
@@ -226,9 +199,7 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
 template <int kThreads>
 cudaError_t launch(const float* u0, const float* w, const float* xs, float* out, int* anc,
                    int m, int n, int c, cudaStream_t stream) {
-  constexpr int kWarps = kThreads / 32;
-  int shift = 7;  // warp chunks: the least power of two >= 128 that covers N in kWarps
-  while ((kWarps << shift) < n) ++shift;
+  const int shift = smc::chunk_shift(n, kThreads / 32);
   const size_t smem = static_cast<size_t>(n) * sizeof(int);
   static bool carveout = false;  // once per instance: all of the SM's shared memory
   if (!carveout) {
@@ -238,7 +209,7 @@ cudaError_t launch(const float* u0, const float* w, const float* xs, float* out,
     if (err != cudaSuccess) return err;
     carveout = true;
   }
-  if (smem > kDefaultSmem) {
+  if (smem > smc::kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));

@@ -86,8 +86,9 @@ def library() -> ctypes.CDLL:
     lib.smc_ucsv_propagate.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i64,
                                        ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.smc_ucsv_propagate.restype = i32
-    lib.smc_resample_count_max_n.argtypes = []
-    lib.smc_resample_count_max_n.restype = i32
+    for name in ("smc_resample_count_max_n", "smc_resample_sorted_max_n"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
     lib.smc_error_string.argtypes = [i32]
     lib.smc_error_string.restype = ctypes.c_char_p
     return lib

@@ -93,7 +93,9 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     Returns (M, C, N) f32 ``xs`` gathered along N (and the ancestors).
     CPU tensors take :func:`resample_gather_sorted_plain`; CUDA tensors
     launch the kernel and count the launch in
-    ``resample_gather_sorted.launches``.
+    ``resample_gather_sorted.launches``. The kernel keeps a row's cdf in
+    shared memory and takes N up to 57,344 (``smc_resample_sorted_max_n``);
+    larger N raises.
     """
     _check(u, weights, xs)
     if xs.device.type == "cpu":
@@ -102,10 +104,12 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
+    lib = _build.library()
+    if n > lib.smc_resample_sorted_max_n():
+        raise ValueError(f"the kernel takes N up to {lib.smc_resample_sorted_max_n()}, got {n}")
     out = torch.empty_like(xs)
     anc = (torch.empty((m, n), device=xs.device, dtype=torch.int32)
            if return_ancestors else None)
-    lib = _build.library()
     with torch.cuda.device(xs.device):
         err = lib.smc_resample_sorted(
             u.data_ptr(), weights.data_ptr(), xs.data_ptr(), out.data_ptr(),
