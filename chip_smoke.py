@@ -60,7 +60,31 @@ Phases, one line each or more; any failure raises and exits non-zero:
      log Z against the Kalman filter's; (c) 512 APF filters on LG at θ*
      (K1 + K2-LG raw), Hodrick–Prescott (K3 + K2-LG dx=2 raw) and SV (K1 +
      K2-SV raw), log Z against the exact, and 512 UC-SV filters, bootstrap
-     (K1 + K2-UC-SV) and APF (K1 + K6), log Z against the JAX package's.
+     (K1 + K2-UC-SV) and APF (K1 + K6), log Z against the JAX package's;
+ 14. exchange — online SMC² on UC-SV with the exchange step armed (M=512,
+     N from 1024, T=241, chain=5, acc_threshold 1.1, exchange_max_n 4096):
+     (a) "grow" through step + maybe_exchange (K1 + K2-UC-SV at N = 1024 …
+     8192), (b) "full" padding (arrays 512×8192 from the init; K3 on the
+     live-prefix grid + K6 raw, the dead tail at exactly −inf), (c)
+     run_segmented with a collect_fn: N doubling to 8192 and never above,
+     launch counts equal to the schedule's, posteriors against the JAX
+     package's bootstrap mean; (d) K3 on the elastic grid at 512×8192 against
+     its plain version; walls per inner step printed, and of (a) and (b)
+     again, warm, at seed 1;
+ 15. large_n — K1 and K3 at 64×65,536 (their large route) against their
+     plain versions, timed; 64 LG filters at θ*, N=65,536, systematic (K1)
+     and stratified at ESS < N/2 (K3), against the Kalman log Z;
+ 16. lg_dx  — K2's generated LG instances at dx = 3, 4, 5, normalized and
+     raw, against their plain versions with the recovered normals' moments;
+     512 filters of dx = 3, 4, 5 models (a local linear trend plus AR
+     components), bootstrap (K1 + K2-lgX) and APF (K1 + K2-lgX raw), against
+     the Kalman log Z;
+ 17. ibis   — IBIS (no kernel) on the dt phase's prior and series, M=512,
+     chain=3, against the exact prior-IS posterior mean;
+ 18. routes — 512 LG filters at θ*, N=1024, T=100, with the
+     residual_systematic (K1), multinomial and residual inner schemes and a
+     guided proposal (the transition widened 1.5-fold; K1, no propagate
+     kernel), each against the Kalman log Z.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -124,9 +148,23 @@ APF = ("systematic", 1.0, None, "apf")  # PFConfig(*APF)
 UCSV_BANK_JAX = {"bootstrap": (-262.597221, 0.676004, 2048),
                  "apf": (-263.338226, 1.226307, 2048)}
 
+# The exchange phase: the slice's UC-SV run with the exchange step armed.
+# acc_threshold 1.1 fires it after every rejuvenation while N ≤ 4096, so N
+# runs 1024 → 2048 → 4096 → 8192 (the reference's cap, smc_samplers.jl:166).
+EXCHANGE_ACC, EXCHANGE_MAX_N, N_CAP = 1.1, 4096, 8192
+# K2's LG instances generated for dx ≥ 3 (the lg_dx phase), and the rows and
+# particles of the large_n phase (the reference ran SMC² at M=64, N=65,536,
+# BASELINE.md:72)
+LG_DX = (3, 4, 5)
+LG_DX_INSTANCES = tuple(f"lg{dx}{route}" for dx in LG_DX for route in ("", "_raw"))
+LARGE_M, LARGE_N = 64, 65536
+
 # A sleep kernel of this many cycles (about 50 ms on an H100) holds the
 # device while time_ms queues the calls it times.
 SLEEP_CYCLES = 100_000_000
+# time_ms queues at most this much of the host's issuing behind the sleep:
+# at about 10 µs a launch, a few hundred launches
+ISSUE_BUDGET_S = 0.002
 
 # Card rates for the bound. NVIDIA's H100 SXM data sheet, at 700 W: HBM
 # bytes/s and f32 operations/s outside the tensor cores. Per SM and clock at
@@ -165,10 +203,18 @@ SMS, INSTR_PER_CLOCK, IMAD_PER_CLOCK, MUFU_PER_CLOCK = 132, 128, 64, 16
 #  - The normalize: max, exp(logw - max) (scale, subtract, ex2), two sums,
 #    logw - lse: 7 with 1 MUFU; above 1024 the log-weights' second pass.
 # tools/sass_count.py holds these against the kernels' machine code.
+#  - More than four normals (LG at dx ≥ 5): one more Philox call per four, at
+#    the counters (i, row, k, 0), whose words 2 and 3 are fixed by the row
+#    as word 1 is, so each costs what the first does by the words it uses.
+#  - The LG update at dx: x′_i = Σ_j A_ij x_j + Σ_j F_ij z_j is a multiply
+#    and 2dx − 1 multiply-adds a row i, B·x′ subtracted from y in dx
+#    multiply-adds, then (δ² times −1/(2R)) plus the row's constant, 3:
+#    2dx² + dx + 3 (6 at dx = 1, 13 at dx = 2).
 PHILOX_WORK = {4: (38, 34), 2: (35, 29)}  # words used: (issued, multiplies)
-BOX_MULLER_INSTR = {1: 46, 2: 49, 3: 49 + 46}  # by normals drawn, uniforms included
+BOX_MULLER_PAIR, BOX_MULLER_ONE = 49, 46  # uniforms included
 # model: (normals drawn, the update's issued instructions, its exps)
-UPDATE_WORK = {"ucsv": (3, 14, 2), "sv": (1, 8, 1), "lg1": (1, 6, 0), "lg2": (2, 13, 0)}
+UPDATE_WORK = {"ucsv": (3, 14, 2), "sv": (1, 8, 1),
+               **{f"lg{dx}": (dx, 2 * dx * dx + dx + 3, 0) for dx in (1, 2, 3, 4, 5)}}
 
 
 def lg_series(t: int = DT_T) -> np.ndarray:
@@ -206,13 +252,24 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     The calls are queued behind a sleep kernel long enough for the host to
     issue them all, so they run back to back on the device and the host's
     cost of issuing them (Python, the launchers) does not enter: at 512×1024
-    that cost is larger than the kernels' (PERF.md §5). Fails if the host
-    did not finish issuing before the device reached the first call."""
+    that cost is larger than the kernels' (PERF.md §5). The launches queued
+    behind the sleep must stay within the device's launch queue (about a
+    thousand; past it the host blocks until the sleep ends): a call of many
+    launches (the plain versions of K2's LG dx ≥ 3 instances: about 60) is
+    timed over fewer calls, ISSUE_BUDGET_S of the host's issuing at the
+    rate of one call timed once, and the sleep lasts at least three times
+    that. Fails if the host did not finish issuing before the device reached
+    the first call."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    iters = max(2, min(iters, int(ISSUE_BUDGET_S / issue_s)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(max(SLEEP_CYCLES, int(3 * iters * issue_s * sm_clock_hz())))
     t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
@@ -240,12 +297,13 @@ def weight_profiles(torch, gen, m: int, n: int) -> dict:
 
 
 def k1_cloud(torch, gen, m: int, n: int, c: int):
-    """K1's input cloud (M, C, N): normal planes (C=3), or the auxiliary
-    filter's, built as it builds it: a UC-SV (C=4) or LG (C=2) cloud with
-    the lookahead log g(y | E[x′|x]) as the last plane, log-densities down to
-    about −120. Returns (cloud, the APF's first-stage weights or None)."""
-    if c == 3:
-        return torch.randn((m, 3, n), generator=gen, device="cuda"), None
+    """K1's input cloud (M, C, N): the auxiliary filter's, built as it
+    builds it, a UC-SV (C=4) or LG (C=2) cloud with the lookahead
+    log g(y | E[x′|x]) as the last plane, log-densities down to about −120;
+    normal planes for any other C. Returns (cloud, the APF's first-stage
+    weights or None)."""
+    if c not in (2, 4):
+        return torch.randn((m, c, n), generator=gen, device="cuda"), None
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.ops.batched_filter import apf_lookahead, as_cloud
     from sequential_monte_carlo_tpu_torch.ops.weights import log_normalize
@@ -425,8 +483,12 @@ def propagate_work(model: str, s: int, carry: bool, normalize: bool, n: int) -> 
     that the propagate function of ``model`` (S state planes) needs: the
     constants above."""
     normals, upd_issue, exps = UPDATE_WORK[model]
-    issue, imad = PHILOX_WORK[4 if normals > 2 else 2]
-    issue += BOX_MULLER_INSTR[normals] + upd_issue + carry + (2 * s + 1 + carry) / 4
+    issue = imad = 0
+    for first in range(0, normals, 4):  # a Philox call per four normals
+        call = PHILOX_WORK[4 if normals - first > 2 else 2]
+        issue, imad = issue + call[0], imad + call[1]
+    issue += (BOX_MULLER_PAIR * (normals // 2) + BOX_MULLER_ONE * (normals % 2) + upd_issue
+              + carry + (2 * s + 1 + carry) / 4)
     mufu = (normals + 1) // 2 + exps  # a sqrt a pair, an ex2 an exp
     if normalize:
         issue += 7 + (0.5 if n > 1024 else 0)
@@ -500,13 +562,19 @@ def check_k3(torch, shapes, gen):
 
 def _lg_cloud(torch, smc, m: int, dx: int):
     """A θ-cloud LG model of m rows for the kernel checks: the LG at θ*
-    (dx = 1), or a two-dimensional one with a non-singular Q, so that the
-    kernel's normals can be recovered from the state deltas (dx = 2; the
+    (dx = 1), or a dx-dimensional one with a non-singular Q, so that the
+    kernel's normals can be recovered from the state deltas (dx ≥ 2; the
     filters phase runs Hodrick–Prescott, whose Q is singular)."""
     if dx == 1:
         return smc.lg_model(torch.tensor(LG_THETA, device="cuda").expand(m, 3))
-    one = smc.multivariate_linear_gaussian(A=[[0.9, 0.1], [0.0, 0.8]], B=[1.0, 0.5],
-                                           Q=[[0.5, 0.1], [0.1, 0.3]], R=0.8)
+    if dx == 2:
+        one = smc.multivariate_linear_gaussian(A=[[0.9, 0.1], [0.0, 0.8]], B=[1.0, 0.5],
+                                               Q=[[0.5, 0.1], [0.1, 0.3]], R=0.8)
+    else:
+        eye = np.eye(dx)
+        one = smc.multivariate_linear_gaussian(
+            A=0.8 * eye + 0.1 * np.eye(dx, k=1), B=np.linspace(1.0, 0.5, dx),
+            Q=0.3 * eye + 0.05 * np.ones((dx, dx)), R=0.8)
     return _broadcast_model(torch, one, m)
 
 
@@ -626,7 +694,7 @@ def launch_counts():
               "resample_sorted": resample_gather_sorted.launches,
               "ucsv_propagate": ucsv_propagate_reweight.launches}
     for inst in ("ucsv", "lg1", "lg1_carry", "lg2", "lg2_carry", "sv", "sv_carry",
-                 "ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw"):
+                 "ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw", *LG_DX_INSTANCES):
         counts[f"fused_propagate_{inst}"] = fused_elementwise_step.instance_launches[inst]
     return counts
 
@@ -705,22 +773,23 @@ def kalman_is_oracle(torch):
     return (w @ theta.double()).cpu().numpy(), (1.0 / torch.sum(w * w)).item()
 
 
-def run_filters(torch, models, y, inner, seed: int):
-    """512 parallel filters through ``batched_log_likelihood``, after a
-    warm-up run: (log Z, wall-clock s, launch counts) of the second run."""
+def run_filters(torch, models, y, inner, seed: int, n: int = DT_N, m: int = DT_M):
+    """m parallel filters of n particles through ``batched_log_likelihood``,
+    after a warm-up run: (log Z, wall-clock s, launch counts) of the second
+    run. ``inner``: PFConfig's fields."""
     import sequential_monte_carlo_tpu_torch as smc
 
     smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(seed + 100), models,
-                               DT_N, DT_M, y, smc.PFConfig(*inner))  # warm-up, not counted
+                               n, m, y, smc.PFConfig(*inner))  # warm-up, not counted
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    _, log_w, log_z = smc.batched_log_likelihood(gen, models, DT_N, DT_M, y, smc.PFConfig(*inner))
+    _, log_w, log_z = smc.batched_log_likelihood(gen, models, n, m, y, smc.PFConfig(*inner))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not (torch.all(torch.isfinite(log_z))
-            and torch.allclose(torch.logsumexp(log_w, 1), torch.zeros(DT_M, device="cuda"),
+            and torch.allclose(torch.logsumexp(log_w, 1), torch.zeros(m, device="cuda"),
                                atol=1e-4)):
         raise AssertionError("filters: log Z not finite or weights not normalized")
     return log_z.double(), wall, launch_counts()
@@ -765,16 +834,18 @@ def sv_series(mu: float, phi: float, sigma: float, t: int = DT_T) -> np.ndarray:
 
 
 def check_delta(model: str, lz, kz: float, wall: float, steps: int,
-                phase: str = "filters") -> None:
+                phase: str = "filters", n: int = DT_N) -> None:
     """Hold the rows' PF log Z against the exact log Z of the filter's
     target: E[Ẑ] = Z gives mean + var/2 ≈ log Z (delta method), within 5
-    standard errors of that estimate from the rows' mean and variance."""
+    standard errors of that estimate from the rows' mean and variance (the
+    bank's rows, ``lz``'s length; ``n`` particles a row, printed)."""
+    rows = lz.shape[0]
     mean, var = lz.mean().item(), lz.var().item()
-    se = math.sqrt(var / DT_M + var**2 / (2 * (DT_M - 1)))
+    se = math.sqrt(var / rows + var**2 / (2 * (rows - 1)))
     if abs(mean + var / 2 - kz) > 5 * se:
         raise AssertionError(f"{phase} ({model}): mean {mean} + var/2 {var / 2} vs exact {kz}"
                              f" beyond 5·{se}")
-    say(phase, model=model, rows=DT_M, n=DT_N, T=DT_T, wall_s=round(wall, 4),
+    say(phase, model=model, rows=rows, n=n, T=DT_T, wall_s=round(wall, 4),
         logz_mean=round(mean, 5), logz_var=round(var, 5), exact_logz=round(kz, 5),
         delta=round(mean + var / 2 - kz, 5), five_se=round(5 * se, 5), launches=steps)
 
@@ -1084,6 +1155,360 @@ def check_ucsv_banks(torch, seed: int):
     return total
 
 
+def _schedule(infos, chain: int, doubled_at) -> int:
+    """Inner steps of an online SMC² run: one per online step, chain·(t − 1)
+    per rejuvenation at step t, and t_d − 1 per refilter of the history
+    y[0:t_d] at a doubling."""
+    rejuv_t = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
+    return len(infos.ess) + sum(chain * (t - 1) for t in rejuv_t) + sum(t - 1 for t in doubled_at)
+
+
+def run_exchange(torch, pad: str, via: str, seed: int = SEED):
+    """Online SMC² on UC-SV (M=512, N from 1024, T=241, chain=5) with the
+    exchange step armed, ``elastic_pad=pad``, driven by ``step`` +
+    ``maybe_exchange`` (``via="step"``) or ``run_segmented`` with a
+    collect_fn (``via="segmented"``). Returns (state, infos, the
+    observation counts t at which a refilter ran, N after every step, the
+    collected series, wall-clock s, launch counts, a step's state with
+    0 < active_n < N under "full" padding)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
+
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
+                        acc_threshold=EXCHANGE_ACC, exchange_max_n=EXCHANGE_MAX_N,
+                        elastic_pad=pad, inner=smc.PFConfig("systematic", 1.0))
+    sampler = smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+    y = series(torch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sizes, doubled_at, partial, series_out = [], [], None, None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if via == "segmented":
+        # per step, before a doubling's service: the posterior mean, and t
+        # and the pending flag, which give the doublings' refilters
+        def collect(st):
+            return (smc.expected_parameters(st), torch.tensor(st.t),
+                    torch.tensor(st.exchange_pending))
+
+        state, (infos, (series_out, ts, pending)) = sampler.run_segmented(
+            gen, y, segment_size=16, collect_fn=collect)
+        doubled_at = ts[pending].tolist()
+    else:
+        state, infos = sampler.init(gen, y), []
+        if state.particles.shape[1] != (N_CAP if pad == "full" else DT_N):
+            raise AssertionError(f"exchange ({pad}): arrays {tuple(state.particles.shape)}")
+        for _ in range(1, T):
+            t0_step, n0 = state.t, state.active_n
+            state, info = sampler.step(gen, state, y)
+            if state.active_n != n0:  # "full": doubled inside the step at t0
+                doubled_at.append(t0_step)
+            if state.exchange_pending:  # "grow": serviced over y[0:t]
+                doubled_at.append(state.t)
+            state = sampler.maybe_exchange(gen, state, y, info)
+            infos.append(info)
+            sizes.append(state.active_n)
+            width = state.particles.shape[1]
+            if width != (N_CAP if pad == "full" else state.active_n):
+                raise AssertionError(f"exchange ({pad}): arrays of {width} at N={state.active_n}")
+            if partial is None and pad == "full" and state.active_n < N_CAP:
+                lw = state.log_w
+                partial = state.active_n
+                if not (torch.all(lw[:, state.active_n:] == -torch.inf)
+                        and torch.all(torch.isfinite(lw[:, :state.active_n]))):
+                    raise AssertionError(f"exchange (full): the tail past {state.active_n}"
+                                         " is not exactly −inf, or a live slot is not finite")
+        infos = _stack(infos)
+    torch.cuda.synchronize()
+    return (state, infos, doubled_at, sizes, series_out, time.perf_counter() - t0,
+            launch_counts(), partial)
+
+
+def check_exchange(torch, gen):
+    """The exchange phase: (a) grow, (b) full padding, (c) run_segmented,
+    each checked for its N schedule, launch counts and posterior; (d) K3 on
+    the elastic grid. Returns the runs' launch counts and K3's elastic
+    mismatch count."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    total, grow_state = None, None
+    for run, pad, via, kernels in (
+            ("a", "grow", "step", ("resample_count", "fused_propagate_ucsv")),
+            ("b", "full", "step", ("resample_sorted", "ucsv_propagate")),
+            ("c", "grow", "segmented", ("resample_count", "fused_propagate_ucsv"))):
+        state, infos, doubled_at, sizes, ser, wall, counts, partial = run_exchange(torch, pad,
+                                                                                   via)
+        label = f"exchange ({run}, {pad}, {via})"
+        if via == "segmented":
+            if ser.shape != (T - 1, 4) or not torch.all(torch.isfinite(ser)):
+                raise AssertionError(f"{label}: collected series {tuple(ser.shape)}")
+        else:
+            steps = sorted(set(sizes))
+            if steps != [2 * DT_N, 4 * DT_N, N_CAP] and steps != [DT_N, 2 * DT_N, 4 * DT_N, N_CAP]:
+                raise AssertionError(f"{label}: N ran through {steps}, not 1024 … 8192")
+            if sizes != sorted(sizes) or max(sizes) > N_CAP:
+                raise AssertionError(f"{label}: N went {sizes}")
+        if state.active_n != N_CAP or len(doubled_at) != 3:
+            raise AssertionError(f"{label}: ended at N={state.active_n} after doublings at"
+                                 f" {doubled_at}")
+        expected = _schedule(infos, CHAIN, doubled_at)
+        expect_counts(label, counts, {k: expected for k in kernels})
+        lw = state.log_w
+        if not torch.all(torch.isfinite(lw[:, :state.active_n])):
+            raise AssertionError(f"{label}: a live log-weight is not finite")
+        if pad == "full" and partial is None:
+            raise AssertionError(f"{label}: no step ran with 0 < active_n < {N_CAP}")
+        mean = smc.expected_parameters(state).cpu().numpy()
+        if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
+            raise AssertionError(f"{label}: posterior mean {mean} vs JAX {JAX_MEAN} beyond {tol}")
+        extra = {}
+        if via == "step" and pad == "grow":
+            grow_state = state
+        if via == "segmented":
+            extra["bitwise_as_run_a"] = all(torch.equal(getattr(state, f), getattr(grow_state, f))
+                                            for f in ("theta", "log_omega", "log_z"))
+        if pad == "full":
+            extra["tail_checked_at_active_n"] = partial
+        say("exchange", run=run, pad=pad, via=via, shape=f"{DT_M}x{DT_N}..{N_CAP}",
+            T=T, chain=CHAIN, wall_s=round(wall, 4), inner_steps=expected,
+            wall_ms_per_inner_step=round(1e3 * wall / expected, 4),
+            rejuvenations=int(infos.rejuvenated.sum()), doubled_at_t=doubled_at,
+            final_n=state.active_n, posterior_mean=np.round(mean, 5).tolist(),
+            jax_mean=JAX_MEAN, tolerance=np.round(tol, 5).tolist(), **extra)
+        total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+        if via == "step":  # a warm run of seed 1 (run a's wall carries Triton's compiles at
+            # N = 2048 and 4096): its wall per inner step, by its own schedule
+            _, infos2, doubled2, _, _, wall2, _, _ = run_exchange(torch, pad, via, SEED + 1)
+            steps2 = _schedule(infos2, CHAIN, doubled2)
+            say("exchange", run=run, pad=pad, seed=SEED + 1, warm_wall_s=round(wall2, 4),
+                inner_steps=steps2, wall_ms_per_inner_step=round(1e3 * wall2 / steps2, 4))
+    return total, check_k3_elastic(torch, gen)
+
+
+def check_k3_elastic(torch, gen) -> int:
+    """K3 on the elastic filter's live-prefix grids at 512×8192, C=3: the
+    systematic grid (i + u0)/active_n clamped at 1 − 1e-7 (a dead tail of
+    equal u), weights 0 past active_n, active_n ∈ {1024, 4096, 8191}: no
+    ancestor may differ from the plain version's or reach active_n."""
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import resample_gather_sorted
+    from sequential_monte_carlo_tpu_torch.ops.batched_filter import _elastic_sorted_u
+
+    m, n, res = DT_M, N_CAP, {"max_abs_err": 0.0, "anc_mismatch": 0.0}
+    for active in (1024, 4096, 8191):
+        xs = torch.randn((m, 3, n), generator=gen, device="cuda")
+        w = weight_profiles(torch, gen, m, n)["skewed"]
+        w[:, active:] = 0.0
+        u = _elastic_sorted_u(torch.rand((m, 1), generator=gen, device="cuda"), n, active)
+        mismatches, err = check_k3_case(torch, f"elastic {m}x{n} active_n={active}", u, w, xs,
+                                        0, res)
+        top = int(resample_gather_sorted(u, w, xs, return_ancestors=True)[1].max())
+        if top >= active:
+            raise AssertionError(f"K3 elastic: ancestor {top} ≥ active_n {active}")
+        say("exchange", run="d", kernel="K3", grid="elastic", shape=f"{m}x{n}", c=3,
+            active_n=active, anc_mismatches=mismatches, max_ancestor=top,
+            max_abs_err_on_agreeing=err)
+    return int(res["anc_mismatch"] * m * n)
+
+
+def check_large_n(torch, gen, k1, k3, k2i):
+    """K1 and K3 at 64×65,536 (their large route) against their plain
+    versions under flat, skewed and point-mass weights, C=1 and 3 (no
+    ancestor may differ), timed at C=3 into ``k1``/``k3``; K2-LG and its
+    carry route, which the banks run, against their plain version at that
+    shape (``check_k2_instances``, into ``k2i``); then 64 LG filters at θ*,
+    N=65,536, systematic (K1 + K2-LG) and stratified at ESS < N/2 (K3 +
+    K2-LG with carry), against the Kalman log Z. Returns the banks' launch
+    counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+        stratified_uniforms,
+    )
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
+        resample_gather,
+        resample_gather_plain,
+    )
+
+    m, n = LARGE_M, LARGE_N
+    key = f"{m}x{n}"
+    for c in (1, 3):
+        xs = torch.randn((m, c, n), generator=gen, device="cuda")
+        u0 = torch.rand((m, 1), generator=gen, device="cuda")
+        u = stratified_uniforms(gen, m, n, device="cuda")
+        profiles = weight_profiles(torch, gen, m, n)
+        for name, w in profiles.items():
+            got, anc = resample_gather(u0, w, xs, return_ancestors=True)
+            ref, anc_ref = resample_gather_plain(u0, w, xs)
+            if not (torch.equal(anc, anc_ref) and torch.equal(got, ref)):
+                raise AssertionError(f"large_n K1 {key} C={c} {name}: "
+                                     f"{int((anc != anc_ref).sum())} ancestors differ")
+            mismatches, err = check_k3_case(torch, f"{key} C={c} {name}", u, w, xs, 0, k3)
+            say("large_n", shape=key, c=c, weights=name, k1_anc_mismatches=0,
+                k3_anc_mismatches=mismatches)
+        w = profiles["skewed"]
+        if c == 3:
+            k1[key] = (time_ms(torch, lambda: resample_gather(u0, w, xs)),
+                       time_ms(torch, lambda: resample_gather_plain(u0, w, xs)),
+                       *bound_ms(**resample_cost(m, n, c, grid=False)))
+            k3[key] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
+                       time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
+                       *bound_ms(**resample_cost(m, n, c, grid=True)))
+            say("large_n", shape=key, c=3, k1_ms=k1[key][0], k1_plain_ms=k1[key][1],
+                k1_bound_ms=k1[key][2], k3_ms=k3[key][0], k3_plain_ms=k3[key][1],
+                k3_bound_ms=k3[key][2])
+
+    for inst, res in check_k2_instances(torch, [(m, n)], gen, names=("lg1", "lg1_carry")).items():
+        k2i[inst]["max_abs_err"] = max(k2i[inst]["max_abs_err"], res.pop("max_abs_err"))
+        k2i[inst].update(res)
+
+    y = torch.tensor(lg_series(), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    kz = smc.kalman_log_likelihood(target, y)[1].item()
+    models, steps, total = _lg_cloud(torch, smc, m, 1), DT_T - 1, None
+    for i, (inner, kernels) in enumerate(((("systematic", 1.0), ("resample_count",
+                                                                 "fused_propagate_lg1")),
+                                          (("stratified", 0.5), ("resample_sorted",
+                                                                 "fused_propagate_lg1_carry")))):
+        lz, wall, counts = run_filters(torch, models, y, inner, 11 + i, n=n, m=m)
+        expect_counts(f"large_n ({inner[0]})", counts, {k: steps for k in kernels})
+        check_delta(f"lg {inner[0]} ess<{inner[1]}N", lz, kz, wall, steps, "large_n", n=n)
+        total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+    return total
+
+
+def lg_dx_model(smc, dx: int):
+    """A dx = 3, 4 or 5 LG model of trend and cycles (Harvey's structural
+    form), stable enough for a bootstrap filter: a local linear trend (level,
+    slope), then an AR(1) cycle (dx = 3), an AR(2) cycle in companion form
+    (dx = 4), or an AR(2) cycle and an AR(1) component (dx = 5); y the level
+    plus the cycles' first states with noise variance 1, x₁ ~ N(0, Σ0) with
+    the slope's variance 0.01 and the others' 1."""
+    a = np.zeros((dx, dx))
+    a[0, :2] = 1.0
+    a[1, 1] = 1.0
+    q = [0.05, 0.005]
+    if dx == 3:
+        a[2, 2] = 0.8
+        q += [0.3]
+    else:
+        a[2, 2:4] = (1.2, -0.4)
+        a[3, 2] = 1.0
+        q += [0.1, 0.0]
+        if dx == 5:
+            a[4, 4] = 0.5
+            q += [0.2]
+    b = np.zeros(dx)
+    b[[0, 2] + ([4] if dx == 5 else [])] = 1.0
+    return smc.multivariate_linear_gaussian(A=a, B=b, Q=np.diag(q), R=1.0, X0=np.zeros(dx),
+                                            Sigma0=np.diag([1.0, 0.01] + [1.0] * (dx - 2)))
+
+
+def lg_dx_series(a, b, q, r, sigma0, t: int = DT_T) -> np.ndarray:
+    """A series drawn from the LG model (numpy, default_rng(dx)), x₁ ~ N(0, Σ0)
+    for a diagonal Σ0."""
+    dx = a.shape[0]
+    rng = np.random.default_rng(dx)
+    x, ys = rng.normal(0.0, 1.0, dx) * np.sqrt(np.diag(sigma0)), np.empty(t)
+    for i in range(t):
+        if i:
+            x = a @ x + rng.normal(0.0, 1.0, dx) * np.sqrt(np.diag(q))
+        ys[i] = b @ x + rng.normal(0.0, math.sqrt(r))
+    return ys.astype(np.float32)
+
+
+def check_lg_dx(torch, shapes, gen):
+    """K2's generated LG instances (dx = 3, 4, 5), normalized and raw,
+    against their plain versions (``check_k2_instances``); then 512 filters
+    of each ``lg_dx_model``, bootstrap (K1 + K2-lgX) and APF (K1 + K2-lgX
+    raw), against the Kalman log Z of the filter's target. Returns (the
+    instances' results, the banks' launch counts)."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    res = check_k2_instances(torch, shapes, gen, names=LG_DX_INSTANCES)
+    steps, total = DT_T - 1, None
+    for dx in LG_DX:
+        one = lg_dx_model(smc, dx)
+        a, b, q, sigma0 = (getattr(one, k).cpu().double().numpy()
+                           for k in ("A", "B", "Q", "sigma0"))
+        ys = lg_dx_series(a, b, q, one.R.item(), sigma0)
+        y = torch.tensor(ys, device="cuda")
+        # the filter draws x₁ ~ N(x0, Σ0); the Kalman filter predicts x₁ from
+        # its prior, so its target starts from x0' = A⁻¹x0, Σ0' = A⁻¹(Σ0 − Q)A⁻ᵀ
+        a_inv = torch.linalg.inv(one.A)
+        target = smc.multivariate_linear_gaussian(one.A, one.B, one.Q, one.R, X0=a_inv @ one.x0,
+                                                  Sigma0=a_inv @ (one.sigma0 - one.Q) @ a_inv.T)
+        kz = smc.kalman_log_likelihood(target, y)[1].item()
+        for alg, route in (("bootstrap", ""), ("apf", "_raw")):
+            lz, wall, counts = run_filters(torch, _broadcast_model(torch, one, DT_M), y,
+                                           ("systematic", 1.0, None, alg), 20 + dx)
+            expect_counts(f"lg_dx (dx={dx}, {alg})", counts,
+                          {"resample_count": steps, f"fused_propagate_lg{dx}{route}": steps})
+            check_delta(f"lg dx={dx} {alg}", lz, kz, wall, steps, "lg_dx")
+            total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+    return res, total
+
+
+def check_ibis(torch):
+    """IBIS on the dt phase's prior and series (M=512, chain=3, T=100): the
+    posterior mean against the exact prior-IS oracle, within the dt phase's
+    tolerance; no kernel launches."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    ibis = smc.IBIS(smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device="cuda"),
+                    smc.SMCConfig(n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5))
+    y = torch.tensor(lg_series(), device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, infos = ibis.run(torch.Generator(device="cuda").manual_seed(SEED), y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_counts("ibis", launch_counts(), {})
+    mean = smc.expected_parameters(state).cpu().numpy()
+    oracle, _ = kalman_is_oracle(torch)
+    tol = TOL_Z * np.asarray(DT_JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    if not np.all(np.abs(mean - oracle) <= tol):
+        raise AssertionError(f"ibis: posterior mean {mean} vs the oracle {oracle} beyond {tol}")
+    say("ibis", shape=f"{DT_M} θ", T=DT_T, chain=DT_CHAIN, wall_s=round(wall, 4),
+        rejuvenations=int(infos.rejuvenated.sum()), posterior_mean=np.round(mean, 5).tolist(),
+        oracle=np.round(oracle, 5).tolist(), tolerance=np.round(tol, 5).tolist())
+
+
+def check_routes(torch):
+    """512 LG filters at θ* (N=1024, T=100) with the residual_systematic
+    (K1), multinomial and residual inner schemes (K2-LG after each), and a
+    guided proposal (the transition widened 1.5-fold: K1, no propagate
+    kernel): each bank's log Z against the Kalman filter's. Returns the
+    banks' launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    y = torch.tensor(lg_series(), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    kz = smc.kalman_log_likelihood(target, y)[1].item()
+    widened = smc.Proposal(
+        initial=lambda mm: mm.initial_distribution(),
+        step=lambda mm, xp: smc.Product(smc.Normal(mm.A[..., 0, :] * xp,
+                                                   1.5 * torch.sqrt(mm.Q[..., 0, :]))))
+    steps, total = DT_T - 1, None
+    for i, (label, inner, kernels) in enumerate((
+            ("residual_systematic", ("residual_systematic", 1.0),
+             ("resample_count", "fused_propagate_lg1")),
+            ("multinomial", ("multinomial", 1.0), ("fused_propagate_lg1",)),
+            ("residual", ("residual", 1.0), ("fused_propagate_lg1",)),
+            ("guided", ("systematic", 1.0, widened), ("resample_count",)))):
+        lz, wall, counts = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y, inner, 30 + i)
+        expect_counts(f"routes ({label})", counts, {k: steps for k in kernels})
+        check_delta(f"lg {label}", lz, kz, wall, steps, "routes")
+        total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1110,9 +1535,13 @@ def main() -> int:
     # -- 3 to 6. kernels against their plain versions
     shapes = [(512, 1024), (512, 8192)]
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    k1 = check_k1(torch, [(m, n, c) for c in (3, 4, 2) for m, n in shapes] + [(512, 1000, 3)],
-                  gen)
-    k2 = check_k2(torch, shapes, gen)
+    # the exchange's doublings run K1 and K2-UC-SV at 512×2048 and 512×4096
+    # too; the LG banks run K1 at C=1 (dx=1) and C=5, 6 (dx=5, dx=5's APF)
+    doubling = [(512, 2048), (512, 4096)]
+    k1 = check_k1(torch, [(m, n, c) for c in (3, 4, 2) for m, n in shapes]
+                  + [(m, n, 3) for m, n in doubling] + [(512, 1000, 3)]
+                  + [(512, 1024, c) for c in (1, 5, 6)], gen)
+    k2 = check_k2(torch, shapes + doubling, gen)
     k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1)], gen)
     k2i = check_k2_instances(torch, shapes, gen)
 
@@ -1174,10 +1603,20 @@ def main() -> int:
     # -- 13. the auxiliary particle filter
     apf_counts = check_apf(torch)
 
+    # -- 14 to 18. the exchange step, large N, K2-LG at dx ≥ 3, IBIS, the
+    # inner filter's other routes
+    exchange_counts, _ = check_exchange(torch, gen)
+    large_counts = check_large_n(torch, gen, k1, k3, k2i)
+    k2dx, lg_dx_counts = check_lg_dx(torch, shapes, gen)
+    check_ibis(torch)
+    routes_counts = check_routes(torch)
+
     # launches of each kernel over the main paths (slice at 512×1024 and
-    # 512×8192, dt, filters, apf), each read just after its run
-    launches = {k: slice_counts[k] + dt_counts[k] + filter_counts[k] + apf_counts[k]
-                for k in slice_counts}
+    # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes), each
+    # read just after its run
+    runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
+            lg_dx_counts, routes_counts)
+    launches = {k: sum(run[k] for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",
                         "fused_propagate_ucsv_raw") and n == 0:
@@ -1201,8 +1640,8 @@ def main() -> int:
 
     pkg = "sequential_monte_carlo_tpu_torch"
     propagate = "sequential_monte_carlo_tpu/kernels/propagate_pallas.py:48"
-    for shape, (m, n) in (("512x1024", (512, 1024)), ("512x8192", (512, 8192))):
-        k2[shape] += bound_ms(**propagate_cost(m, n, 3, 2, False, "ucsv", True))
+    for m, n in shapes + doubling:
+        k2[f"{m}x{n}"] += bound_ms(**propagate_cost(m, n, 3, 2, False, "ucsv", True))
     kernels = [
         entry("resample_count", "cuda", f"{pkg}/csrc/resample_count.cu",
               "sequential_monte_carlo_tpu/kernels/resample_walk.py:258", k1),
@@ -1224,6 +1663,9 @@ def main() -> int:
     for inst in ("lg1_raw", "lg2_raw", "sv_raw"):
         kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
                              propagate, k2r[inst]))
+    for inst in LG_DX_INSTANCES:
+        kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
+                             propagate, k2dx[inst]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,76 +7,20 @@ against:
   models/         L1  state-space models (UC-SV, linear-Gaussian, SV)
   ops/            L2  weight math, resamplers, the batched particle filter,
                       the Kalman filter
-  samplers/       L3  online SMC² and density-tempered SMC, with PMMH
-                      rejuvenation
+  samplers/       L3  online SMC² (with the exchange step), IBIS and
+                      density-tempered SMC, with PMMH rejuvenation
   kernels/        L5  hand-written Hopper kernels (CUDA C++ and Triton)
   interop.py          state and models carried across from the JAX package
 
-The inner filter is the bootstrap filter with systematic or stratified
-resampling, at every step or when the ESS falls below a threshold. Entry
-points run on the device of the data they are given. Nothing here imports
-JAX.
+The inner filter is the bootstrap, guided or auxiliary particle filter, with
+any of the JAX package's resampling schemes, at every step or when the ESS
+falls below a threshold. Entry points run on the device of the data they are
+given. Nothing here imports JAX.
 """
-from .distributions import (
-    LogNormal,
-    MvNormal,
-    Normal,
-    Product,
-    TruncatedNormal,
-    TupleProduct,
-    Uniform,
-    product_distribution,
-)
-from .models import (
-    hodrick_prescott,
-    lg_model,
-    multivariate_linear_gaussian,
-    simulate,
-    stochastic_volatility,
-    sv_model,
-    uc_model,
-    ucsv_model,
-    univariate_linear_gaussian,
-    unobserved_components,
-)
-from .ops import (
-    PFConfig,
-    batched_log_likelihood,
-    kalman_filter,
-    kalman_log_likelihood,
-    kalman_log_likelihood_masked,
-    stratified,
-)
-from .samplers import SMC2, SMCConfig, TemperStage, density_tempered, expected_parameters
+from . import distributions, models, ops, samplers
+from .distributions import *  # noqa: F401,F403
+from .models import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
+from .samplers import *  # noqa: F401,F403
 
-__all__ = [
-    "SMC2",
-    "SMCConfig",
-    "PFConfig",
-    "TemperStage",
-    "density_tempered",
-    "expected_parameters",
-    "batched_log_likelihood",
-    "kalman_filter",
-    "kalman_log_likelihood",
-    "kalman_log_likelihood_masked",
-    "stratified",
-    "simulate",
-    "ucsv_model",
-    "lg_model",
-    "uc_model",
-    "sv_model",
-    "stochastic_volatility",
-    "hodrick_prescott",
-    "univariate_linear_gaussian",
-    "multivariate_linear_gaussian",
-    "unobserved_components",
-    "Normal",
-    "LogNormal",
-    "TruncatedNormal",
-    "Uniform",
-    "MvNormal",
-    "Product",
-    "TupleProduct",
-    "product_distribution",
-]
+__all__ = distributions.__all__ + models.__all__ + ops.__all__ + samplers.__all__

@@ -17,7 +17,8 @@
 // size launch and host overhead dominate.
 //
 // Design: one block per θ-row (256 threads up to N=2048, 512 above), with the
-// row's ancestors in shared memory (4 N bytes: N up to kMaxN = 56,832). Warp w
+// row's marks in shared memory (4 N bytes: N up to kMaxN = 56,832; the large
+// route below takes longer rows). Warp w
 // owns the contiguous chunk [w K, (w + 1) K) of the row, K the least power of
 // two >= 128 that covers N with the block's warps, both of weights and of
 // output slots. Every step of a warp covers 128 neighbours, 4 a lane, so
@@ -57,6 +58,16 @@
 // it back now (PERF.md): the walk is compute (an f64 scan and a span per
 // weight) that the gather cannot start before, and the resident rows' walks
 // and gathers overlap only in part.
+//
+// Rows above kMaxN (the large route): the marks do not fit in shared memory,
+// so they live in the row's ancestor output (M x N ints in device memory,
+// which the caller must then pass), read and written through L2 (at
+// 64 x 65,536, 16 MB, well inside the H100's 50 MB). Steps 1-4 are the same;
+// the max-scan of step 3 reads a slot's marks and writes its ancestor back
+// over them, which is safe because each slot's four marks are read and its
+// ancestors written by one lane, and no warp reads another's slot chunk. One
+// block of 1024 threads takes a row. Below kMaxN the shared-memory kernel is
+// the one that runs, unchanged.
 #include <cuda_runtime.h>
 
 #include "row_cdf.cuh"
@@ -77,19 +88,22 @@ __device__ __forceinline__ int span_of(double cum, double total, double inv, flo
   return static_cast<int>(ceilf(__fsub_rn(__fmul_rn(nf, cdf), offset)));
 }
 
-// kThreads: 256 for rows up to 2048, 512 above; warp chunks of 2^shift slots
-template <int kThreads>
+// kThreads: 256 for rows up to 2048, 512 above, 1024 on the large route;
+// warp chunks of 2^shift slots. kGlobal: the marks live in `scratch` (the
+// ancestor output, M x N), and the ancestors are written over them.
+template <int kThreads, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
                       const float* __restrict__ xs, float* __restrict__ out,
-                      int* __restrict__ anc, int n, int c, int shift) {
+                      int* __restrict__ anc, int* scratch, int n, int c, int shift) {
   constexpr int kWarps = kThreads / 32;
-  extern __shared__ int marks[];  // n ints: j at the first slot of j's run, else -1
+  extern __shared__ int smem_marks[];  // n ints: j at the first slot of j's run, else -1
   __shared__ double chunk_sum[kWarps];
   __shared__ int chunk_max[kWarps];  // the largest mark in each slot chunk
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const long long row = blockIdx.x;
+  int* marks = kGlobal ? scratch + row * n : smem_marks;
   const float* w_row = w + row * n;
   const bool vec = (n & 3) == 0;
   const int chunk = 1 << shift;
@@ -180,7 +194,11 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
     if (vec) {
       const int4 a = make_int4(max(before, p[0]), max(before, p[1]), max(before, p[2]),
                                max(before, p[3]));
-      if (anc != nullptr) *reinterpret_cast<int4*>(anc + row * n + o) = a;
+      if (kGlobal) {
+        *reinterpret_cast<int4*>(marks + o) = a;  // over the slot's own marks
+      } else if (anc != nullptr) {
+        *reinterpret_cast<int4*>(anc + row * n + o) = a;
+      }
       for (int k = 0; k < c; ++k) {
         const float* src = xs_row + static_cast<long long>(k) * n;
         *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n + o) =
@@ -188,7 +206,11 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
       }
     } else {
       const int a = max(before, p[0]);
-      if (anc != nullptr) anc[row * n + o] = a;
+      if (kGlobal) {
+        marks[o] = a;
+      } else if (anc != nullptr) {
+        anc[row * n + o] = a;
+      }
       for (int k = 0; k < c; ++k) {
         out_row[static_cast<long long>(k) * n + o] = xs_row[static_cast<long long>(k) * n + a];
       }
@@ -203,20 +225,30 @@ cudaError_t launch(const float* u0, const float* w, const float* xs, float* out,
   const size_t smem = static_cast<size_t>(n) * sizeof(int);
   static bool carveout = false;  // once per instance: all of the SM's shared memory
   if (!carveout) {
-    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads>,
+    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads, false>,
                                            cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout = true;
   }
   if (smem > smc::kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads>,
+    cudaError_t err = cudaFuncSetAttribute(resample_count_kernel<kThreads, false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  resample_count_kernel<kThreads><<<m, kThreads, smem, stream>>>(u0, w, xs, out, anc, n, c,
-                                                                 shift);
+  resample_count_kernel<kThreads, false><<<m, kThreads, smem, stream>>>(
+      u0, w, xs, out, anc, nullptr, n, c, shift);
+  return cudaGetLastError();
+}
+
+// The large route: marks in the ancestor output `anc`, no dynamic shared memory.
+cudaError_t launch_global(const float* u0, const float* w, const float* xs, float* out,
+                          int* anc, int m, int n, int c, cudaStream_t stream) {
+  constexpr int kThreads = 1024;
+  const int shift = smc::chunk_shift(n, kThreads / 32);
+  resample_count_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(u0, w, xs, out, nullptr,
+                                                                    anc, n, c, shift);
   return cudaGetLastError();
 }
 
@@ -224,17 +256,24 @@ cudaError_t launch(const float* u0, const float* w, const float* xs, float* out,
 
 extern "C" {
 
-// The largest N the kernel takes (its ancestors live in shared memory).
+// The largest N of the shared-memory route (its marks live in shared
+// memory); above it the large route keeps them in `anc`.
 int smc_resample_count_max_n() { return kMaxN; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// `anc` may be null. Pointers are device pointers to contiguous f32 / int32
-// arrays: u0 (m), w (m, n), xs and out (m, c, n), anc (m, n).
+// `anc` may be null for n <= smc_resample_count_max_n() and is required
+// above it, where it also holds the marks. Pointers are device pointers to
+// contiguous f32 / int32 arrays: u0 (m), w (m, n), xs and out (m, c, n), anc
+// (m, n), 16-byte aligned.
 int smc_resample_count(const float* u0, const float* w, const float* xs,
                        float* out, int* anc, int m, int n, int c,
                        cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  if (n > kMaxN || c <= 0) return cudaErrorInvalidValue;
+  if (c <= 0) return cudaErrorInvalidValue;
+  if (n > kMaxN) {
+    if (anc == nullptr) return cudaErrorInvalidValue;
+    return launch_global(u0, w, xs, out, anc, m, n, c, stream);
+  }
   if (n <= 2048) return launch<256>(u0, w, xs, out, anc, m, n, c, stream);
   return launch<512>(u0, w, xs, out, anc, m, n, c, stream);
 }

@@ -23,7 +23,8 @@
 // 134 MB at N=8192, C=3, about 2.5 and 40 microseconds at 3.35 TB/s.
 //
 // Design: one block per θ-row (256 threads up to N=2048, 512 above), the
-// row's f32 cdf in shared memory (4 N bytes: N up to kMaxN = 57,344). Warp w
+// row's f32 cdf in shared memory (4 N bytes: N up to kMaxN = 57,344; the large
+// route below takes longer rows). Warp w
 // owns the contiguous chunk [w K, (w + 1) K) of the row, K the least power of
 // two >= 128 that covers N with the block's warps, both of weights and of
 // output slots; every step of a warp covers 128 neighbours, 4 a lane.
@@ -48,6 +49,13 @@
 //     slots' ancestors (non-decreasing, so neighbouring lanes read
 //     neighbouring addresses) and writes one 16-byte store per plane and,
 //     when asked, one for the ancestors.
+//
+// Rows above kMaxN (the large route): the row's cdf does not fit in shared
+// memory, so it lives in a scratch of M x N floats in device memory that the
+// caller passes, written in step 1 and searched in step 2 through L2 (at
+// 64 x 65,536, 16 MB, well inside the H100's 50 MB). The steps are the same;
+// one block of 1024 threads takes a row. Below kMaxN the shared-memory kernel
+// is the one that runs, unchanged.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -96,18 +104,22 @@ __device__ __forceinline__ int gallop(const float* cdf, int lo, int hi, float v)
   return lo;
 }
 
-template <int kThreads>
+// kGlobal: the row's cdf lives in `scratch` (M x N floats), not in shared
+// memory.
+template <int kThreads, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 resample_sorted_kernel(const float* __restrict__ u, const float* __restrict__ w,
                        const float* __restrict__ xs, float* __restrict__ out,
-                       int* __restrict__ anc, int n, int c, int shift, bool vec) {
+                       int* __restrict__ anc, float* scratch, int n, int c, int shift,
+                       bool vec) {
   constexpr int kWarps = kThreads / 32;
-  extern __shared__ float4 cdf4[];  // n floats
+  extern __shared__ float4 smem_cdf4[];  // n floats
+  const long long row = blockIdx.x;
+  float4* cdf4 = kGlobal ? reinterpret_cast<float4*>(scratch + row * n) : smem_cdf4;
   float* cdf = reinterpret_cast<float*>(cdf4);
   __shared__ double chunk_sum[kWarps];
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const long long row = blockIdx.x;
   const float* w_row = w + row * n;
   const int begin = min(warp << shift, n), end = min(begin + (1 << shift), n);
 
@@ -188,20 +200,33 @@ cudaError_t launch(const float* u, const float* w, const float* xs, float* out, 
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   static bool carveout = false;  // once per instance: all of the SM's shared memory
   if (!carveout) {
-    cudaError_t err = cudaFuncSetAttribute(resample_sorted_kernel<kThreads>,
+    cudaError_t err = cudaFuncSetAttribute(resample_sorted_kernel<kThreads, false>,
                                            cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carveout = true;
   }
   if (smem > smc::kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(resample_sorted_kernel<kThreads>,
+    cudaError_t err = cudaFuncSetAttribute(resample_sorted_kernel<kThreads, false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  resample_sorted_kernel<kThreads><<<m, kThreads, smem, stream>>>(u, w, xs, out, anc, n, c,
-                                                                  shift, vec);
+  resample_sorted_kernel<kThreads, false><<<m, kThreads, smem, stream>>>(
+      u, w, xs, out, anc, nullptr, n, c, shift, vec);
+  return cudaGetLastError();
+}
+
+// The large route: the cdf in `scratch`, no dynamic shared memory.
+cudaError_t launch_global(const float* u, const float* w, const float* xs, float* out,
+                          int* anc, float* scratch, int m, int n, int c,
+                          cudaStream_t stream) {
+  constexpr int kThreads = 1024;
+  const int shift = smc::chunk_shift(n, kThreads / 32);
+  const bool vec = n % 4 == 0 && aligned16(u) && aligned16(w) && aligned16(xs) &&
+                   aligned16(out) && aligned16(scratch) && (anc == nullptr || aligned16(anc));
+  resample_sorted_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(u, w, xs, out, anc,
+                                                                     scratch, n, c, shift, vec);
   return cudaGetLastError();
 }
 
@@ -209,17 +234,24 @@ cudaError_t launch(const float* u, const float* w, const float* xs, float* out, 
 
 extern "C" {
 
-// The largest N the kernel takes (its cdf lives in shared memory).
+// The largest N of the shared-memory route (its cdf lives in shared
+// memory); above it the large route keeps the cdf in `scratch`.
 int smc_resample_sorted_max_n() { return kMaxN; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// `anc` may be null. Pointers are device pointers to contiguous f32 / int32
-// arrays: u, w and anc (m, n), xs and out (m, c, n).
+// `anc` may be null. `scratch` (m, n floats) is read only above
+// smc_resample_sorted_max_n(), where it is required. Pointers are device
+// pointers to contiguous f32 / int32 arrays: u, w, anc and scratch (m, n), xs
+// and out (m, c, n).
 int smc_resample_sorted(const float* u, const float* w, const float* xs,
-                        float* out, int* anc, int m, int n, int c,
+                        float* out, int* anc, float* scratch, int m, int n, int c,
                         cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  if (n > kMaxN || c <= 0) return cudaErrorInvalidValue;
+  if (c <= 0) return cudaErrorInvalidValue;
+  if (n > kMaxN) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    return launch_global(u, w, xs, out, anc, scratch, m, n, c, stream);
+  }
   if (n <= 2048) return launch<256>(u, w, xs, out, anc, m, n, c, stream);
   return launch<512>(u, w, xs, out, anc, m, n, c, stream);
 }

@@ -23,7 +23,7 @@ from .distributions import (
 )
 from .models.linear_gaussian import LinearGaussianModel
 from .ops.batched_filter import from_cloud
-from .samplers.base import SMC2State
+from .samplers.base import IBISState, SMC2State
 
 # prior component kind -> (distribution, number of parameters)
 _KINDS = {"normal": (Normal, 2), "uniform": (Uniform, 2), "lognormal": (LogNormal, 2),
@@ -36,10 +36,13 @@ def _f32(a, device) -> torch.Tensor:
 
 def from_numpy_state(fields: Mapping[str, np.ndarray], device="cuda") -> SMC2State:
     """A JAX ``SMC2State``'s fields (theta, log_omega, particles, log_w,
-    log_z, ess, acc_ratio, t), as numpy arrays, → the port's state. The
-    (M, N, dx) particles get the port's planar storage."""
+    log_z, ess, acc_ratio, t, and active_n and exchange_pending where they
+    are not None), as numpy arrays, → the port's state. The (M, N, dx)
+    particles get the port's planar storage; a missing live count is the
+    array's N."""
     particles = np.asarray(fields["particles"], dtype=np.float32)
     cloud = _f32(np.ascontiguousarray(particles.transpose(0, 2, 1)), device)
+    active_n, pending = fields.get("active_n"), fields.get("exchange_pending")
     return SMC2State(
         theta=_f32(fields["theta"], device),
         log_omega=_f32(fields["log_omega"], device),
@@ -49,7 +52,17 @@ def from_numpy_state(fields: Mapping[str, np.ndarray], device="cuda") -> SMC2Sta
         ess=_f32(fields["ess"], device),
         acc_ratio=_f32(fields["acc_ratio"], device),
         t=int(fields["t"]),
+        active_n=particles.shape[1] if active_n is None else int(active_n),
+        exchange_pending=False if pending is None else bool(pending),
     )
+
+
+def from_numpy_ibis_state(fields: Mapping[str, np.ndarray], device="cuda") -> IBISState:
+    """A JAX ``IBISState``'s fields (theta, log_omega, mean, cov, log_z,
+    ess, acc_ratio, t), as numpy arrays, → the port's state."""
+    return IBISState(t=int(fields["t"]), **{
+        k: _f32(fields[k], device)
+        for k in ("theta", "log_omega", "mean", "cov", "log_z", "ess", "acc_ratio")})
 
 
 def from_numpy_model(fields: Mapping[str, np.ndarray], device="cuda") -> LinearGaussianModel:

@@ -54,15 +54,20 @@ The model's update is a ``@triton.jit`` function passed to the kernel as a
 ``tl.constexpr``, as the JAX builder takes ``update_fn``: further models
 add an update function, not a kernel. The instances are UC-SV
 (``models/ucsv.py``), SV (``models/stochastic_volatility.py``) and LG at
-dx = 1 and 2 (``models/linear_gaussian.py``). An update reads its row's
-parameters and state planes, stores the new planes and returns the
+any dx (``models/linear_gaussian.py``): dx = 1 and 2 written out below, dx ≥
+3 generated from the dx-generic update (:func:`_lg_source`). An update reads
+its row's parameters and state planes, stores the new planes and returns the
 log-weights:
 
     update(par, st, new, n, offs, mask, y, z0, z1, z2, z3) -> logw
 
 with ``par`` the row's P parameters, ``st``/``new`` the row's (S, N) planes,
 and z0..z3 the particle's independent N(0, 1) draws (the update's
-``n_normals`` of them; with two or fewer, z2 and z3 are 0).
+``n_normals`` of them; with two or fewer, z2 and z3 are 0). An update that
+takes more than four normals also gets ``seed, grow`` and draws the rest
+itself, four a Philox call at the further counters (particle, row, k, 0),
+k = 1, 2, ...: normal 4k + i is word pair i // 2's Box–Muller draw i % 2 at
+counter k, the order in which the plain version takes them.
 
 :func:`fused_elementwise_step_plain` is the same function in plain PyTorch
 with the normals injected. :func:`fused_elementwise_step` takes it for CPU
@@ -72,6 +77,8 @@ from __future__ import annotations
 
 import collections
 import functools
+import hashlib
+import importlib.util
 import os
 import types
 from typing import Callable, NamedTuple
@@ -85,8 +92,8 @@ class ElementwiseUpdate(NamedTuple):
     """A model's per-particle step in the two forms the wrapper runs."""
 
     plain: Callable  # (params, y, state, normals) -> (new_state, logw)
-    triton: str  # attribute of _triton_kernels() holding the @triton.jit form
-    n_normals: int  # N(0, 1) draws per particle (at most 4)
+    triton: str  # the @triton.jit form: an attribute of _triton_kernels(), or lg<dx>
+    n_normals: int  # N(0, 1) draws per particle
 
 
 def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
@@ -239,7 +246,10 @@ def _triton_kernels() -> types.SimpleNamespace:
             offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
             mask = offs < n
             z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
-            logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
+            if N_NORMALS > 4:
+                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow)
+            else:
+                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
             if HAS_CARRY:
                 logw += tl.load(carry + offs, mask=mask, other=0.0, eviction_policy="evict_first")
             if NORMALIZE:
@@ -267,7 +277,10 @@ def _triton_kernels() -> types.SimpleNamespace:
                 offs = start + tl.arange(0, BLOCK)
                 mask = offs < n
                 z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
-                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
+                if N_NORMALS > 4:
+                    logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow)
+                else:
+                    logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
                 if HAS_CARRY:
                     logw += tl.load(carry + offs, mask=mask, other=0.0,
                                     eviction_policy="evict_first")
@@ -293,6 +306,67 @@ def _triton_kernels() -> types.SimpleNamespace:
 
     return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update, sv=sv_update,
                                  lg1=lg1_update, lg2=lg2_update)
+
+
+def _lg_source(dx: int) -> str:
+    """Source of the LG update at state dimension dx ≥ 3, op for op the
+    plain ``models/linear_gaussian.py::_lg_update(dx)`` (≡ the JAX package's):
+    params (A row-major, F row-major, B, R) with F·Fᵀ = Q,
+    x′_i = Σ_j A_ij x_j + Σ_j F_ij z_j, log w = log N(y; B·x′, R)."""
+    ev = 'mask=mask, other=0.0, eviction_policy="evict_first"'
+    extra = dx > 4
+    lines = ["import triton", "import triton.language as tl", "", "",
+             "@triton.jit",
+             f"def lg{dx}_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3"
+             + (", seed, grow):" if extra else "):")]
+    body = [f"x{j} = tl.load(st + {j} * n + offs, {ev})" for j in range(dx)]
+    if extra:  # normals 4.. from the further counters (particle, row, k, 0)
+        body += ["c0 = offs.to(tl.uint32)", "zero = c0 * 0"]
+        for k in range(1, (dx + 3) // 4):
+            body.append(f"r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero + {k}, zero)")
+            for pair in range(2):
+                i = 4 * k + 2 * pair
+                if i >= dx:
+                    break
+                body.append(f"z{i}, z{i + 1} = tl.pair_uniform_to_normal("
+                            f"tl.uint_to_uniform_float(r{2 * pair}), "
+                            f"tl.uint_to_uniform_float(r{2 * pair + 1}))")
+    for i in range(dx):
+        terms = [f"tl.load(par + {i * dx + j}) * x{j}" for j in range(dx)]
+        terms += [f"tl.load(par + {dx * dx + i * dx + j}) * z{j}" for j in range(dx)]
+        body.append(f"n{i} = " + " + ".join(terms))
+    loc = " + ".join(f"tl.load(par + {2 * dx * dx + i}) * n{i}" for i in range(dx))
+    body += [f"r = tl.load(par + {2 * dx * dx + dx})",
+             f"delta = y - ({loc})",
+             "logw = -0.5 * delta * delta / r - 0.5 * tl.log(r) - 0.9189385332046727"]
+    body += [f'tl.store(new + {i} * n + offs, n{i}, mask=mask, eviction_policy="evict_first")'
+             for i in range(dx)]
+    body.append("return logw")
+    return "\n".join(lines + ["    " + b for b in body]) + "\n"
+
+
+@functools.lru_cache(maxsize=None)
+def _update_fn(name: str):
+    """The @triton.jit update of an instance: written out in
+    :func:`_triton_kernels`, or for LG at dx ≥ 3 generated by
+    :func:`_lg_source` into a module under ``_build/`` (Triton compiles a
+    function from its source file) and imported."""
+    k = _triton_kernels()
+    if hasattr(k, name):
+        return getattr(k, name)
+    dx = int(name[2:])
+    src = _lg_source(dx)
+    digest = hashlib.sha256(src.encode()).hexdigest()[:16]
+    path = _build.BUILD_DIR / "triton_updates" / f"lg{dx}_{digest}.py"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        tmp.write_text(src)
+        os.replace(tmp, path)  # atomic: a concurrent importer sees all or nothing
+    spec = importlib.util.spec_from_file_location(f"smc_triton_lg{dx}_{digest}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return getattr(module, f"lg{dx}_update")
 
 
 def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
@@ -391,7 +465,7 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     with torch.cuda.device(state.device):
         k.step[(m, tiles)](params, state, new, carry_logw if has_carry else log_norm,
                            log_norm, lse, ess, y, seed, row_offset, n, state.stride(0),
-                           P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
+                           P=params.shape[1], S=s, UPDATE=_update_fn(update.triton),
                            N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
                            NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2,
                            STAGES=STAGES, num_warps=num_warps)

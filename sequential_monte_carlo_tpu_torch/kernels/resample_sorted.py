@@ -93,9 +93,9 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     Returns (M, C, N) f32 ``xs`` gathered along N (and the ancestors).
     CPU tensors take :func:`resample_gather_sorted_plain`; CUDA tensors
     launch the kernel and count the launch in
-    ``resample_gather_sorted.launches``. The kernel keeps a row's cdf in
-    shared memory and takes N up to 57,344 (``smc_resample_sorted_max_n``);
-    larger N raises.
+    ``resample_gather_sorted.launches``. The kernel takes any N: up to
+    57,344 (``smc_resample_sorted_max_n``) it keeps a row's cdf in shared
+    memory; above, in an (M, N) scratch in device memory.
     """
     _check(u, weights, xs)
     if xs.device.type == "cpu":
@@ -105,15 +105,16 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
     lib = _build.library()
-    if n > lib.smc_resample_sorted_max_n():
-        raise ValueError(f"the kernel takes N up to {lib.smc_resample_sorted_max_n()}, got {n}")
     out = torch.empty_like(xs)
     anc = (torch.empty((m, n), device=xs.device, dtype=torch.int32)
            if return_ancestors else None)
+    scratch = (torch.empty((m, n), device=xs.device, dtype=torch.float32)
+               if n > lib.smc_resample_sorted_max_n() else None)
     with torch.cuda.device(xs.device):
         err = lib.smc_resample_sorted(
             u.data_ptr(), weights.data_ptr(), xs.data_ptr(), out.data_ptr(),
-            None if anc is None else anc.data_ptr(), m, n, c,
+            None if anc is None else anc.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), m, n, c,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, err, "resample_sorted")

@@ -67,8 +67,9 @@ def resample_gather(u0, weights, xs, return_ancestors: bool = False):
     Returns (M, C, N) f32 ``xs`` gathered along N (and the ancestors).
     CPU tensors take :func:`resample_gather_plain`; CUDA tensors launch the
     kernel and count the launch in ``resample_gather.launches``. The kernel
-    keeps a row's ancestors in shared memory and takes N up to 56,832
-    (``smc_resample_count_max_n``); larger N raises.
+    takes any N: up to 56,832 (``smc_resample_count_max_n``) it keeps a
+    row's marks in shared memory; above, in the ancestors' (M, N) buffer,
+    which is then allocated whether or not it is returned.
     """
     _check(u0, weights, xs)
     if xs.device.type == "cpu":
@@ -78,11 +79,9 @@ def resample_gather(u0, weights, xs, return_ancestors: bool = False):
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
     lib = _build.library()
-    if n > lib.smc_resample_count_max_n():
-        raise ValueError(f"the kernel takes N up to {lib.smc_resample_count_max_n()}, got {n}")
     out = torch.empty_like(xs)
     anc = (torch.empty((m, n), device=xs.device, dtype=torch.int32)
-           if return_ancestors else None)
+           if return_ancestors or n > lib.smc_resample_count_max_n() else None)
     with torch.cuda.device(xs.device):
         err = lib.smc_resample_count(
             u0.data_ptr(), weights.data_ptr(), xs.data_ptr(), out.data_ptr(),

@@ -60,9 +60,19 @@ def _lg_update(dx: int):
     return update
 
 
-# the fused kernel's LG instances (its Triton update functions lg1, lg2)
-LG_UPDATES = {dx: ElementwiseUpdate(plain=_lg_update(dx), triton=f"lg{dx}", n_normals=dx)
-              for dx in (1, 2)}
+class _LGUpdates(dict):
+    """The fused kernel's LG instance at each state dimension dx ≥ 1, made
+    at first use: its Triton update lg<dx> (written out for dx = 1 and 2,
+    generated from the dx-generic update above them)."""
+
+    def __missing__(self, dx: int) -> ElementwiseUpdate:
+        if not isinstance(dx, int) or dx < 1:
+            raise KeyError(dx)
+        upd = self[dx] = ElementwiseUpdate(plain=_lg_update(dx), triton=f"lg{dx}", n_normals=dx)
+        return upd
+
+
+LG_UPDATES = _LGUpdates()
 
 
 def _matvec(a, x):
@@ -84,13 +94,7 @@ class LinearGaussianModel:
 
     @property
     def update(self) -> ElementwiseUpdate:
-        try:
-            return LG_UPDATES[self.state_dim]
-        except KeyError:
-            raise NotImplementedError(
-                f"the fused kernel has LG instances for dx in {sorted(LG_UPDATES)}, "
-                f"not dx={self.state_dim}"
-            ) from None
+        return LG_UPDATES[self.state_dim]
 
     def initial_distribution(self):
         if self.state_dim == 1:

@@ -13,14 +13,25 @@ from .kalman import (
     kalman_log_likelihood_masked,
     kalman_step,
 )
-from .particle_filter import PFConfig
-from .resampling import get_resampler, multinomial, stratified, systematic
-from .weights import ess_from_log_weights, log_normalize
+from .particle_filter import PFConfig, Proposal
+from .resampling import (
+    get_resampler,
+    metropolis,
+    multinomial,
+    resample,
+    residual,
+    residual_systematic,
+    stratified,
+    systematic,
+)
+from .weights import Normalized, ess_from_log_weights, log_normalize, normalize, reweight
 
 __all__ = [
     "BatchedPFOut",
     "KalmanState",
+    "Normalized",
     "PFConfig",
+    "Proposal",
     "batched_log_likelihood",
     "batched_log_likelihood_masked",
     "batched_pf_init",
@@ -33,7 +44,13 @@ __all__ = [
     "kalman_log_likelihood_masked",
     "kalman_step",
     "log_normalize",
+    "metropolis",
     "multinomial",
+    "normalize",
+    "resample",
+    "residual",
+    "residual_systematic",
+    "reweight",
     "stratified",
     "systematic",
 ]

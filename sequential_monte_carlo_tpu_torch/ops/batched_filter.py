@@ -1,24 +1,34 @@
-"""Batched (θ-cloud-level) particle filtering — L2.5, the port's subset of
+"""Batched (θ-cloud-level) particle filtering — L2.5, counterpart of
 ``sequential_monte_carlo_tpu/ops/batched_filter.py``.
 
-All M per-θ filters step as one (M, N) program. Every inner step is two
-hand-written kernels: a resample + ancestor gather — systematic by offsets
-u0 (``kernels/resample_walk.py``) or stratified on an explicit sorted grid
-(``kernels/resample_sorted.py``) — and the model's fused propagate +
-reweight (``kernels/propagate.py``, or ``kernels/ucsv.py`` for the UC-SV
-auxiliary filter). This covers ``PFConfig("systematic" | "stratified",
-ess_threshold)`` with the bootstrap filter or, at ``ess_threshold`` 1, the
-auxiliary particle filter (``algorithm="apf"``); other configurations raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+All M per-θ filters step as one (M, N) program. Every inner step is a
+resample + ancestor gather and a propagate + reweight:
+
+- Resample. Systematic and ``residual_systematic`` (pointwise the same
+  scheme) by offsets u0 in K1 (``kernels/resample_walk.py``); stratified
+  grids, and every elastic live-prefix grid, in K3
+  (``kernels/resample_sorted.py``); ``multinomial``, ``residual`` and
+  ``metropolis`` by their ancestors (``ops/resampling.py``) and a gather,
+  plain tensor code, as the JAX package runs them on its XLA route.
+- Propagate. The model's fused kernel (``kernels/propagate.py``, or
+  ``kernels/ucsv.py`` on UC-SV's route without the normalize), whatever the
+  resampling scheme; or, with a guided ``proposal``, the proposal's draw and
+  the importance-corrected weight (plain tensor code over the models'
+  distributions, JAX's unfused route).
+
+``PFConfig(resampling, ess_threshold, proposal, algorithm)``: the bootstrap
+or guided filter, resampling at every step or where the ESS fell below
+``ess_threshold``·N, or at ``ess_threshold`` 1 the auxiliary particle filter
+(``algorithm="apf"``).
 
 Auxiliary particle filter (Pitt & Shephard 1999), ≡ the JAX package's
 ``_batched_apf_step``: the first-stage weights look ahead through the
 transition mean, λ = log w + log g(y | E[x′ | x]) (plain tensor glue over the
-models' distributions); the resample kernel draws ancestors by λ and gathers
-the cloud with log g as one extra plane, so the ancestors' lookahead comes
-out of the same launch; the model's step without the normalize gives the
-raw log-weights of the propagated cloud, corrected by the ancestors'
-lookahead and normalized here, with the evidence increment
+models' distributions); the resample draws ancestors by λ and gathers the
+cloud with log g as one extra plane, so the ancestors' lookahead comes out
+of the same launch; the model's step without the normalize gives the raw
+log-weights of the propagated cloud, corrected by the ancestors' lookahead
+and normalized here, with the evidence increment
 log Σ exp(λ) + log mean exp(corr).
 
 Adaptive resampling (``ess_threshold < 1``): a row fires when its ESS
@@ -30,16 +40,23 @@ package's ``lax.cond`` is bitwise equal to). The carried log-weights ride
 into the propagate kernel (``carry_logw``), whose normalize then gives the
 evidence increment log Σ w·g directly.
 
+Elastic live count (``active_n``, the padded form of SMC²'s N-doubling):
+slots ≥ active_n carry log-weight −inf, the evidence normalizes by
+active_n, the resample draws on the live prefix (:func:`_elastic_sorted_u`,
+K3), the propagate runs on the kernel's route without the normalize (as the
+JAX package's), and the increment is zeroed on the dead slots before the
+normalize, so that no −inf + NaN reaches it.
+
 Layout: particles are (M, N, dx) at the public functions, as in the JAX
 package, but their storage is planar — the (M, dx, N) cloud that the
 kernels read and write, seen through a transposed view (:func:`as_cloud`,
 :func:`from_cloud`) — so no step copies the cloud between layouts.
 
-Randomness: :func:`batched_pf_step` draws the resampling grid — offsets u0
-(M, 1) or a stratified grid u (M, N) — and, on a GPU, one Philox seed (the
-kernel draws its normals), on the CPU the normals themselves, from an
-explicit ``torch.Generator``; the deterministic rest of the step is
-:func:`_pf_step_from_draws`.
+Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
+GPU, one Philox seed for the propagate kernel (which draws its normals), on
+the CPU the normals themselves, from an explicit ``torch.Generator``; the
+rest of the step is :func:`_pf_step_from_draws`. The metropolis resampler and
+a guided proposal draw from the generator there.
 """
 from __future__ import annotations
 
@@ -51,6 +68,7 @@ import torch
 from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniforms
 from ..kernels.resample_walk import resample_gather
 from .particle_filter import PFConfig
+from .resampling import _inverse_cdf, _residual_from_uniforms, get_resampler, metropolis
 from .weights import log_normalize
 
 __all__ = [
@@ -63,8 +81,8 @@ __all__ = [
     "batched_log_likelihood",
 ]
 
-# inner resampling scheme -> its resample + gather kernel
-_RESAMPLE = {"systematic": resample_gather, "stratified": resample_gather_sorted}
+# schemes resampled by offsets u0 (K1, or the elastic grid's offsets in K3)
+_OFFSET_SCHEMES = ("systematic", "residual_systematic")
 
 
 class BatchedPFOut(NamedTuple):
@@ -85,11 +103,31 @@ def from_cloud(cloud: torch.Tensor) -> torch.Tensor:
     return cloud.transpose(1, 2)
 
 
-def _check_config(config: PFConfig, active_n=None) -> None:
+def _elastic_sorted_u(offsets: torch.Tensor, n: int, active_n: int) -> torch.Tensor:
+    """The elastic filter's sorted grids over the live prefix ≡ the JAX
+    package's ``_elastic_sorted_u``: u_i = (i + offset)/active_n for the
+    (M, 1) systematic or (M, N) stratified offsets, clamped at 1 − 1e-7 in
+    f32, so that the dead tail's slots repeat the last live ancestor."""
+    i = torch.arange(n, device=offsets.device, dtype=torch.float32)
+    return torch.clamp((i + offsets) / active_n, max=1.0 - 1e-7)
+
+
+def _live(n: int, active_n: int, device) -> torch.Tensor:
+    return (torch.arange(n, device=device) < active_n)[None, :]
+
+
+def _log_f32(v: int) -> float:
+    """log v rounded as an f32 log, as the JAX package takes it of its f32
+    live count (a host float: no device transfer)."""
+    return torch.log(torch.tensor(float(v), dtype=torch.float32)).item()
+
+
+def _check_config(config: PFConfig, n: int, active_n=None) -> None:
     if config.algorithm not in ("bootstrap", "apf"):
         raise ValueError(
             f"unknown algorithm {config.algorithm!r}; one of ['bootstrap', 'apf']"
         )
+    get_resampler(config.resampling)  # a ValueError naming the schemes
     if config.algorithm == "apf":  # the JAX package's errors
         if active_n is not None:
             raise ValueError(
@@ -108,48 +146,73 @@ def _check_config(config: PFConfig, active_n=None) -> None:
                 "first-stage lookahead IS the resample); ess_threshold < 1 "
                 "composes with the bootstrap algorithm only"
             )
-    if active_n is not None:
-        raise NotImplementedError(
-            "the elastic live-particle count active_n comes with ROADMAP "
-            "Queue 1 item 7"
-        )
-    if config.proposal is not None:
-        raise NotImplementedError(
-            "guided proposals come with ROADMAP Queue 1 item 7"
-        )
-    if config.resampling not in _RESAMPLE:
-        raise NotImplementedError(
-            f"resampling={config.resampling!r}: the batched filter resamples "
-            f"by one of {sorted(_RESAMPLE)}; the other schemes come with "
-            "ROADMAP Queue 1 item 7"
-        )
+    proposal = config.proposal
+    if proposal is not None and not (callable(getattr(proposal, "initial", None))
+                                     and callable(getattr(proposal, "step", None))):
+        raise TypeError(f"proposal must be a Proposal(initial, step), got {type(proposal)}")
+    if active_n is not None and not 1 <= active_n <= n:
+        raise ValueError(f"active_n must be in [1, {n}], got {active_n}")
+
+
+def _active(active_n):
+    """The live count as a host int (it sets the step's shapes of work)."""
+    return None if active_n is None else int(active_n)
 
 
 def batched_pf_init(generator, models, n: int, m: int, y0,
                     config: PFConfig = PFConfig(), active_n=None) -> BatchedPFOut:
     """Init of all M filters at y0 (the bootstrap's, for the auxiliary
     filter too): N draws from each θ's initial distribution, weighted by the
-    observation density."""
-    _check_config(config, active_n)
-    x = models.initial_distribution().sample(generator, (n,))  # (N, M, dx)
+    observation density; with ``config.proposal``, N draws from its initial
+    distribution q0, weighted by the observation density times p(x)/q0(x).
+    With ``active_n``, slots ≥ active_n get log-weight −inf and the
+    evidence normalizes by active_n."""
+    active_n = _active(active_n)
+    _check_config(config, n, active_n)
+    proposal = config.proposal
+    q0 = models.initial_distribution() if proposal is None else proposal.initial(models)
+    x = q0.sample(generator, (n,))  # (N, M, dx)
     if tuple(x.shape[:2]) != (n, m):
         raise ValueError(f"models must carry {m} θ, drew shape {tuple(x.shape)}")
-    logw = models.observation_distribution(x).log_prob(y0).T.contiguous()
-    log_mean, log_norm, ess = log_normalize(logw)
-    return BatchedPFOut(from_cloud(x.permute(1, 2, 0).contiguous()), log_norm,
-                        log_mean, ess)
+    logw = models.observation_distribution(x).log_prob(y0)
+    if proposal is not None:
+        logw = logw + models.initial_distribution().log_prob(x) - q0.log_prob(x)
+    logw = logw.T.contiguous()
+    particles = from_cloud(x.permute(1, 2, 0).contiguous())
+    if active_n is None:
+        log_mean, log_norm, ess = log_normalize(logw)
+        return BatchedPFOut(particles, log_norm, log_mean, ess)
+    logw = torch.where(_live(n, active_n, logw.device), logw, -torch.inf)
+    log_mean, log_norm, ess = log_normalize(logw, log_n=_log_f32(active_n))
+    return BatchedPFOut(particles, log_norm, log_mean, ess)
 
 
 def _draws(generator, models, m: int, n: int, device,
-           config: PFConfig = PFConfig()):
-    """The step's randomness: the resampling grid — u0 (M, 1) for
-    systematic, a stratified u (M, N) — then a (1,) int64 Philox seed on a
-    GPU or (n_normals, M, N) normals on the CPU."""
-    if config.resampling == "stratified":
+           config: PFConfig = PFConfig(), active_n=None):
+    """The step's randomness, drawn in this order:
+
+    - the resample's: u0 (M, 1) (systematic, ``residual_systematic``), a
+      stratified grid u (M, N), uniforms (M, N) (multinomial, residual);
+      with ``active_n``, the live-prefix grid's offsets, (M, 1) for the
+      systematic schemes and (M, N) for the others, or the multinomial's
+      uniforms; the generator itself for the metropolis resampler, which
+      draws in the step;
+    - the propagate's: a (1,) int64 Philox seed on a GPU or
+      (n_normals, M, N) normals on the CPU; the generator itself for a
+      guided proposal, which samples in the step.
+    """
+    scheme = config.resampling
+    if scheme == "metropolis" and active_n is None:
+        u = generator
+    elif scheme in _OFFSET_SCHEMES:
+        u = torch.rand((m, 1), generator=generator, device=device)
+    elif scheme == "stratified" and active_n is None:
         u = stratified_uniforms(generator, m, n, device)
     else:
-        u = torch.rand((m, 1), generator=generator, device=device)
-    if device.type == "cpu":
+        u = torch.rand((m, n), generator=generator, device=device)
+    if config.proposal is not None:
+        rest = generator
+    elif device.type == "cpu":
         rest = torch.randn((models.update.n_normals, m, n), generator=generator)
     else:
         rest = torch.randint(0, 2**31 - 1, (1,), generator=generator,
@@ -165,30 +228,87 @@ def _propagate_draws(seed_or_normals) -> dict:
     return {"normals": seed_or_normals}
 
 
+def _gather(cloud: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
+    return torch.gather(cloud, 2, anc.long()[:, None, :].expand(cloud.shape))
+
+
+def _resample_gather(u, config: PFConfig, cloud, w, active_n=None):
+    """The resample + gather of :func:`_pf_step_from_draws`: the (M, C, N)
+    cloud gathered by each row's ancestors under the weights w, from the
+    scheme's draws u (see :func:`_draws`)."""
+    scheme, n = config.resampling, cloud.shape[2]
+    if active_n is not None:
+        if scheme == "multinomial":  # unsorted uniforms: the inverse cdf
+            return _gather(cloud, _inverse_cdf(u, w))
+        return resample_gather_sorted(_elastic_sorted_u(u, n, active_n), w, cloud)
+    if scheme in _OFFSET_SCHEMES:
+        return resample_gather(u, w, cloud)
+    if scheme == "stratified":
+        return resample_gather_sorted(u, w, cloud)
+    if scheme == "multinomial":
+        anc = _inverse_cdf(u, w)
+    elif scheme == "residual":
+        anc = _residual_from_uniforms(u, w)
+    else:
+        anc = metropolis(u, w)
+    return _gather(cloud, anc)
+
+
+def _guided_increment(models, q, xp, x_new, y) -> torch.Tensor:
+    """The guided step's log-weight increment ≡ the JAX package's
+    ``prop_one``: log g(y | x′) + log f(x′ | x) − log q(x′ | x), for the
+    resampled states xp, the proposal q built at them and its draws x_new,
+    both (N, M, dx); returns (N, M)."""
+    return (models.observation_distribution(x_new).log_prob(y)
+            + models.transition_distribution(xp).log_prob(x_new) - q.log_prob(x_new))
+
+
 def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
-                        config: PFConfig = PFConfig(), params=None):
-    """Deterministic core of :func:`batched_pf_step`: the resample kernel
-    (systematic offsets u0 or sorted grid u, per ``config.resampling``),
-    the adaptive per-row selects when ``config.ess_threshold < 1``, then the
-    propagate kernel with its Philox seed — an int64 tensor — or its
-    injected normals — a float tensor. ``params`` are the model's
-    step-invariant kernel parameters (``models.fused_params()``)."""
+                        config: PFConfig = PFConfig(), params=None, active_n=None):
+    """Deterministic core of :func:`batched_pf_step`, from its draws
+    (:func:`_draws`): the resample + gather, the adaptive per-row selects
+    when ``config.ess_threshold < 1``, then the propagate — the fused kernel
+    with its Philox seed (an int64 tensor) or injected normals (a float
+    tensor), or a guided proposal sampled from the generator passed in their
+    place. ``params`` are the model's step-invariant kernel parameters
+    (``models.fused_params()``); ``active_n`` the elastic live count."""
     n = particles.shape[1]
     cloud = as_cloud(particles)
     w = torch.exp(log_w)
-    xp = _RESAMPLE[config.resampling](u, w, cloud)
-    carry = None
+    xp = _resample_gather(u, config, cloud, w, active_n)
+    if active_n is None:
+        reset, n_live = torch.full_like(log_w, -math.log(n)), n
+    else:
+        live = _live(n, active_n, log_w.device)
+        reset = torch.where(live, -_log_f32(active_n), -torch.inf)
+        n_live = active_n
+    lw = reset
     if config.ess_threshold < 1.0:
-        fire = 1.0 / torch.sum(w * w, dim=-1) < config.ess_threshold * n
+        fire = 1.0 / torch.sum(w * w, dim=-1) < config.ess_threshold * n_live
         xp = torch.where(fire[:, None, None], xp, cloud)
-        carry = torch.where(fire[:, None], -math.log(n), log_w)
-    new, log_norm, lse, ess = models.fused_propagate_reweight(
-        y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals))
-    # the evidence increment: with a carry (normalized weights), lse of
-    # carry + logw; else the log-mean of the unnormalized weights (the
-    # weights after resampling are all 1/N)
-    log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
-    return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
+        lw = torch.where(fire[:, None], reset, log_w)
+    if config.proposal is None and active_n is None:
+        # the kernel's normalize: with a carry (normalized weights), lse of
+        # carry + logw is the evidence increment; else the log-mean of the
+        # unnormalized weights (the weights after resampling are all 1/N)
+        carry = lw if config.ess_threshold < 1.0 else None
+        new, log_norm, lse, ess = models.fused_propagate_reweight(
+            y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals))
+        log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
+        return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
+    if config.proposal is None:
+        new, incr = models.fused_propagate_reweight(
+            y, xp, params=params, normalize=False, **_propagate_draws(seed_or_normals))
+    else:
+        states = xp.permute(2, 0, 1)  # (N, M, dx): the models' distributions' layout
+        q = config.proposal.step(models, states)
+        x_new = q.sample(seed_or_normals)
+        incr = _guided_increment(models, q, states, x_new, y).T
+        new = x_new.permute(1, 2, 0).contiguous()
+    if active_n is not None:
+        incr = torch.where(live, incr, 0.0)  # the dead tail stays exactly −inf
+    log_mean, log_norm, ess = log_normalize(lw + incr, log_n=0.0)
+    return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess)
 
 
 def apf_lookahead(models, particles, y) -> torch.Tensor:
@@ -212,7 +332,7 @@ def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     log_g_mu = apf_lookahead(models, particles, y)
     lam_mean, lam_norm, _ = log_normalize(log_w + log_g_mu)
     aug = torch.cat([as_cloud(particles), log_g_mu[:, None, :]], dim=1)
-    gathered = _RESAMPLE[config.resampling](u, torch.exp(lam_norm), aug)
+    gathered = _resample_gather(u, config, aug, torch.exp(lam_norm))
     new, incr = models.fused_propagate_reweight(y, gathered[:, :dx], params=params,
                                                 normalize=False,
                                                 **_propagate_draws(seed_or_normals))
@@ -227,12 +347,15 @@ def batched_pf_step(generator, models, particles, log_w, y,
     whose ESS fell below ``config.ess_threshold``·N), propagate, reweight by
     y and normalize — or, with ``config.algorithm == "apf"``, the auxiliary
     particle filter's step. ``params``: ``models.fused_params()``, computed
-    once by callers that step the same models many times."""
-    _check_config(config, active_n)
+    once by callers that step the same models many times. ``active_n``: the
+    elastic live count (slots past it are dead, at log-weight −inf)."""
     m, n, _ = particles.shape
-    u, rest = _draws(generator, models, m, n, particles.device, config)
-    step = _apf_step_from_draws if config.algorithm == "apf" else _pf_step_from_draws
-    return step(u, rest, models, particles, log_w, y, config, params)
+    active_n = _active(active_n)
+    _check_config(config, n, active_n)
+    u, rest = _draws(generator, models, m, n, particles.device, config, active_n)
+    if config.algorithm == "apf":
+        return _apf_step_from_draws(u, rest, models, particles, log_w, y, config, params)
+    return _pf_step_from_draws(u, rest, models, particles, log_w, y, config, params, active_n)
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
@@ -246,11 +369,11 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
     init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
-    params = models.fused_params()
+    params = models.fused_params() if config.proposal is None else None
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
     for t in live.tolist():
         out = batched_pf_step(generator, models, particles, log_w, y[t], config,
-                              params)
+                              params, active_n)
         particles, log_w = out.particles, out.log_weights
         logz = logz + out.log_mean
     return particles, log_w, logz
@@ -258,7 +381,8 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
 
 def batched_log_likelihood(generator, models, n: int, m: int, y,
                            config: PFConfig = PFConfig(), active_n=None):
-    """Full-sequence log-likelihood for all M θ (the density-tempered init).
-    Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
+    """Full-sequence log-likelihood for all M θ (the density-tempered init
+    and the exchange step's refilter). Returns (particles (M, N, dx),
+    log_w (M, N), log Z (M,))."""
     return batched_log_likelihood_masked(generator, models, n, m, y,
                                          torch.ones(y.shape[0]), config, active_n)

@@ -58,6 +58,8 @@ def density_tempered(sampler: SMC2, generator, y, verbose: bool = False):
         ess=ess_from_log_weights(log_z),
         acc_ratio=torch.zeros((), device=theta.device),
         t=T,
+        active_n=cfg.n_particles,
+        exchange_pending=False,
     )
     full_mask = torch.ones(T)
     trace = []

@@ -1,15 +1,34 @@
-"""SMC² — online joint state + parameter inference (L3), the port's subset
-of ``sequential_monte_carlo_tpu/samplers/smc2.py``: ``init``, ``step`` and
-``run`` with the exchange step off, the resample-move core that
-density-tempered SMC shares, and ``expected_parameters``.
+"""SMC² — online joint state + parameter inference (L3), counterpart of
+``sequential_monte_carlo_tpu/samplers/smc2.py``: ``init``, ``step``,
+``run`` and ``run_segmented``, the exchange step (Chopin's N-doubling) in
+both padding policies, the resample-move core that density-tempered SMC
+shares, and ``expected_parameters``.
 
 The M inner particle filters are one batched (M, N) program
 (``ops/batched_filter.py``). Where the JAX package compiles the whole run
 into one ``lax.scan`` with ``lax.cond`` triggers, the port is a host loop:
 one ``step`` per observation, which reads the θ-ESS on the host to decide on
-a rejuvenation, and rejuvenations that loop over the consumed prefix
-y[0:t] only. Randomness comes from one explicit ``torch.Generator`` on the
-device of the data.
+a rejuvenation (and the acceptance rate, after one, to decide on an
+exchange), and rejuvenations that loop over the consumed prefix y[0:t] only.
+Randomness comes from one explicit ``torch.Generator`` on the device of the
+data.
+
+The exchange step (``acc_threshold > 0``, ≡ the reference's ``exchange!``):
+right after a rejuvenation whose acceptance rate fell below
+``acc_threshold``, while N ≤ ``exchange_max_n``, N doubles, the consumed
+history is refiltered at the doubled N for every θ, and the θ-weights are
+corrected by new log Z − old log Z. ``SMCConfig.elastic_pad`` picks how:
+
+- ``"grow"`` (default): the arrays stay at the live N; the step raises
+  ``state.exchange_pending`` and finishes at the old N, and
+  :meth:`SMC2.maybe_exchange` (or :meth:`SMC2.run_segmented`, after each
+  step) re-pads to 2N and refilters — the JAX package's
+  ``step()`` + ``maybe_exchange`` timing. Until a doubling fires, a run is
+  bitwise the run without the exchange step.
+- ``"full"``: the arrays are padded once to the doubling cap, and the live
+  count ``state.active_n`` doubles inside the step, right after the
+  rejuvenation, with the refilter at the padded shape; slots past it hold
+  log-weight −inf.
 """
 from __future__ import annotations
 
@@ -32,8 +51,27 @@ from .kernels import anneal_scales, kernel_chol, propose, rw_kernel_cov
 
 
 def expected_parameters(state) -> torch.Tensor:
-    """ω-weighted posterior mean of θ."""
+    """ω-weighted posterior mean of θ (of an SMC² or IBIS state)."""
     return torch.softmax(state.log_omega, dim=0) @ state.theta
+
+
+def _tuple_like(like: tuple, fields: list) -> tuple:
+    return type(like)(*fields) if hasattr(like, "_fields") else tuple(fields)
+
+
+def _stack(items: list):
+    """Per-step outputs — tensors, or (named) tuples of them — stacked over
+    the steps."""
+    if isinstance(items[0], tuple):
+        return _tuple_like(items[0], [_stack(list(f)) for f in zip(*items)])
+    return torch.stack([torch.as_tensor(x) for x in items])
+
+
+def _first(tree, k: int):
+    """The first k steps of stacked outputs."""
+    if isinstance(tree, tuple):
+        return _tuple_like(tree, [_first(f, k) for f in tree])
+    return tree[:k]
 
 
 class SMC2:
@@ -50,25 +88,45 @@ class SMC2:
         sampler = SMC2(ucsv_model, prior, SMCConfig(1024, 512, 5, 0.5))
         gen = torch.Generator(device).manual_seed(0)
         state, infos = sampler.run(gen, y)   # y on the device
+
+    or step by step, with the exchange step's doublings serviced between
+    steps::
+
+        state = sampler.init(gen, y)
+        for _ in range(1, len(y)):
+            state, info = sampler.step(gen, state, y)
+            state = sampler.maybe_exchange(gen, state, y, info)
     """
 
     def __init__(self, model_fn: Callable, prior,
                  config: SMCConfig = SMCConfig()):
-        if config.acc_threshold > 0.0:
-            raise NotImplementedError(
-                "the exchange step (acc_threshold > 0) comes with ROADMAP "
-                "Queue 1 item 8"
-            )
+        if config.elastic_pad not in ("grow", "full"):
+            raise ValueError(f"elastic_pad must be 'grow' or 'full', got {config.elastic_pad!r}")
         self.model_fn = model_fn
         self.prior = prior
         self.config = config
+        self._elastic = config.acc_threshold > 0.0
+        self._grow = self._elastic and config.elastic_pad == "grow"
+        # the filters take a live count only where it can differ from the
+        # array size: "full" padding, arrays at the doubling cap
+        self._use_active = self._elastic and not self._grow
+        n_pad = config.n_particles
+        if self._use_active:
+            while n_pad <= config.exchange_max_n:
+                n_pad *= 2
+        self._n_pad = n_pad
+
+    def _active(self, state: SMC2State):
+        return state.active_n if self._use_active else None
 
     def init(self, generator, y) -> SMC2State:
-        """Draw the θ-cloud from the prior and assimilate y[0] for every θ."""
+        """Draw the θ-cloud from the prior and assimilate y[0] for every θ
+        (at the padded N under ``elastic_pad="full"``)."""
         cfg = self.config
         theta = self.prior.sample(generator, (cfg.n_theta,))
-        outs = batched_pf_init(generator, self.model_fn(theta),
-                               cfg.n_particles, cfg.n_theta, y[0], cfg.inner)
+        outs = batched_pf_init(generator, self.model_fn(theta), self._n_pad, cfg.n_theta,
+                               y[0], cfg.inner,
+                               cfg.n_particles if self._use_active else None)
         return SMC2State(
             theta=theta,
             log_omega=outs.log_mean,
@@ -78,6 +136,8 @@ class SMC2:
             ess=ess_from_log_weights(outs.log_mean),
             acc_ratio=torch.zeros((), device=theta.device),
             t=1,
+            active_n=cfg.n_particles,
+            exchange_pending=False,
         )
 
     def _resample_theta(self, generator, state: SMC2State) -> SMC2State:
@@ -111,7 +171,8 @@ class SMC2:
             # (its result is discarded by the accept select)
             theta_safe = torch.where(ok[:, None], theta_prop, theta)
             new_p, new_lw, logz_prop = batched_log_likelihood_masked(
-                generator, self.model_fn(theta_safe), n, m, y, mask, cfg.inner
+                generator, self.model_fn(theta_safe), n, m, y, mask, cfg.inner,
+                self._active(state)
             )
             lp_prop = self.prior.log_prob(theta_prop)
             lp_curr = self.prior.log_prob(theta)
@@ -143,18 +204,51 @@ class SMC2:
         state = self._resample_theta(generator, state)
         return self._rejuvenate(generator, state, y, mask, xi)
 
+    def _refilter(self, generator, state: SMC2State, y, mask, n: int,
+                  active_n=None) -> SMC2State:
+        """Fresh inner filters for every θ over the masked history at N = n
+        (live count ``active_n``), and the θ-weights corrected by new log Z −
+        old log Z."""
+        cfg = self.config
+        particles, log_w, log_z = batched_log_likelihood_masked(
+            generator, self.model_fn(state.theta), n, cfg.n_theta, y, mask, cfg.inner,
+            active_n)
+        log_omega = log_z - state.log_z
+        return replace(state, particles=particles, log_w=log_w, log_z=log_z,
+                       log_omega=log_omega, ess=ess_from_log_weights(log_omega))
+
+    def _exchange(self, generator, state: SMC2State, y, mask) -> SMC2State:
+        """The exchange step right after a rejuvenation ≡ the JAX package's
+        ``_exchange_ingraph``: if the acceptance rate fell below
+        ``acc_threshold`` while N ≤ ``exchange_max_n``, raise
+        ``exchange_pending`` ("grow"), or double ``active_n`` and refilter
+        the consumed history at the padded shape ("full"). Reads the
+        acceptance rate on the host; draws nothing unless it fires."""
+        cfg = self.config
+        if not (state.acc_ratio.item() < cfg.acc_threshold
+                and state.active_n <= cfg.exchange_max_n):
+            return state
+        if self._grow:
+            return replace(state, exchange_pending=True)
+        active2 = 2 * state.active_n
+        return replace(self._refilter(generator, state, y, mask, self._n_pad, active2),
+                       active_n=active2)
+
     def step(self, generator, state: SMC2State, y):
         """One online assimilation step of y[state.t]; rejuvenates first
-        when the θ-ESS fell below ``ess_min``. Returns (state, StepInfo)."""
+        when the θ-ESS fell below ``ess_min`` (then, with the exchange step
+        on, the exchange). Returns (state, StepInfo)."""
         cfg = self.config
         degenerate = bool(state.ess < cfg.ess_min)  # host sync
         if degenerate:
             mask = torch.arange(y.shape[0]) < state.t
             state = self._resample_move(generator, state, y, mask)
+            if self._elastic:
+                state = self._exchange(generator, state, y, mask)
 
         outs = batched_pf_step(generator, self.model_fn(state.theta),
                                state.particles, state.log_w, y[state.t],
-                               cfg.inner)
+                               cfg.inner, active_n=self._active(state))
         prev_lse = torch.logsumexp(state.log_omega, dim=0)
         log_omega = state.log_omega + outs.log_mean
         ess = ess_from_log_weights(log_omega)
@@ -175,13 +269,75 @@ class SMC2:
         )
         return state, info
 
-    def run(self, generator, y):
-        """Whole-sequence online run: ``init`` then ``step`` over y[1:].
-        Returns (final state, StepInfo of per-step tensors stacked over the
-        T − 1 steps)."""
-        state = self.init(generator, y)
-        infos = []
-        for _ in range(y.shape[0] - 1):
+    def _service_exchange(self, generator, state: SMC2State, y) -> SMC2State:
+        """A pending doubling ("grow"): refilter the consumed history at 2N
+        (fresh filters, so the old arrays need no re-padding) and correct
+        the θ-weights."""
+        n2 = 2 * state.particles.shape[1]
+        mask = torch.arange(y.shape[0]) < state.t
+        return replace(self._refilter(generator, state, y, mask, n2),
+                       active_n=n2, exchange_pending=False)
+
+    def maybe_exchange(self, generator, state: SMC2State, y, info=None) -> SMC2State:
+        """≡ the reference's ``exchange!`` between steps: with
+        ``elastic_pad="grow"``, service the doubling that the last step's
+        exchange raised; otherwise (no exchange step, or "full" padding,
+        whose doubling ran inside the step) the state as it is. ``info`` is
+        taken for the JAX package's signature and not read."""
+        if self._grow and state.exchange_pending:
+            return self._service_exchange(generator, state, y)
+        return state
+
+    def run(self, generator, y, collect_fn: Callable | None = None):
+        """Whole-sequence online run: ``init`` then ``step`` over y[1:],
+        servicing the doublings in "grow" mode (:meth:`run_segmented`
+        without a bound). Returns (final state, StepInfo of per-step
+        tensors stacked over the T − 1 steps), or with ``collect_fn(state)``
+        (state, (infos, series)), the series its outputs after each step
+        stacked."""
+        return self.run_segmented(generator, y, collect_fn=collect_fn)
+
+    def run_segmented(self, generator, y, segment_size: int = 24,
+                      collect_fn: Callable | None = None,
+                      state: SMC2State | None = None, max_steps: int | None = None):
+        """``run`` with checkpoint and resume ≡ the JAX package's
+        ``run_segmented``: ``step`` over the observations, and in "grow"
+        mode the service of a pending doubling after the step that raised
+        it (``collect_fn`` sees the state before the service, as in JAX).
+
+        ``state=``: continue a run (then the generator should be the one
+        the run left off with); a doubling pending in it is serviced first.
+        ``max_steps=``: stop after that many steps and return the mid-run
+        state; a doubling raised by the last step stays pending in it, to be
+        serviced on resume, so a split run with the same generator is
+        bitwise the whole run. Returns (state, infos) or (state, (infos,
+        series)) over the steps run in this call (zero of them past the
+        bound). ``segment_size`` (≥ 1) sets the JAX package's dispatch
+        segments; the port's host loop has no segments and does not read
+        it beyond the check."""
+        if segment_size < 1:
+            raise ValueError(f"segment_size must be ≥ 1, got {segment_size}")
+        T = y.shape[0]
+        if state is None:
+            state = self.init(generator, y)
+        elif self._grow and state.exchange_pending:
+            state = self._service_exchange(generator, state, y)
+        target = T if max_steps is None else min(T, state.t + max_steps)
+        infos, series = [], []
+        while state.t < target:
             state, info = self.step(generator, state, y)
             infos.append(info)
-        return state, StepInfo(*(torch.stack(f) for f in zip(*infos)))
+            if collect_fn is not None:
+                series.append(collect_fn(state))
+            mid_bound = state.t >= target and target < T
+            if self._grow and state.exchange_pending and not mid_bound:
+                state = self._service_exchange(generator, state, y)
+        if infos:
+            out = _stack(infos)
+            return state, (out if collect_fn is None else (out, _stack(series)))
+        # past the bound: zero steps, in the structure of a run's outputs
+        out = _first(_stack([StepInfo(ess=state.ess, rejuvenated=torch.tensor(False),
+                                      acc_ratio=state.acc_ratio,
+                                      log_evidence_incr=torch.zeros_like(state.ess))]), 0)
+        return state, (out if collect_fn is None
+                       else (out, _first(_stack([collect_fn(state)]), 0)))

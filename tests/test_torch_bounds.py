@@ -48,11 +48,13 @@ def test_propagate_bound_takes_the_slowest_pipe(clock, model, s, normalize):
 
 @pytest.mark.parametrize("model,s,work", [
     ("ucsv", 3, (148.75, 34, 4)), ("lg1", 1, (87.75, 29, 1)), ("lg2", 2, (98.25, 29, 1)),
-    ("sv", 1, (89.75, 29, 2))])
+    ("sv", 1, (89.75, 29, 2)), ("lg3", 3, (158.75, 34, 2)), ("lg4", 4, (177.25, 34, 2)),
+    ("lg5", 5, (277.75, 63, 3))])
 def test_propagate_work_counts_the_function(model, s, work):
-    """Per particle on the raw route: Philox (all four words for UC-SV's three
-    normals, two for the others), Box–Muller, the update and the 16-byte
-    loads and stores."""
+    """Per particle on the raw route: Philox (all four words for three or
+    four normals, two for one or two; LG at dx = 5 adds a two-word call at
+    the next counter for its fifth), Box–Muller, the update (LG: 2dx² + dx +
+    3) and the 16-byte loads and stores."""
     assert cs.propagate_work(model, s, False, False, 8192) == pytest.approx(work)
 
 

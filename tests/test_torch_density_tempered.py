@@ -253,13 +253,17 @@ def test_density_tempered_inner_step_count(monkeypatch, inner):
 
 
 def test_elastic_active_n_raises():
-    """The elastic live-particle count is not ported: asking for it raises,
-    naming its ROADMAP item."""
+    """The elastic live-particle count is ported (a 0-d tensor is taken);
+    a count outside [1, N] raises."""
     models = tsmc.lg_model(torch.tensor(THETA).expand(4, 3))
     y = torch.from_numpy(_series(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbf.batched_log_likelihood(torch.Generator().manual_seed(0), models, 64, 4, y,
-                                   active_n=torch.tensor(32))
+    _, lw, _ = tbf.batched_log_likelihood(torch.Generator().manual_seed(0), models, 64, 4, y,
+                                          active_n=torch.tensor(32))
+    assert torch.all(lw[:, 32:] == -torch.inf)
+    for bad in (0, 65):
+        with pytest.raises(ValueError, match="active_n"):
+            tbf.batched_log_likelihood(torch.Generator().manual_seed(0), models, 64, 4, y,
+                                       active_n=torch.tensor(bad))
 
 
 def test_entry_points_default_to_the_card():

@@ -41,7 +41,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("c", [2, 3, 4])
 def test_resample_kernel_matches_plain(cuda, n, c):
     """Kernel 1: ancestors equal to the plain version's (both sum in f64),
@@ -89,14 +89,79 @@ def test_resample_kernel_edge_shapes(cuda, n, c, weights):
 
 
 def test_resample_kernel_refuses_rows_beyond_its_limit(cuda):
-    """The kernel keeps a row's ancestors in shared memory: past its N limit
-    the wrapper raises before launching."""
+    """The kernel keeps a row's marks in shared memory up to its N limit;
+    one past it, the large route (marks in the ancestors' buffer) takes the
+    row, with or without the ancestors returned, and gives the plain
+    version's ancestors."""
     from sequential_monte_carlo_tpu_torch.kernels import _build
 
     n = _build.library().smc_resample_count_max_n() + 1
-    w = torch.ones((1, n), device=cuda)
-    with pytest.raises(ValueError):
-        resample_gather(torch.zeros((1, 1), device=cuda), w, w[:, None, :].contiguous())
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.random((2, n)), dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((2, 1, n)), dtype=torch.float32, device=cuda)
+    u0 = torch.tensor([[0.25], [0.75]], device=cuda)
+    out, anc = resample_gather(u0, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_plain(u0, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
+    assert torch.equal(resample_gather(u0, w, xs), ref)
+
+
+@pytest.mark.parametrize("kernel", ["count", "sorted"])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("weights", ["flat", "skewed", "point"])
+def test_resample_kernels_take_large_n(cuda, kernel, c, weights):
+    """K1 and K3 at M=64, N=65,536, past their shared-memory caps (the
+    reference ran SMC² at this N): ancestors equal to the plain versions'
+    bit for bit under flat, skewed and point-mass weights, output ≡ xs
+    gathered by them."""
+    rng = np.random.default_rng(17)
+    m, n = 64, 65536
+    if weights == "flat":
+        w = np.ones((m, n))
+    elif weights == "skewed":
+        a = 2.0 * rng.standard_normal((m, n))
+        w = np.exp(a - a.max(-1, keepdims=True))
+    else:
+        w = np.zeros((m, n))
+        w[np.arange(m), rng.integers(0, n, m)] = 1.0
+    w = torch.tensor(w, dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((m, c, n)), dtype=torch.float32, device=cuda)
+    if kernel == "count":
+        u0 = torch.tensor(rng.random((m, 1)), dtype=torch.float32, device=cuda)
+        out, anc = resample_gather(u0, w, xs, return_ancestors=True)
+        _, anc_ref = resample_gather_plain(u0, w, xs)
+    else:
+        u = stratified_uniforms(torch.Generator(device=cuda).manual_seed(5), m, n)
+        out, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+        _, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    assert torch.equal(anc, anc_ref)
+    assert torch.equal(out, torch.gather(xs, 2, anc.long()[:, None, :].expand(xs.shape)))
+
+
+@pytest.mark.parametrize("active_n", [1, 1024, 4096, 8191, 8192])
+@pytest.mark.parametrize("scheme", ["systematic", "stratified"])
+def test_sorted_resample_kernel_on_the_elastic_grid(cuda, active_n, scheme):
+    """K3 on the elastic filter's live-prefix grid (u_i = (i + offset) /
+    active_n, clamped at 1 − 1e-7, so a dead tail of equal u) with weights 0
+    past active_n: ancestors equal to the plain version's and all below
+    active_n."""
+    from sequential_monte_carlo_tpu_torch.ops.batched_filter import _elastic_sorted_u
+
+    rng = np.random.default_rng(23)
+    m, n = 64, 8192
+    a = 2.0 * rng.standard_normal((m, n))
+    w = np.exp(a - a.max(-1, keepdims=True))
+    w[:, active_n:] = 0.0
+    w = torch.tensor(w, dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((m, 3, n)), dtype=torch.float32, device=cuda)
+    off = torch.tensor(rng.random((m, 1) if scheme == "systematic" else (m, n)),
+                       dtype=torch.float32, device=cuda)
+    u = _elastic_sorted_u(off, n, active_n)
+    out, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    _, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    assert torch.equal(anc, anc_ref)
+    assert int(anc.max()) < active_n
+    assert torch.equal(out, torch.gather(xs, 2, anc.long()[:, None, :].expand(xs.shape)))
 
 
 def _enough_draws(z):
@@ -104,7 +169,7 @@ def _enough_draws(z):
     return z[0].numel() >= 500_000
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 8192])
+@pytest.mark.parametrize("n", [1, 1000, 1024, 2048, 3000, 4096, 8192])
 def test_fused_step_kernel_matches_plain(cuda, n):
     """Kernel 2: the plain version, fed the normals recovered from the
     kernel's state deltas, gives the kernel's outputs to rtol 1e-5 (exp and
@@ -211,17 +276,22 @@ def test_sorted_resample_kernel_edge_shapes(cuda, n, c, weights, grid):
 
 
 def test_sorted_resample_kernel_refuses_rows_beyond_its_limit(cuda):
-    """The sorted-grid kernel keeps a row's cdf in shared memory: past its N
-    limit the wrapper raises before launching."""
+    """The sorted-grid kernel keeps a row's cdf in shared memory up to its N
+    limit; one past it (an odd N, so no 16-byte accesses), the large route
+    (the cdf in an (M, N) scratch) takes the row, counts one launch and
+    gives the plain version's ancestors."""
     from sequential_monte_carlo_tpu_torch.kernels import _build
 
     n = _build.library().smc_resample_sorted_max_n() + 1
-    w = torch.ones((1, n), device=cuda)
-    u = (torch.arange(n, device=cuda, dtype=torch.float32) / n)[None]
+    rng = np.random.default_rng(4)
+    w = torch.tensor(rng.random((2, n)), dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((2, 2, n)), dtype=torch.float32, device=cuda)
+    u = stratified_uniforms(torch.Generator(device=cuda).manual_seed(2), 2, n)
     before = resample_gather_sorted.launches
-    with pytest.raises(ValueError):
-        resample_gather_sorted(u, w, w[:, None, :].contiguous())
-    assert resample_gather_sorted.launches == before
+    out, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    assert resample_gather_sorted.launches == before + 1
+    ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
 
 
 def _instance(name, rng, m):
@@ -298,6 +368,34 @@ def test_fused_step_instances_match_plain(cuda, n, name, carry):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert bool(torch.all(torch.isfinite(got[2])))
+    if _enough_draws(z):
+        _assert_standard_normals(z)
+
+
+@pytest.mark.parametrize("n", [1000, 3000, 8192])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dx", [3, 4, 5])
+def test_fused_step_lg_any_dx_matches_plain(cuda, n, normalize, dx):
+    """Kernel 2's LG instances generated for dx ≥ 3 (dx = 5 draws its fifth
+    normal at the second Philox counter), normalized and raw: the plain
+    version, fed the normals recovered from the kernel's state deltas, gives
+    the kernel's outputs to rtol 1e-5, and those normals have standard
+    moments and are uncorrelated across the counters."""
+    rng = np.random.default_rng(12)
+    m = 512
+    update, p = _instance(f"lg{dx}", rng, m)
+    params = torch.tensor(p, dtype=torch.float32, device=cuda)
+    state = torch.tensor(rng.standard_normal((m, dx, n)), dtype=torch.float32, device=cuda)
+    y = torch.tensor(0.6, device=cuda)
+    seed = torch.tensor([1357], device=cuda)
+    key = f"lg{dx}" + ("" if normalize else "_raw")
+    before = fused_elementwise_step.instance_launches[key]
+    got = fused_elementwise_step(update, params, state, y, seed=seed, normalize=normalize)
+    assert fused_elementwise_step.instance_launches[key] == before + 1
+    z = _recover_normals(f"lg{dx}", params, state, got[0])
+    ref = fused_elementwise_step_plain(update, params, state, y, z, normalize=normalize)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     if _enough_draws(z):
         _assert_standard_normals(z)
 
@@ -420,3 +518,42 @@ def test_uniform_grids_draw_on_the_card(cuda, grid):
     """A CUDA generator draws its grid on the card when no device is given."""
     u = grid(torch.Generator(device=cuda).manual_seed(0), 8, 256)
     assert u.device.type == "cuda" and u.shape == (8, 256)
+
+
+@pytest.mark.parametrize("pad", ["grow", "full"])
+def test_exchange_doubling_on_the_card(cuda, pad):
+    """SMC² on UC-SV (M=64, N=64) with the exchange step firing after every
+    rejuvenation while N ≤ 128: on the card N doubles to 256 through the
+    kernels of each padding policy — K1 + K2-UC-SV in "grow" mode, K3 on the
+    live-prefix grid + K6 raw under "full" padding, whose dead tail stays at
+    exactly −inf — and the run ends with finite weights."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    prior = prior_from_spec([("uniform", 0.0, 1.0), ("normal", 3.0, 2.0),
+                             ("uniform", 0.0, 2.0), ("uniform", 0.0, 2.0)], device=cuda)
+    rng = np.random.default_rng(1998)
+    y = torch.tensor(3.0 + np.cumsum(rng.normal(0, 0.3, 60)) + rng.normal(0, 0.5, 60),
+                     dtype=torch.float32, device=cuda)
+    cfg = smc.SMCConfig(n_particles=64, n_theta=64, chain=2, acc_threshold=1.1,
+                        exchange_max_n=128, elastic_pad=pad)
+    sampler = smc.SMC2(smc.ucsv_model, prior, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = (resample_gather.launches, resample_gather_sorted.launches,
+              ucsv_propagate_reweight.launches, fused_elementwise_step.instance_launches["ucsv"])
+    state = sampler.init(gen, y)
+    assert state.particles.shape[1] == (256 if pad == "full" else 64)
+    sizes = {state.active_n}
+    for _ in range(1, y.shape[0]):
+        state, info = sampler.step(gen, state, y)
+        state = sampler.maybe_exchange(gen, state, y, info)
+        sizes.add(state.active_n)
+    after = (resample_gather.launches, resample_gather_sorted.launches,
+             ucsv_propagate_reweight.launches, fused_elementwise_step.instance_launches["ucsv"])
+    used = [a > b for a, b in zip(after, before)]
+    assert used == ([True, False, False, True] if pad == "grow" else [False, True, True, False])
+    assert sizes == {64, 128, 256}
+    lw = state.log_w
+    assert torch.all(torch.isfinite(lw[:, :state.active_n]))
+    assert torch.all(lw[:, state.active_n:] == -torch.inf)
+    assert np.isfinite(state.ess.item())

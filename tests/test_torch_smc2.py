@@ -186,18 +186,33 @@ def test_run_is_init_then_steps():
 
 
 @pytest.mark.parametrize("inner", [
-    tsmc.PFConfig("multinomial", 1.0),
-    tsmc.PFConfig("residual", 1.0),
+    tsmc.PFConfig("multinomial_typo", 1.0),
+    tsmc.PFConfig("residual", 1.0, algorithm="guided"),
     tsmc.PFConfig("systematic", 1.0, proposal=object()),
 ])
 def test_unported_filter_configs_raise(inner):
+    """Every scheme, the guided proposal and the auxiliary filter are
+    ported; what is no filter configuration still raises before a draw: an
+    unknown scheme or algorithm (ValueError) or a proposal that is not a
+    ``Proposal(initial, step)`` (TypeError)."""
+    error, match = {"multinomial_typo": (ValueError, "unknown resampling scheme"),
+                    "residual": (ValueError, "unknown algorithm"),
+                    "systematic": (TypeError, "Proposal")}[inner.resampling]
     sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
                         tsmc.SMCConfig(n_particles=16, n_theta=4, inner=inner))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         sampler.init(torch.Generator().manual_seed(0), torch.from_numpy(_series(3)))
 
 
 def test_exchange_step_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The exchange step is ported; an unknown padding policy raises, and the
+    auxiliary filter refuses the padded mode's live count (JAX's error)."""
+    with pytest.raises(ValueError, match="elastic_pad"):
         tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
-                  tsmc.SMCConfig(acc_threshold=0.3))
+                  tsmc.SMCConfig(acc_threshold=0.3, elastic_pad="half"))
+    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cpu"),
+                        tsmc.SMCConfig(n_particles=16, n_theta=4, acc_threshold=0.3,
+                                       elastic_pad="full",
+                                       inner=tsmc.PFConfig(algorithm="apf")))
+    with pytest.raises(ValueError, match="apf"):
+        sampler.init(torch.Generator().manual_seed(0), torch.from_numpy(_series(3)))
