@@ -84,7 +84,34 @@ Phases, one line each or more; any failure raises and exits non-zero:
  18. routes — 512 LG filters at θ*, N=1024, T=100, with the
      residual_systematic (K1), multinomial and residual inner schemes and a
      guided proposal (the transition widened 1.5-fold; K1, no propagate
-     kernel), each against the Kalman log Z.
+     kernel), each against the Kalman log Z;
+ 19. one_row — the kernels at M = 1 (K1 C = 1, 3 and the APF's C = 2, 4;
+     K3; K2 UC-SV, LG dx=1 with and without carry, LG dx=1 raw; K6 raw) at
+     1×1024 and 1×8192, on a contiguous row, on unsqueezed and expanded
+     views and on a cloud with stride 1 on its length-1 axes, against their
+     plain versions, timed; then bank_shapes — the kernels at the banks'
+     shapes of phases 21 and 22 (K1 C=3, K2-UC-SV and K6 at 8×8192, K2-LG
+     normalized and raw at 8×128, K2-LG raw at 1×256), likewise;
+ 20. per_theta — the per-θ filters (the batched layer at one row):
+     log_likelihood on LG at θ* (T=100, N=1024) systematic (K1 + K2-LG),
+     stratified at ESS < N/2 (K3 + K2-LG carry) and the APF (K1 + K2-LG raw),
+     32 runs each against the Kalman log Z; filter_sequence on UC-SV at
+     N=8192 with a weighted_quantile summarize (K1 + K2-UC-SV at 1×8192)
+     and apf_log_likelihood on UC-SV at N=1024 (K1 + K6), against the JAX
+     package's log Z;
+ 21. smoothing — kalman_smooth and smoothed_marginals on LG at θ*
+     (N=1024, dense) against RTS; smoothed_marginals on UC-SV at N=8192 at
+     θ = JAX_MEAN (blocked) against the JAX package's smoothed means and
+     log Z; posterior_smoothed_paths (n_theta=8, n_paths=64, N=8192) from
+     the 512×8192 SMC² state, an 8-row bank through K1 + K2-UC-SV; walls
+     and the backward passes' times;
+ 22. pg — particle Gibbs on UC-SV at benchmarks/bench_pg.py's configuration
+     (T=241, N=8192, 50 sweeps, chain=3), "bs" and "as" (K6 at every CSMC
+     step), acceptance and θ-chain mean against the JAX package's seeds, one
+     chain through particle_gibbs and 8 as one bank, pooled; on LG at
+     the JAX test's configuration (T=60, N=128, 400 sweeps, chain=3), 8
+     chains as one bank, pooled against the Kalman prior-IS oracle; iterated
+     CSMC (N=256, 120 sweeps, both methods) against RTS.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -159,6 +186,51 @@ LG_DX = (3, 4, 5)
 LG_DX_INSTANCES = tuple(f"lg{dx}{route}" for dx in LG_DX for route in ("", "_raw"))
 LARGE_M, LARGE_N = 64, 65536
 
+# The per_theta, smoothing and pg phases. Particle Gibbs on UC-SV at
+# benchmarks/bench_pg.py's configuration (T=241, N=8192, 50 sweeps, chain=3,
+# bench.py's prior and series), its θ-chain averaged after PG_BURN sweeps;
+# on LG at tests/test_particle_gibbs.py's (T=60, N=128, 400 sweeps, chain=3,
+# the dt phase's prior, burn-in 150). FFBS on UC-SV at N=8192 at θ =
+# JAX_MEAN, its smoothed means averaged over FFBS_WINDOWS windows of t.
+PG_N, PG_SWEEPS, PG_CHAIN, PG_BURN = 8192, 50, 3, 20
+PG_LG_T, PG_LG_N, PG_LG_SWEEPS, PG_LG_BURN = 60, 128, 400, 150
+# iterated CSMC at LG θ* against RTS, at tests/test_particle_gibbs.py's N
+CSMC_N, CSMC_T, CSMC_SWEEPS, CSMC_BURN = 256, 40, 120, 40
+FFBS_N, FFBS_WINDOWS = 8192, 8
+# The JAX package on the CPU (tools/jax_reference.py, seeds jax.random.key(0..)):
+# --run ffbs_ucsv --seeds 24: smoothed_marginals on UC-SV at θ = JAX_MEAN, N=8192, on
+# ucsv_series — the mean and sd over the seeds of the smoothed means'
+# window averages (window_means: rows x, log σε, log ση) and of log Ẑ;
+# --run pg_ucsv --seeds 8: particle_gibbs at PG_N, PG_SWEEPS, PG_CHAIN on ucsv_series
+# with bench.py's prior — per method the mean and sd over the seeds of the
+# θ-chain means after PG_BURN sweeps and of the acceptance.
+FFBS_JAX_SEEDS = 24
+FFBS_JAX = {
+    "windows_mean": [[2.440484, 1.291665, -0.371528, -1.47573, -2.021628, -0.720789, 1.300778,
+                      3.126617],
+                     [-1.225523, -2.366631, -2.618566, -2.452679, -1.976276, -2.131238,
+                      -2.377695, -2.96883],
+                     [-0.659466, -1.267057, -1.298312, -1.611191, -2.014097, -1.806846,
+                      -1.491383, -1.559947]],
+    "windows_sd": [[0.003896, 0.003296, 0.00385, 0.002752, 0.002092, 0.002673, 0.004431,
+                    0.002817],
+                   [0.0493, 0.03545, 0.044521, 0.045735, 0.029726, 0.037189, 0.045606, 0.057867],
+                   [0.021993, 0.013959, 0.01612, 0.029274, 0.046032, 0.02932, 0.027363,
+                    0.021283]],
+    "log_z_mean": -262.401667, "log_z_var": 0.065717}
+PG_JAX_SEEDS = 8
+PG_JAX = {"bs": {"mean": [0.393357, 3.663497, 0.388623, 0.593793],
+                 "sd": [0.148199, 1.36242, 0.21683, 0.427078],
+                 "acc_mean": 0.2, "acc_sd": 0.032071},
+          "as": {"mean": [0.398265, 3.214692, 0.54777, 0.799667],
+                 "sd": [0.122016, 1.349002, 0.340284, 0.446555],
+                 "acc_mean": 0.2125, "acc_sd": 0.027007}}
+# Runs per check: per-θ LG filters (per_theta), UC-SV filter_sequence runs
+# at N=8192 and UC-SV APF filters at N=1024, LG FFBS runs (smoothing), LG and
+# UC-SV particle-Gibbs chains pooled (pg, one bank each); the posterior
+# mixture's θ draws and paths each (inflation_example.py:176-215).
+PER_THETA_SEEDS, FFBS_SEEDS, FFBS_LG_SEEDS, PG_LG_CHAINS, PG_CHAINS = 32, 16, 16, 8, 8
+MIX_THETA, MIX_PATHS = 8, 64
 # A sleep kernel of this many cycles (about 50 ms on an H100) holds the
 # device while time_ms queues the calls it times.
 SLEEP_CYCLES = 100_000_000
@@ -228,6 +300,12 @@ def lg_series(t: int = DT_T) -> np.ndarray:
             x = a * x + rng.normal(0.0, math.sqrt(q))
         y[i] = x + rng.normal(0.0, math.sqrt(r))
     return y.astype(np.float32)
+
+
+def window_means(m: np.ndarray, windows: int = FFBS_WINDOWS) -> np.ndarray:
+    """(T, dx) smoothed means → (dx, windows): each component's mean over
+    ``windows`` consecutive, near-equal spans of t."""
+    return np.stack([w.mean(0) for w in np.array_split(np.asarray(m, np.float64), windows)], 1)
 
 
 def say(phase: str, **fields) -> None:
@@ -370,13 +448,9 @@ def check_k1(torch, cases, gen):
     return out
 
 
-def check_normals(torch, label: str, z) -> dict:
-    """Fail unless the normals ``z`` (K, ...) a kernel drew, recovered from
-    its state deltas, look standard and independent over their ≥ 5·10⁵
-    draws each: |mean| < 5e-3, |var − 1| < 1e-2 and |corr| < 5e-3 (about
-    3.5, 5 and 3.5 standard errors). A kernel that scales or mixes its
-    draws wrongly in the update (Fᵀ in place of F, σ² in place of σ) gives
-    recovered normals of another covariance."""
+def _moments(torch, z) -> tuple:
+    """The normals z (K, ...): the largest |mean|, |var − 1| and |corr|
+    over their K kinds."""
     flat = z.reshape(z.shape[0], -1).double()
     mean = flat.mean(1).abs().max().item()
     var = (flat.var(1) - 1.0).abs().max().item()
@@ -384,6 +458,17 @@ def check_normals(torch, label: str, z) -> dict:
     if flat.shape[0] > 1:
         corr = torch.corrcoef(flat)
         rho = (corr - torch.diag(torch.diag(corr))).abs().max().item()
+    return mean, var, rho
+
+
+def check_normals(torch, label: str, z) -> dict:
+    """Fail unless the normals ``z`` (K, ...) a kernel drew, recovered from
+    its state deltas, look standard and independent over their ≥ 5·10⁵
+    draws each: |mean| < 5e-3, |var − 1| < 1e-2 and |corr| < 5e-3 (about
+    3.5, 5 and 3.5 standard errors). A kernel that scales or mixes its
+    draws wrongly in the update (Fᵀ in place of F, σ² in place of σ) gives
+    recovered normals of another covariance."""
+    mean, var, rho = _moments(torch, z)
     if not (mean < 5e-3 and var < 1e-2 and rho < 5e-3):
         raise AssertionError(f"{label}: normals off: |mean| {mean}, |var-1| {var}, |corr| {rho}")
     return {"normals_abs_mean": mean, "normals_abs_var_dev": var, "normals_abs_corr": rho}
@@ -575,16 +660,7 @@ def _lg_cloud(torch, smc, m: int, dx: int):
         one = smc.multivariate_linear_gaussian(
             A=0.8 * eye + 0.1 * np.eye(dx, k=1), B=np.linspace(1.0, 0.5, dx),
             Q=0.3 * eye + 0.05 * np.ones((dx, dx)), R=0.8)
-    return _broadcast_model(torch, one, m)
-
-
-def _broadcast_model(torch, model, m: int):
-    """One LG model's fields broadcast to a θ-cloud of m rows."""
-    from sequential_monte_carlo_tpu_torch.models.linear_gaussian import LinearGaussianModel
-
-    return LinearGaussianModel(**{k: getattr(model, k).to("cuda").expand(
-        (m,) + tuple(getattr(model, k).shape)).contiguous()
-        for k in ("A", "B", "Q", "R", "x0", "sigma0")})
+    return smc.broadcast_model(one, m)
 
 
 def _recover_normals(torch, name, params, state, new):
@@ -879,7 +955,7 @@ def check_filters(torch, algorithm: str = "bootstrap", seed: int = 3):
     # Kalman filter: from that, a bootstrap filter of 1024 particles
     # collapses in its first two weightings, and its log Z is no estimate.
     hp = smc.hodrick_prescott(1600.0, y, init_cov=1.0)
-    lz, wall, counts = run_filters(torch, _broadcast_model(torch, hp, DT_M), y,
+    lz, wall, counts = run_filters(torch, smc.broadcast_model(hp, DT_M), y,
                                    ("stratified", 1.0, None, algorithm), seed + 1)
     expect_counts(f"{phase} (hp)", counts, {"resample_sorted": steps,
                                             f"fused_propagate_lg2{raw}": steps})
@@ -1443,7 +1519,7 @@ def check_lg_dx(torch, shapes, gen):
                                                   Sigma0=a_inv @ (one.sigma0 - one.Q) @ a_inv.T)
         kz = smc.kalman_log_likelihood(target, y)[1].item()
         for alg, route in (("bootstrap", ""), ("apf", "_raw")):
-            lz, wall, counts = run_filters(torch, _broadcast_model(torch, one, DT_M), y,
+            lz, wall, counts = run_filters(torch, smc.broadcast_model(one, DT_M), y,
                                            ("systematic", 1.0, None, alg), 20 + dx)
             expect_counts(f"lg_dx (dx={dx}, {alg})", counts,
                           {"resample_count": steps, f"fused_propagate_lg{dx}{route}": steps})
@@ -1506,6 +1582,557 @@ def check_routes(torch):
         expect_counts(f"routes ({label})", counts, {k: steps for k in kernels})
         check_delta(f"lg {label}", lz, kz, wall, steps, "routes")
         total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
+    return total
+
+
+def _normals_ok(torch, label: str, z) -> dict:
+    """check_normals' moments for a one-row kernel's few draws: each within
+    5 standard errors of its count n (|mean| < 5/√n, |var − 1| < 5·√(2/n),
+    |corr| < 5/√n)."""
+    n = z[0].numel()
+    mean, var, rho = _moments(torch, z)
+    if not (mean < 5 / math.sqrt(n) and var < 5 * math.sqrt(2 / n) and rho < 5 / math.sqrt(n)):
+        raise AssertionError(f"{label}: normals off: |mean| {mean}, |var-1| {var}, |corr| {rho}")
+    return {"normals_abs_mean": round(mean, 5), "normals_abs_var_dev": round(var, 5)}
+
+
+def _as_row(t, layout: str):
+    """The tensor ``t`` as a one-row (1, *t.shape) tensor: contiguous, a row
+    of a wider tensor seen through ``unsqueeze`` (at an offset, stride(0)
+    that of the wider rows), through ``expand`` (stride(0) 0), or dense with
+    stride 1 on every axis of length 1 (as the resample kernels return a
+    one-row cloud)."""
+    if layout == "contiguous":
+        return t[None].clone()
+    if layout == "unsqueeze":
+        wide = t.new_zeros((3,) + tuple(t.shape))
+        wide[1] = t
+        return wide[1].unsqueeze(0)
+    if layout == "size1_strides":  # the resample kernels' output for a one-row, one-plane cloud
+        shape = (1,) + tuple(t.shape)
+        strides = [1 if d == 1 else st for d, st in zip(shape, t[None].contiguous().stride())]
+        out = t.new_empty_strided(shape, strides)
+        out.copy_(t[None])
+        return out
+    return t.expand((1,) + tuple(t.shape))
+
+
+def _k2_case(torch, gen, name: str, model, res, state, y, label: str, key=None, **kw):
+    """K2 on one cloud ``state`` (M, S, N) of ``model``'s bank against its
+    plain version fed the normals recovered from its state deltas (within
+    1e-5), those normals' moments within 5 standard errors of their count;
+    timed into ``res[key]`` where a key is given. Returns the moments."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+        fused_elementwise_step,
+        fused_elementwise_step_plain,
+    )
+
+    update, params = model.update, model.fused_params()
+    m, s, n = state.shape
+    carry, normalize = kw.get("carry_logw"), kw.get("normalize", True)
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+    got = fused_elementwise_step(update, params, state, y, seed=seed, **kw)
+    z = _recover_normals(torch, name, params, state, got[0])
+    ref = fused_elementwise_step_plain(update, params, state, y, z, carry, normalize)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             max((a - b).abs().max().item() for a, b in zip(got, ref)))
+    moments = _normals_ok(torch, label, z)
+    if key is not None:
+        def plain():
+            zz = torch.randn((update.n_normals, m, n), generator=gen, device="cuda")
+            return fused_elementwise_step_plain(update, params, state, y, zz, carry, normalize)
+        res[key] = (time_ms(torch, lambda: fused_elementwise_step(update, params, state, y,
+                                                                  seed=seed, **kw)),
+                    time_ms(torch, plain),
+                    *bound_ms(**propagate_cost(m, n, s, params.shape[1], carry is not None,
+                                               name.split("_")[0], normalize)))
+    return moments
+
+
+def _k6_case(torch, gen, ucsv, cloud, y, res, label: str, key=None) -> dict:
+    """K6 on one UC-SV cloud (M, 3, N) of the bank ``ucsv`` against its
+    plain version fed the recovered normals and against K2-UC-SV raw at the
+    same seed, both within 1e-5, the normals' moments within 5 standard
+    errors; timed into ``res[key]`` where a key is given. Returns the
+    moments."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import (
+        ucsv_propagate_reweight,
+        ucsv_propagate_reweight_plain,
+    )
+
+    tol = dict(rtol=1e-5, atol=1e-5)
+    m, _, n = cloud.shape
+    params = ucsv.fused_params()
+    ge, gn = params[:, 0], params[:, 1]
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+    raw = ucsv_propagate_reweight(seed, y, ge, gn, cloud)
+    z = _recover_normals(torch, "ucsv", params, cloud, raw[0])
+    for a, b in zip(raw, ucsv_propagate_reweight_plain(y, ge, gn, cloud, z)):
+        torch.testing.assert_close(a, b, **tol)
+        res["max_abs_err"] = max(res["max_abs_err"], (a - b).abs().max().item())
+    for a, b in zip(raw, fused_elementwise_step(ucsv.update, params, cloud, y, seed=seed,
+                                                normalize=False)):
+        torch.testing.assert_close(a, b, **tol)
+    moments = _normals_ok(torch, label, z)
+    if key is not None:
+        def plain():
+            zz = torch.randn((3, m, n), generator=gen, device="cuda")
+            return ucsv_propagate_reweight_plain(y, ge, gn, cloud, zz)
+        res[key] = (time_ms(torch, lambda: ucsv_propagate_reweight(seed, y, ge, gn, cloud)),
+                    time_ms(torch, plain),
+                    *bound_ms(**propagate_cost(m, n, 3, 2, False, "ucsv", False)))
+    return moments
+
+
+def _k1_case(torch, u0, w, xs, label: str) -> None:
+    """K1 on one cloud: ancestors and output bitwise its plain version's."""
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
+        resample_gather,
+        resample_gather_plain,
+    )
+
+    got, anc = resample_gather(u0, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_plain(u0, w, xs)
+    if not (torch.equal(anc, anc_ref) and torch.equal(got, ref)):
+        raise AssertionError(f"{label}: differs from plain")
+
+
+def check_one_row(torch, gen, k1, k3, k2, k2i, k2r, k6):
+    """The kernels at M = 1, the rows of the per-θ filters, smoothers and
+    CSMC: K1 (C = 1, 3, and the APF's C = 2 LG and C = 4 UC-SV clouds with
+    their first-stage weights), K3 (C = 1), K2 normalized (UC-SV, LG dx=1
+    with and without carry), K2 raw (LG dx=1) and K6 raw, at 1×1024 and
+    1×8192, on a contiguous row, on unsqueezed and expanded views and on
+    length-1 axes of stride 1 (as K1 returns a one-row cloud): ancestors
+    bitwise the plain versions', K2 and K6 within 1e-5 of their plain
+    versions fed the normals recovered from their state deltas (moments
+    within 5 standard errors), K6 within 1e-5 of K2-UC-SV raw at the same
+    seed. The contiguous row's times go into the kernels' results under
+    "1xN" ("cC_1xN" for K1 at C ≠ 3)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
+        resample_gather,
+        resample_gather_plain,
+    )
+
+    y = torch.tensor(1.3, device="cuda")
+    lg = smc.broadcast_model(smc.lg_model(torch.tensor(LG_THETA, device="cuda")))
+    ucsv = smc.broadcast_model(smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda")))
+    for n in (1024, 8192):
+        key = f"1x{n}"
+        for layout in ("contiguous", "unsqueeze", "expand", "size1_strides"):
+            timed = layout == "contiguous"
+            w = _as_row(torch.softmax(2.0 * torch.randn(n, generator=gen, device="cuda"), -1),
+                        layout)
+            u0 = torch.rand((1, 1), generator=gen, device="cuda")
+            u = torch.sort(torch.rand((1, n), generator=gen, device="cuda"), -1).values
+            for c in (3, 1, 2, 4):
+                cloud, w_apf = k1_cloud(torch, gen, 1, n, c)
+                xs = _as_row(cloud[0], layout)
+                wc = w if w_apf is None else _as_row(w_apf[0], layout)
+                _k1_case(torch, u0, wc, xs, f"one_row K1 {key} C={c} {layout}")
+                if timed:
+                    k1[key if c == 3 else f"c{c}_{key}"] = (
+                        time_ms(torch, lambda: resample_gather(u0, wc, xs)),
+                        time_ms(torch, lambda: resample_gather_plain(u0, wc, xs)),
+                        *bound_ms(**resample_cost(1, n, c, grid=False)))
+            xs = _as_row(torch.randn((1, n), generator=gen, device="cuda"), layout)
+            got, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+            ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+            if not (torch.equal(anc, anc_ref) and torch.equal(got, ref)):
+                raise AssertionError(f"one_row K3 {key} {layout}: differs from plain")
+            if timed:
+                k3[key] = (time_ms(torch, lambda: resample_gather_sorted(u, w, xs)),
+                           time_ms(torch, lambda: resample_gather_sorted_plain(u, w, xs)),
+                           *bound_ms(**resample_cost(1, n, 1, grid=True)))
+            carry = _as_row(torch.log_softmax(torch.randn(n, generator=gen, device="cuda"), -1),
+                            layout)
+            moments = {}
+            for name, model, res, s, kw in (
+                    ("ucsv", ucsv, k2, 3, {}), ("lg1", lg, k2i["lg1"], 1, {}),
+                    ("lg1_carry", lg, k2i["lg1_carry"], 1, {"carry_logw": carry}),
+                    ("lg1_raw", lg, k2r["lg1_raw"], 1, {"normalize": False})):
+                state = torch.randn((s, n), generator=gen, device="cuda")
+                state = _as_row(state * torch.tensor([1.0, 0.5, 0.5], device="cuda")[:s, None]
+                                if name == "ucsv" else state, layout)
+                moments[name] = _k2_case(torch, gen, name, model, res, state, y,
+                                         f"one_row K2 {name} {key} {layout}",
+                                         key if timed else None, **kw)
+            cloud = _as_row(torch.randn((3, n), generator=gen, device="cuda")
+                            * torch.tensor([1.0, 0.5, 0.5], device="cuda")[:, None], layout)
+            moments["k6"] = _k6_case(torch, gen, ucsv, cloud, y, k6,
+                                     f"one_row K6 {key} {layout}", key if timed else None)
+            say("one_row", shape=key, layout=layout, k1="bitwise", k3="bitwise",
+                k2_k6="within 1e-5", **{f"{k}_normals": v for k, v in moments.items()})
+        say("one_row", shape=key, **{f"{name}_ms": round(res[k][0], 5) for name, res, k in (
+            ("k1_c3", k1, key), ("k1_c1", k1, f"c1_{key}"), ("k1_c2", k1, f"c2_{key}"),
+            ("k1_c4", k1, f"c4_{key}"), ("k3_c1", k3, key), ("k2_ucsv", k2, key),
+            ("k2_lg1", k2i["lg1"], key), ("k2_lg1_carry", k2i["lg1_carry"], key),
+            ("k2_lg1_raw", k2r["lg1_raw"], key), ("k6", k6, key))})
+
+
+def check_bank_shapes(torch, gen, k1, k2, k2i, k2r, k6):
+    """The kernels at the bank shapes the smoothing and pg phases give them:
+    K1 C=3, K2-UC-SV normalized and K6 at 8×8192 (the posterior mixture's
+    n_theta=8 bank, the pooled UC-SV particle-Gibbs chains), K2-LG
+    normalized and raw at 8×128 (the pooled LG chains) and K2-LG raw at
+    1×256 (the CSMC invariance runs): K1 bitwise its plain version under
+    flat, skewed and point-mass weights (check_k1), K2 and K6 as in
+    check_one_row, on θ-clouds of distinct rows. Times go into the kernels'
+    results under "MxN"."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    key = f"{MIX_THETA}x{PG_N}"
+    res = check_k1(torch, [(MIX_THETA, PG_N, 3)], gen)
+    k1[key] = res[key]
+    k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
+    theta = prior_from_spec(PRIOR_SPEC, device="cuda").sample(gen, (MIX_THETA,))
+    theta[:, 0] = theta[:, 0].clamp(min=0.05)  # no row with a vol-of-vol too small to recover z
+    ucsv = smc.ucsv_model(theta)
+    y = torch.tensor(1.3, device="cuda")
+    cloud = torch.randn((MIX_THETA, 3, PG_N), generator=gen, device="cuda")
+    cloud[:, 0] += 3.0
+    cloud[:, 1:] *= 0.5
+    moments = {"k2_ucsv": _k2_case(torch, gen, "ucsv", ucsv, k2, cloud, y,
+                                   f"bank K2 ucsv {key}", key),
+               "k6": _k6_case(torch, gen, ucsv, cloud, y, k6, f"bank K6 {key}", key)}
+    say("bank_shapes", shape=key, k1_c3="bitwise", k2_ucsv_k6="within 1e-5",
+        k1_ms=round(k1[key][0], 5), k2_ucsv_ms=round(k2[key][0], 5), k6_ms=round(k6[key][0], 5),
+        **{f"{k}_normals": v for k, v in moments.items()})
+    lg = smc.lg_model(prior_from_spec(LG_PRIOR_SPEC, device="cuda").sample(gen, (PG_LG_CHAINS,)))
+    y = torch.tensor(0.6, device="cuda")
+    raw = ("lg1_raw", k2r["lg1_raw"], {"normalize": False})
+    for m, n, cases in ((PG_LG_CHAINS, PG_LG_N, (("lg1", k2i["lg1"], {}), raw)),
+                        (1, CSMC_N, (raw,))):
+        model = lg if m > 1 else smc.broadcast_model(
+            smc.lg_model(torch.tensor(LG_THETA, device="cuda")))
+        moments = {}
+        for name, out, kw in cases:
+            state = torch.randn((m, 1, n), generator=gen, device="cuda")
+            moments[name] = _k2_case(torch, gen, name, model, out, state, y,
+                                     f"bank K2 {name} {m}x{n}", f"{m}x{n}", **kw)
+        say("bank_shapes", shape=f"{m}x{n}", k2="within 1e-5",
+            **{f"k2_{name}_ms": round(out[f"{m}x{n}"][0], 5) for name, out, _ in cases},
+            **{f"{k}_normals": v for k, v in moments.items()})
+
+
+def _counted(torch, fn):
+    """(fn()'s result, wall-clock s, launch counts) of one run from counts
+    at 0."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def _add(total, counts):
+    return counts if total is None else {k: v + counts[k] for k, v in total.items()}
+
+
+def check_per_theta(torch):
+    """The per-θ filters (the batched layer at one row): log_likelihood on LG
+    at θ* (T=100, N=1024) systematic (K1 + K2-LG), stratified at ESS < N/2
+    (K3 + K2-LG carry) and apf_log_likelihood (K1 + K2-LG raw), PER_THETA_SEEDS
+    runs each, log Z against the Kalman filter's by the delta method;
+    filter_sequence on UC-SV at N=8192 (K1 + K2-UC-SV) with a
+    weighted_quantile summarize, log Z against the JAX package's (FFBS_JAX);
+    apf_log_likelihood on UC-SV at N=1024 (K1 + K6) against the JAX
+    package's APF bank (UCSV_BANK_JAX); FFBS_SEEDS runs each of the UC-SV
+    ones. Returns the runs' launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.analysis import weighted_quantile
+
+    y = torch.tensor(lg_series(), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    kz = smc.kalman_log_likelihood(target, y)[1].item()
+    model = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+    seeds, total, steps = PER_THETA_SEEDS, None, DT_T - 1
+    for label, fn, cfg, kernels in (
+            ("systematic", smc.log_likelihood, smc.PFConfig("systematic", 1.0),
+             ("resample_count", "fused_propagate_lg1")),
+            ("stratified", smc.log_likelihood, smc.PFConfig("stratified", 0.5),
+             ("resample_sorted", "fused_propagate_lg1_carry")),
+            ("apf", smc.apf_log_likelihood, smc.PFConfig("systematic", 1.0),
+             ("resample_count", "fused_propagate_lg1_raw"))):
+        fn(torch.Generator(device="cuda").manual_seed(500), model, DT_N, y, cfg)  # warm-up
+        lz, wall, counts = _counted(torch, lambda: torch.stack([
+            fn(torch.Generator(device="cuda").manual_seed(600 + s), model, DT_N, y, cfg)[1]
+            for s in range(seeds)]))
+        expect_counts(f"per_theta (lg {label})", counts, {k: steps * seeds for k in kernels})
+        check_delta(f"lg {label}", lz.double(), kz, wall, steps * seeds, "per_theta")
+        total = _add(total, counts)
+
+    # UC-SV at θ = JAX_MEAN, N = 8192: filter_sequence with a summarize
+    ys, ps = series(torch, "cuda"), [0.05, 0.5, 0.95]
+    ucsv = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda"))
+
+    def summarize(state):
+        return weighted_quantile(state.particles[:, 0], torch.exp(state.log_weights), ps)
+
+    def run_seq(seed):
+        return smc.filter_sequence(torch.Generator(device="cuda").manual_seed(seed), ucsv,
+                                   FFBS_N, ys, summarize=summarize)
+
+    run_seq(700)  # warm-up
+    outs, wall, counts = _counted(torch, lambda: [run_seq(800 + s) for s in range(FFBS_SEEDS)])
+    expect_counts("per_theta (ucsv filter_sequence)", counts,
+                  {k: (T - 1) * FFBS_SEEDS for k in ("resample_count", "fused_propagate_ucsv")})
+    total = _add(total, counts)
+    summary = torch.stack([o[2]["summary"] for o in outs])
+    if summary.shape != (FFBS_SEEDS, T, 3) or not (torch.isfinite(summary).all() and torch.all(
+            summary[..., 0] <= summary[..., 2])):
+        raise AssertionError(f"per_theta (ucsv): summaries {tuple(summary.shape)} not finite"
+                             " ordered quantiles")
+    lz = torch.stack([o[1] for o in outs]).double()
+    mean, var = lz.mean().item(), lz.var().item()
+    se = math.sqrt(var / FFBS_SEEDS + FFBS_JAX["log_z_var"] / FFBS_JAX_SEEDS)
+    if abs(mean - FFBS_JAX["log_z_mean"]) > 5 * se:
+        raise AssertionError(f"per_theta (ucsv): mean log Z {mean} vs JAX"
+                             f" {FFBS_JAX['log_z_mean']} beyond 5·{se}")
+    say("per_theta", model="ucsv filter_sequence", n=FFBS_N, T=T, runs=FFBS_SEEDS,
+        wall_s_per_run=round(wall / FFBS_SEEDS, 4), logz_mean=round(mean, 5),
+        logz_var=round(var, 5), jax_logz_mean=FFBS_JAX["log_z_mean"], five_se=round(5 * se, 5),
+        median_quantiles_last_t=np.round(summary[:, -1].median(0).values.cpu().numpy(), 4).tolist(),
+        launches=(T - 1) * FFBS_SEEDS)
+
+    # UC-SV APF at N = 1024 (K1 on the cloud with the lookahead plane + K6)
+    def run_apf(seed):
+        return smc.apf_log_likelihood(torch.Generator(device="cuda").manual_seed(seed), ucsv,
+                                      DT_N, ys)[1]
+
+    run_apf(900)  # warm-up
+    seeds = FFBS_SEEDS
+    lz, wall, counts = _counted(torch, lambda: torch.stack([run_apf(1000 + s)
+                                                            for s in range(seeds)]))
+    expect_counts("per_theta (ucsv apf)", counts,
+                  {k: (T - 1) * seeds for k in ("resample_count", "ucsv_propagate")})
+    total = _add(total, counts)
+    lz = lz.double()
+    mean, var = lz.mean().item(), lz.var().item()
+    ref_mean, ref_var, ref_rows = UCSV_BANK_JAX["apf"]
+    se = math.sqrt(var / seeds + ref_var / ref_rows)
+    if abs(mean - ref_mean) > 5 * se:
+        raise AssertionError(f"per_theta (ucsv apf): mean log Z {mean} vs JAX {ref_mean}"
+                             f" beyond 5·{se}")
+    say("per_theta", model="ucsv apf_log_likelihood", n=DT_N, T=T, runs=seeds,
+        wall_s_per_run=round(wall / seeds, 4), logz_mean=round(mean, 5), logz_var=round(var, 5),
+        jax_logz_mean=ref_mean, five_se=round(5 * se, 5), launches=(T - 1) * seeds)
+    return total
+
+
+def check_smoothing(torch, flagship):
+    """(a) kalman_smooth and smoothed_marginals on LG at θ* (T=100, N=1024,
+    the dense backward pass; K1 + K2-LG): FFBS_LG_SEEDS runs' smoothed means
+    against RTS of the filter's target, within 5 standard errors of their
+    mean at every t; (b) smoothed_marginals on UC-SV at θ = JAX_MEAN, N=8192
+    (the blocked backward pass; K1 + K2-UC-SV): the smoothed means' window
+    averages and log Z against the JAX package's (FFBS_JAX); (c)
+    posterior_smoothed_paths from the 512×8192 SMC² state ``flagship``
+    (n_theta=8, n_paths=64, N=8192: an 8-row bank through K1 + K2-UC-SV).
+    Walls, and each backward pass timed alone. Returns the launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops.smoothing import backward_reweight
+
+    def timed_backward(model, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lw = backward_reweight(model, out.particles, out.filter_log_weights)
+        torch.cuda.synchronize()
+        if not torch.equal(lw, out.log_weights):
+            raise AssertionError("smoothing: the backward pass alone gave other weights")
+        return time.perf_counter() - t0
+
+    # (a) LG, dense
+    y = torch.tensor(lg_series(), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    ms, ps = smc.kalman_smooth(target, y)
+    model = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+    smc.smoothed_marginals(torch.Generator(device="cuda").manual_seed(1100), model, DT_N, y)
+    outs, wall, counts = _counted(torch, lambda: [smc.smoothed_marginals(
+        torch.Generator(device="cuda").manual_seed(1200 + s), model, DT_N, y)
+        for s in range(FFBS_LG_SEEDS)])
+    steps = DT_T - 1
+    expect_counts("smoothing (lg)", counts, {"resample_count": steps * FFBS_LG_SEEDS,
+                                             "fused_propagate_lg1": steps * FFBS_LG_SEEDS})
+    total = counts
+    means = torch.stack([smc.smoothed_mean(o)[:, 0] for o in outs]).double()
+    err = (means.mean(0) - ms[:, 0].double()).abs()
+    se = means.std(0) / math.sqrt(FFBS_LG_SEEDS)
+    if not torch.all(err <= 5 * se):
+        raise AssertionError(f"smoothing (lg): smoothed mean off RTS by {err.max().item()}"
+                             f" where 5 se is {(5 * se)[err.argmax()].item()}")
+    say("smoothing", model="lg", route="dense", n=DT_N, T=DT_T, runs=FFBS_LG_SEEDS,
+        wall_s_per_run=round(wall / FFBS_LG_SEEDS, 4),
+        backward_s=round(timed_backward(model, outs[0]), 4),
+        max_abs_err_vs_rts=round(err.max().item(), 5), max_err_in_se=round((err / se).max().item(), 3),
+        rts_sd_mean=round(torch.sqrt(ps[:, 0, 0]).mean().item(), 4),
+        launches=steps * FFBS_LG_SEEDS)
+
+    # (b) UC-SV at N = 8192, blocked
+    ys = series(torch, "cuda")
+    ucsv = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda"))
+    out, wall, counts = _counted(torch, lambda: smc.smoothed_marginals(
+        torch.Generator(device="cuda").manual_seed(1300), ucsv, FFBS_N, ys))
+    expect_counts("smoothing (ucsv)", counts, {"resample_count": T - 1,
+                                               "fused_propagate_ucsv": T - 1})
+    total = _add(total, counts)
+    smoothed = smc.smoothed_mean(out)
+    win = window_means(smoothed.cpu().numpy())
+    ref, ref_sd = np.asarray(FFBS_JAX["windows_mean"]), np.asarray(FFBS_JAX["windows_sd"])
+    tol = TOL_Z * ref_sd * math.sqrt(1.0 + 1.0 / FFBS_JAX_SEEDS)
+    lz_se = math.sqrt(FFBS_JAX["log_z_var"] * (1.0 + 1.0 / FFBS_JAX_SEEDS))
+    if not (np.all(np.abs(win - ref) <= tol) and torch.isfinite(out.log_weights).any(-1).all()
+            and abs(out.log_z.item() - FFBS_JAX["log_z_mean"]) <= TOL_Z * lz_se):
+        raise AssertionError(f"smoothing (ucsv): windows {np.round(win, 4).tolist()}, log Z"
+                             f" {out.log_z.item()} vs JAX {ref.tolist()} beyond {tol.tolist()}")
+    say("smoothing", model="ucsv", route="blocked", n=FFBS_N, T=T, wall_s=round(wall, 4),
+        backward_s=round(timed_backward(ucsv, out), 4), log_z=round(out.log_z.item(), 4),
+        jax_log_z=FFBS_JAX["log_z_mean"],
+        max_window_dev_in_tol=round(float((np.abs(win - ref) / tol).max()), 4), launches=T - 1)
+
+    # (c) the posterior mixture from the flagship's θ-cloud: one 8-row bank
+    paths, wall, counts = _counted(torch, lambda: smc.posterior_smoothed_paths(
+        torch.Generator(device="cuda").manual_seed(1400), smc.ucsv_model, flagship.theta,
+        flagship.log_omega, ys, FFBS_N, n_theta=MIX_THETA, n_paths=MIX_PATHS))
+    expect_counts("smoothing (posterior paths)", counts, {"resample_count": T - 1,
+                                                          "fused_propagate_ucsv": T - 1})
+    total = _add(total, counts)
+    dev = (paths[:, :, 0].mean(1) - smoothed[:, 0]).abs().mean().item()
+    if paths.shape != (T, MIX_THETA * MIX_PATHS, 3) or not torch.isfinite(paths).all() or dev > 0.25:
+        raise AssertionError(f"smoothing (posterior paths): shape {tuple(paths.shape)}, mean"
+                             f" |path mean − smoothed mean at θ = JAX_MEAN| {dev}")
+    say("smoothing", run="posterior_smoothed_paths", n_theta=MIX_THETA, n_paths=MIX_PATHS,
+        n=FFBS_N, T=T, wall_s=round(wall, 4), mean_abs_dev_from_ucsv_smoothed_mean=round(dev, 4),
+        launches=T - 1)
+    return total
+
+
+def run_pg(torch, model_fn, prior_spec, y, cfg, seed: int, chains: int = 0):
+    """One particle-Gibbs run from counts at 0: (result, wall s, counts).
+    With ``chains`` it runs that many chains as the rows of one bank
+    (``model_fn`` then the θ-cloud's constructor), θ0 drawn from the prior
+    first."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.samplers.particle_gibbs import _particle_gibbs_bank
+
+    prior = prior_from_spec(prior_spec, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if not chains:
+        return _counted(torch, lambda: smc.particle_gibbs(gen, model_fn, prior, y, cfg))
+    return _counted(torch, lambda: _particle_gibbs_bank(gen, model_fn, prior, y, cfg,
+                                                        prior.sample(gen, (chains,))))
+
+
+def check_pg(torch):
+    """Particle Gibbs: (a) UC-SV at bench_pg.py's configuration (T=241,
+    N=8192, 50 sweeps, chain=3), "bs" and "as": K6 at every CSMC step, the
+    initial multinomial filter's K2-UC-SV. One chain through particle_gibbs:
+    its acceptance within TOL_Z of the JAX package's seeds' (PG_JAX), its
+    θ-chain mean after PG_BURN sweeps too (a tolerance near the prior's
+    width: one chain of 50 sweeps from a prior draw spreads so widely, in
+    the JAX package too). Then PG_CHAINS chains as one bank: their mean
+    acceptance and pooled chain mean within TOL_Z standard errors of the
+    difference from the JAX seeds' (sd·√(1/PG_CHAINS + 1/PG_JAX_SEEDS)).
+    (b) LG at the JAX test's configuration (T=60, N=128, 400 sweeps,
+    chain=3), PG_LG_CHAINS chains as one bank, their means pooled against the
+    Kalman prior-IS oracle within the JAX test's 0.3 (one chain's mean
+    spreads too widely for it, in the JAX package too: tools/jax_reference.py
+    --run pg_lg); (c) iterated CSMC at θ* (N=256, 120 sweeps, "bs" and "as")
+    against RTS. Returns the launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    ys, total = series(torch, "cuda"), None
+    for method in ("bs", "as"):
+        cfg = smc.PGConfig(n_particles=PG_N, sweeps=PG_SWEEPS, chain=PG_CHAIN, method=method)
+        ref_stats = PG_JAX[method]
+        ref, ref_sd = np.asarray(ref_stats["mean"]), np.asarray(ref_stats["sd"])
+        for chains in (0, PG_CHAINS):
+            res, wall, counts = run_pg(torch, smc.ucsv_model, PRIOR_SPEC, ys, cfg, 1500, chains)
+            expect_counts(f"pg (ucsv {method}, {max(chains, 1)} chains)", counts,
+                          {"ucsv_propagate": (T - 1) * PG_SWEEPS, "fused_propagate_ucsv": T - 1})
+            total = _add(total, counts)
+            accs = res.acc_ratio.reshape(-1).cpu().numpy()
+            means = res.theta[PG_BURN:].mean(0).reshape(-1, len(ref)).cpu().numpy()
+            acc, mean = float(accs.mean()), means.mean(0)
+            se = math.sqrt(1.0 / max(chains, 1) + 1.0 / PG_JAX_SEEDS)
+            tol, acc_tol = TOL_Z * ref_sd * se, TOL_Z * ref_stats["acc_sd"] * se
+            if not (abs(acc - ref_stats["acc_mean"]) <= acc_tol and torch.isfinite(res.theta).all()
+                    and np.all(np.abs(mean - ref) <= tol)):
+                raise AssertionError(
+                    f"pg (ucsv {method}, {max(chains, 1)} chains): acceptance {accs} vs JAX"
+                    f" {ref_stats['acc_mean']} ± {acc_tol}, chain mean {mean} vs JAX"
+                    f" {ref.tolist()} beyond {tol.tolist()}")
+            say("pg", model="ucsv", method=method, chains=max(chains, 1), n=PG_N, T=T,
+                sweeps=PG_SWEEPS, chain=PG_CHAIN, wall_s=round(wall, 4),
+                sweeps_per_s=round(PG_SWEEPS / wall, 3),
+                particle_steps_per_s=round(max(chains, 1) * PG_SWEEPS * T * PG_N / wall),
+                acc_ratio=round(acc, 4), acc_ratios=np.round(accs, 4).tolist(),
+                jax_acc=ref_stats["acc_mean"], acc_tolerance=round(acc_tol, 5),
+                chain_mean=np.round(mean, 5).tolist(), jax_mean=ref.tolist(),
+                tolerance=np.round(tol, 5).tolist(), launches_k6=(T - 1) * PG_SWEEPS)
+
+    # (b) LG: chains pooled against the prior-IS oracle
+    y = torch.tensor(lg_series(PG_LG_T), device="cuda")
+    prior = prior_from_spec(LG_PRIOR_SPEC, device="cuda")
+    theta = prior.sample(torch.Generator(device="cuda").manual_seed(77), (100_000,))
+    _, lz = smc.kalman_log_likelihood(smc.lg_model(theta), y)
+    oracle = (torch.softmax(lz.double(), 0) @ theta.double()).cpu().numpy()
+    cfg = smc.PGConfig(n_particles=PG_LG_N, sweeps=PG_LG_SWEEPS, chain=PG_CHAIN)
+    res, wall, counts = run_pg(torch, smc.lg_model, LG_PRIOR_SPEC, y, cfg, 1600, PG_LG_CHAINS)
+    expect_counts("pg (lg)", counts, {"fused_propagate_lg1_raw": (PG_LG_T - 1) * PG_LG_SWEEPS,
+                                      "fused_propagate_lg1": PG_LG_T - 1})
+    total = _add(total, counts)
+    means = res.theta[PG_LG_BURN:].mean(0).cpu().numpy()
+    accs = res.acc_ratio.cpu().numpy()
+    pooled = means.mean(0)
+    if not (np.all(np.abs(pooled - oracle) < 0.3) and np.all((0.1 < accs) & (accs < 0.6))):
+        raise AssertionError(f"pg (lg): pooled chain mean {pooled} vs oracle {oracle},"
+                             f" acceptances {accs}")
+    say("pg", model="lg", n=PG_LG_N, T=PG_LG_T, sweeps=PG_LG_SWEEPS, chains=PG_LG_CHAINS,
+        wall_s=round(wall, 4), acc=np.round(accs, 4).tolist(),
+        chain_means=np.round(means, 4).tolist(), pooled=np.round(pooled, 4).tolist(),
+        oracle=np.round(oracle, 4).tolist())
+
+    # (c) CSMC invariance at θ* against RTS of the filter's target
+    y = torch.tensor(lg_series(CSMC_T), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    ms, ps = smc.kalman_smooth(target, y)
+    ms, sd = ms[:, 0].cpu().numpy(), torch.sqrt(ps[:, 0, 0]).cpu().numpy()
+    model = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+    for method in ("bs", "as"):
+        def iterate():
+            gen, path, paths = torch.Generator(device="cuda").manual_seed(1700), None, []
+            path = torch.zeros((CSMC_T, 1), device="cuda")
+            for _ in range(CSMC_SWEEPS):
+                path = smc.csmc_sweep(gen, model, CSMC_N, y, path, method=method).path
+                paths.append(path[:, 0])
+            return torch.stack(paths[CSMC_BURN:]).mean(0).cpu().numpy()
+
+        pooled, wall, counts = _counted(torch, iterate)
+        expect_counts(f"pg (csmc {method})", counts, {"fused_propagate_lg1_raw": (CSMC_T - 1) * CSMC_SWEEPS})
+        total = _add(total, counts)
+        err = np.abs(pooled - ms) / sd
+        if not (err.max() < 0.75 and err.mean() < 0.3):
+            raise AssertionError(f"pg (csmc {method}): pooled path mean off RTS by"
+                                 f" {err.max()} sd (mean {err.mean()})")
+        say("pg", run="csmc invariance", method=method, n=CSMC_N, T=CSMC_T, sweeps=CSMC_SWEEPS,
+            wall_s=round(wall, 4), max_err_sd=round(float(err.max()), 4),
+            mean_err_sd=round(float(err.mean()), 4))
     return total
 
 
@@ -1611,11 +2238,19 @@ def main() -> int:
     check_ibis(torch)
     routes_counts = check_routes(torch)
 
+    # -- 19 to 22. the kernels at one row, the per-θ filters, the smoothers,
+    # particle Gibbs
+    check_one_row(torch, gen, k1, k3, k2, k2i, k2r, k6)
+    check_bank_shapes(torch, gen, k1, k2, k2i, k2r, k6)
+    per_theta_counts = check_per_theta(torch)
+    smoothing_counts = check_smoothing(torch, fstate)
+    pg_counts = check_pg(torch)
+
     # launches of each kernel over the main paths (slice at 512×1024 and
-    # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes), each
-    # read just after its run
+    # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
+    # per_theta, smoothing, pg), each read just after its run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
-            lg_dx_counts, routes_counts)
+            lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts)
     launches = {k: sum(run[k] for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",

@@ -5,10 +5,15 @@ Same layer map as the JAX package, which stays the reference it is tested
 against:
   distributions/  L0  distribution kit
   models/         L1  state-space models (UC-SV, linear-Gaussian, SV)
-  ops/            L2  weight math, resamplers, the batched particle filter,
-                      the Kalman filter
+  ops/            L2  weight math, resamplers, the batched particle filter
+                      and the per-θ filters (the batched one at one row),
+                      the Kalman filter and smoother, the particle smoothers,
+                      conditional SMC
   samplers/       L3  online SMC² (with the exchange step), IBIS and
-                      density-tempered SMC, with PMMH rejuvenation
+                      density-tempered SMC, with PMMH rejuvenation; particle
+                      Gibbs
+  analysis/       L4  posterior summaries (weighted quantiles, SMC² and IBIS
+                      summaries)
   kernels/        L5  hand-written Hopper kernels (CUDA C++ and Triton)
   interop.py          state and models carried across from the JAX package
 
@@ -17,7 +22,7 @@ any of the JAX package's resampling schemes, at every step or when the ESS
 falls below a threshold. Entry points run on the device of the data they are
 given. Nothing here imports JAX.
 """
-from . import distributions, models, ops, samplers
+from . import analysis, distributions, models, ops, samplers
 from .distributions import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

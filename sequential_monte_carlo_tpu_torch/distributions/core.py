@@ -4,7 +4,8 @@ TruncatedNormal, Uniform, Product and TupleProduct.
 
 Each distribution is a frozen dataclass of tensors with
 ``sample(generator, sample_shape)``, ``log_prob(x)``, ``in_support(x)`` and
-``mean()`` (and ``variance()`` where the JAX package has it) that broadcast
+``mean()`` (and ``variance()`` where the JAX package has it; ``quantile(p)``
+on ``Normal``, which the analysis summaries take) that broadcast
 over batch shapes, as in the JAX package. Draws come from an explicit
 ``torch.Generator`` on the parameters' device (the counterpart of a
 ``jax.random`` key). Conventions match Distributions.jl: ``Normal``'s
@@ -55,6 +56,10 @@ class Normal:
 
     def variance(self):
         return (self.scale**2).expand(self.batch_shape)
+
+    def quantile(self, p):
+        return self.loc + self.scale * torch.special.ndtri(torch.as_tensor(p, dtype=self.loc.dtype,
+                                                                          device=self.loc.device))
 
 
 @struct

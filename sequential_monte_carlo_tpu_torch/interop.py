@@ -23,6 +23,7 @@ from .distributions import (
 )
 from .models.linear_gaussian import LinearGaussianModel
 from .ops.batched_filter import from_cloud
+from .ops.smoothing import SmoothedCloud
 from .samplers.base import IBISState, SMC2State
 
 # prior component kind -> (distribution, number of parameters)
@@ -63,6 +64,21 @@ def from_numpy_ibis_state(fields: Mapping[str, np.ndarray], device="cuda") -> IB
     return IBISState(t=int(fields["t"]), **{
         k: _f32(fields[k], device)
         for k in ("theta", "log_omega", "mean", "cov", "log_z", "ess", "acc_ratio")})
+
+
+def from_numpy_cloud(cloud, device="cuda") -> SmoothedCloud:
+    """A JAX ``SmoothedCloud`` (particles (T, N, dx), log_weights,
+    filter_log_weights (T, N), log_z) — the NamedTuple itself or a mapping
+    of its fields, as numpy arrays or anything numpy converts — → the
+    port's."""
+    fields = cloud._asdict() if hasattr(cloud, "_asdict") else cloud
+    return SmoothedCloud(**{k: _f32(fields[k], device) for k in SmoothedCloud._fields})
+
+
+def from_numpy_path(path, device="cuda") -> torch.Tensor:
+    """A trajectory (T, dx) — a CSMC reference path, a smoothed draw — as an
+    f32 tensor on ``device``."""
+    return _f32(path, device)
 
 
 def from_numpy_model(fields: Mapping[str, np.ndarray], device="cuda") -> LinearGaussianModel:

@@ -390,7 +390,10 @@ def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
             raise ValueError(f"{name} is on {t.device}, state on {state.device}")
         if name != "state" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if state.stride(2) != 1 or state.stride(1) != state.shape[2]:
+    # an axis of length 1 is never stepped along, whatever its stride (a
+    # one-row or one-plane view: the per-θ filters' clouds)
+    _, s, n = state.shape
+    if (n > 1 and state.stride(2) != 1) or (s > 1 and state.stride(1) != n):
         raise ValueError("state's planes must be contiguous rows of N")
 
 
@@ -422,7 +425,8 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
       update: the model's :class:`ElementwiseUpdate`.
       params: (M, P) f32 per-θ parameters.
       state: (M, S, N) f32 state planes, contiguous within a row; rows may
-        be strided (a view of a wider cloud is not copied).
+        be strided (a view of a wider cloud is not copied), and an axis of
+        length 1 may have any stride.
       y: the observation, a one-element f32 tensor on the state's device.
       seed: (1,) int64 Philox seed on the device (CUDA tensors).
       normals: (n_normals, M, N) f32 draws (CPU tensors: the plain version).

@@ -1,4 +1,4 @@
-from .base import simulate
+from .base import broadcast_model, simulate
 from .linear_gaussian import (
     LinearGaussianModel,
     hodrick_prescott,
@@ -15,6 +15,7 @@ __all__ = [
     "LinearGaussianModel",
     "StochasticVolatilityModel",
     "UCSVModel",
+    "broadcast_model",
     "hodrick_prescott",
     "lg_model",
     "multivariate_linear_gaussian",

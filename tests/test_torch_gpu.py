@@ -557,3 +557,203 @@ def test_exchange_doubling_on_the_card(cuda, pad):
     assert torch.all(torch.isfinite(lw[:, :state.active_n]))
     assert torch.all(lw[:, state.active_n:] == -torch.inf)
     assert np.isfinite(state.ess.item())
+
+
+def _as_row(t, layout):
+    """``t`` as a one-row (1, *t.shape) tensor: contiguous, a row of a wider
+    tensor seen through ``unsqueeze`` (an offset, stride(0) of the wider
+    rows), through ``expand`` (stride(0) 0), or dense with stride 1 on every
+    axis of length 1 (as the resample kernels return a one-row cloud)."""
+    if layout == "contiguous":
+        return t[None].clone()
+    if layout == "unsqueeze":
+        wide = t.new_zeros((3,) + tuple(t.shape))
+        wide[1] = t
+        return wide[1].unsqueeze(0)
+    if layout == "size1_strides":  # the resample kernels' output for a one-row, one-plane cloud
+        shape = (1,) + tuple(t.shape)
+        strides = [1 if d == 1 else st for d, st in zip(shape, t[None].contiguous().stride())]
+        out = t.new_empty_strided(shape, strides)
+        out.copy_(t[None])
+        return out
+    return t.expand((1,) + tuple(t.shape))
+
+
+ROW_LAYOUTS = ["contiguous", "unsqueeze", "expand", "size1_strides"]
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_resample_kernels_at_one_row(cuda, n, layout, c):
+    """K1 and K3 at M = 1 (the per-θ filters' rows) on a contiguous row and
+    on unsqueezed, expanded and length-1-strided views of the weights and
+    cloud: ancestors and output bitwise the plain versions', one launch
+    counted each."""
+    rng = np.random.default_rng(20 + c)
+    a = 2.0 * rng.standard_normal(n)
+    w = _as_row(torch.tensor(np.exp(a - a.max()), dtype=torch.float32, device=cuda), layout)
+    xs = _as_row(torch.tensor(rng.standard_normal((c, n)), dtype=torch.float32, device=cuda),
+                 layout)
+    u0 = torch.tensor(rng.random((1, 1)), dtype=torch.float32, device=cuda)
+    before = resample_gather.launches
+    out, anc = resample_gather(u0, w, xs, return_ancestors=True)
+    assert resample_gather.launches == before + 1
+    ref, anc_ref = resample_gather_plain(u0, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
+    u = torch.sort(torch.tensor(rng.random((1, n)), dtype=torch.float32, device=cuda), -1).values
+    before = resample_gather_sorted.launches
+    out, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    assert resample_gather_sorted.launches == before + 1
+    ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n", [1024, 8192])
+@pytest.mark.parametrize("layout", ROW_LAYOUTS)
+@pytest.mark.parametrize("name,route", [("ucsv", "normalized"), ("lg1", "normalized"),
+                                        ("lg1", "carry"), ("lg1", "raw"), ("sv", "raw"),
+                                        ("ucsv", "k6")])
+def test_propagate_kernels_at_one_row(cuda, n, layout, name, route):
+    """K2 (normalized, with carry, raw) and K6 at M = 1 on a contiguous row
+    and on unsqueezed, expanded and length-1-strided views of the state,
+    parameters and carry: the plain version, fed the normals recovered from
+    the kernel's state deltas, gives its outputs to rtol 1e-5; K6 equals
+    K2-UC-SV raw at the same seed to 1e-5."""
+    rng = np.random.default_rng(30)
+    if name == "ucsv":
+        update, p = UCSV_UPDATE, rng.uniform(0.05, 0.5, 2)
+    else:
+        update, p = _instance(name, rng, 1)
+        p = p[0]
+    params = _as_row(torch.tensor(p, dtype=torch.float32, device=cuda), layout)
+    s = 3 if name == "ucsv" else update.n_normals
+    scale = np.array([1.0, 0.5, 0.5])[:s, None]
+    state = _as_row(torch.tensor(rng.standard_normal((s, n)) * scale, dtype=torch.float32,
+                                 device=cuda), layout)
+    y = torch.tensor(0.6, device=cuda)
+    seed = torch.tensor([97531], device=cuda)
+    if route == "k6":
+        before = ucsv_propagate_reweight.launches
+        got = ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], state)
+        assert ucsv_propagate_reweight.launches == before + 1
+        z = _recover_normals(name, params, state, got[0])
+        ref = ucsv_propagate_reweight_plain(y, params[:, 0], params[:, 1], state, z)
+        k2 = fused_elementwise_step(update, params, state, y, seed=seed, normalize=False)
+        for a, b in zip(got, k2):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        carry = None
+        if route == "carry":
+            a = 3.0 * rng.standard_normal(n)
+            carry = _as_row(torch.tensor(a - np.log(np.exp(a).sum()), dtype=torch.float32,
+                                         device=cuda), layout)
+        normalize = route != "raw"
+        got = fused_elementwise_step(update, params, state, y, seed=seed, carry_logw=carry,
+                                     normalize=normalize)
+        z = _recover_normals(name, params, state, got[0])
+        ref = fused_elementwise_step_plain(update, params, state, y, z, carry, normalize)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("m,n,name,route", [(8, 8192, "ucsv", "normalized"),
+                                          (8, 8192, "ucsv", "k6"), (8, 128, "lg1", "normalized"),
+                                          (8, 128, "lg1", "raw"), (1, 256, "lg1", "raw")])
+def test_propagate_kernels_at_the_bank_shapes(cuda, m, n, name, route):
+    """K2 and K6 at the banks' shapes of the smoothers and particle Gibbs
+    (the posterior mixture's and the pooled UC-SV chains' 8×8192, the pooled
+    LG chains' 8×128, the CSMC runs' 1×256), distinct parameters per row:
+    the plain version, fed the normals recovered from the kernel's state
+    deltas, gives its outputs to rtol 1e-5; K6 equals K2-UC-SV raw at the
+    same seed to 1e-5; the normals' moments within 5 standard errors of
+    their count."""
+    rng = np.random.default_rng(40 + m)
+    if name == "ucsv":
+        update, p = UCSV_UPDATE, rng.uniform(0.05, 0.5, (m, 2))
+    else:
+        update, p = _instance(name, rng, m)
+    params = torch.tensor(p, dtype=torch.float32, device=cuda)
+    s = 3 if name == "ucsv" else update.n_normals
+    scale = np.array([1.0, 0.5, 0.5])[:s, None]
+    state = torch.tensor(rng.standard_normal((m, s, n)) * scale, dtype=torch.float32, device=cuda)
+    y = torch.tensor(0.6, device=cuda)
+    seed = torch.tensor([24680], device=cuda)
+    if route == "k6":
+        got = ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], state)
+        z = _recover_normals(name, params, state, got[0])
+        ref = ucsv_propagate_reweight_plain(y, params[:, 0], params[:, 1], state, z)
+        k2 = fused_elementwise_step(update, params, state, y, seed=seed, normalize=False)
+        for a, b in zip(got, k2):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    else:
+        normalize = route != "raw"
+        got = fused_elementwise_step(update, params, state, y, seed=seed, normalize=normalize)
+        z = _recover_normals(name, params, state, got[0])
+        ref = fused_elementwise_step_plain(update, params, state, y, z, None, normalize)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    flat = z.reshape(z.shape[0], -1).double()
+    count = flat.shape[1]
+    assert flat.mean(1).abs().max().item() < 5 / np.sqrt(count)
+    assert (flat.var(1) - 1.0).abs().max().item() < 5 * np.sqrt(2 / count)
+
+
+@pytest.mark.parametrize("name", ["ucsv", "lg", "sv"])
+def test_csmc_slot0_log_weight_on_the_raw_route(cuda, name):
+    """CSMC's step on the card: the model's raw kernel route (K6 on UC-SV,
+    K2 raw on LG and SV) propagates every slot, then slot 0's state is the
+    reference and its raw log-weight g(y | ref) exactly as torch evaluates
+    it; the other slots' log-weights are the observation density at their
+    new states (to 1e-5); slot 0's ancestor is 0."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops.batched_filter import _draws
+    from sequential_monte_carlo_tpu_torch.ops.csmc import _MULTINOMIAL, _csmc_step_from_draws
+
+    models = {"ucsv": lambda: smc.ucsv_model(torch.tensor([0.2, 3.0, 0.3, 0.3], device=cuda)),
+              "lg": lambda: smc.lg_model(torch.tensor([0.5, 0.9, 0.8], device=cuda)),
+              "sv": lambda: smc.stochastic_volatility(device=cuda)}
+    bank = smc.broadcast_model(models[name]())
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 4096
+    x = bank.initial_distribution().sample(gen, (n,))
+    cloud = x.permute(1, 2, 0).contiguous()
+    log_w = torch.log_softmax(torch.randn((1, n), generator=gen, device=cuda), -1)
+    ref = x[5] + 0.1  # (1, dx): the one row's reference state
+    y = torch.tensor(2.9, device=cuda)
+    u, rest = _draws(gen, bank, 1, n, cuda, _MULTINOMIAL)
+    ref_log_g = bank.observation_distribution(ref).log_prob(y)  # g(y | ref), torch's
+    counts = (ucsv_propagate_reweight.launches, dict(fused_elementwise_step.instance_launches))
+    new, logw, anc = _csmc_step_from_draws(u, None, rest, bank, cloud, log_w, y, ref, ref_log_g)
+    if name == "ucsv":
+        assert ucsv_propagate_reweight.launches == counts[0] + 1
+    else:
+        key = ("lg1" if name == "lg" else "sv") + "_raw"
+        assert fused_elementwise_step.instance_launches[key] == counts[1].get(key, 0) + 1
+    assert torch.equal(new[:, :, 0], ref) and int(anc[0, 0]) == 0
+    assert torch.equal(logw[:, 0], ref_log_g)
+    dens = bank.observation_distribution(new.permute(2, 0, 1)).log_prob(y).T
+    torch.testing.assert_close(logw[:, 1:], dens[:, 1:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["bs", "as"])
+def test_particle_gibbs_on_the_card_reads_nothing_back(cuda, method):
+    """A short particle-Gibbs run on UC-SV on the card: θ, acceptance and
+    paths stay on the device, K6 runs once per CSMC step and K2-UC-SV once
+    per step of the initial filter."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    prior = prior_from_spec([("uniform", 0.0, 1.0), ("normal", 3.0, 2.0),
+                             ("uniform", 0.0, 2.0), ("uniform", 0.0, 2.0)], device=cuda)
+    rng = np.random.default_rng(1998)
+    y = torch.tensor(3.0 + np.cumsum(rng.normal(0, 0.3, 40)) + rng.normal(0, 0.5, 40),
+                     dtype=torch.float32, device=cuda)
+    k6, k2 = ucsv_propagate_reweight.launches, fused_elementwise_step.instance_launches["ucsv"]
+    res = smc.particle_gibbs(torch.Generator(device=cuda).manual_seed(0), smc.ucsv_model, prior,
+                             y, smc.PGConfig(n_particles=256, sweeps=5, chain=2, method=method))
+    assert ucsv_propagate_reweight.launches == k6 + 39 * 5
+    assert fused_elementwise_step.instance_launches["ucsv"] == k2 + 39
+    assert res.theta.device.type == "cuda" and res.theta.shape == (5, 4)
+    assert torch.isfinite(res.theta).all() and torch.isfinite(res.final_path).all()

@@ -2,8 +2,9 @@
 """Reference numbers of the JAX package for ``chip_smoke.py``'s posterior
 checks, computed on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/jax_reference.py [--run dt|apf_ucsv|apf_lg|ucsv_bank]
-                                                    [--seeds 8] [--m 512] [--n 1024]
+    JAX_PLATFORMS=cpu python tools/jax_reference.py
+        [--run dt|apf_ucsv|apf_lg|ucsv_bank|pg_ucsv|ffbs_ucsv|pg_lg] [--seeds 8]
+        [--m 512] [--n 1024]
 
 Each sampler run repeats one sampler over ``jax.random.key(0..seeds-1)`` and
 prints the mean of the runs' posterior means and their standard deviation:
@@ -24,6 +25,24 @@ prints the mean of the runs' posterior means and their standard deviation:
 on ``chip_smoke.ucsv_series`` (N=1024, T=241), bootstrap and APF, over the
 same keys, and prints per filter the pooled mean and variance of log Ẑ
 over seeds·M rows — ``UCSV_BANK_JAX``.
+
+``pg_ucsv`` runs ``particle_gibbs`` on UC-SV at
+``benchmarks/bench_pg.py``'s configuration (T=241, N=8192, 50 sweeps,
+chain=3, bench.py's prior, ``chip_smoke.ucsv_series``), methods "bs" and
+"as", over the keys, and prints per method the mean and standard deviation
+of the runs' θ-chain means after ``chip_smoke.PG_BURN`` sweeps, and their
+mean acceptance — ``PG_JAX``. ``ffbs_ucsv`` runs ``smoothed_marginals`` on
+UC-SV at θ = ``chip_smoke.JAX_MEAN`` (N=8192, the blocked backward pass) on
+``chip_smoke.ucsv_series`` over the keys, and prints the mean and standard
+deviation over the runs of the smoothed means averaged over
+``chip_smoke.window_means``' windows, and the mean and variance of the
+forward filter's log Ẑ — ``FFBS_JAX``. ``pg_lg`` runs ``particle_gibbs``
+on the linear-Gaussian model at ``tests/test_particle_gibbs.py``'s
+configuration (N=128, 400 sweeps, chain=3, the ``dt`` run's prior) on
+``chip_smoke.lg_series(60)``, and prints each run's θ-chain mean after 150
+sweeps, their spread over the seeds and the prior-IS oracle (100,000 prior
+draws weighted by the Kalman likelihood). None of the three takes
+``--m``/``--n``.
 """
 from __future__ import annotations
 
@@ -39,7 +58,25 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import sequential_monte_carlo_tpu as smc  # noqa: E402
-from chip_smoke import CHAIN, DT_CHAIN, DT_T, JAX_MEAN, T, lg_series, ucsv_series  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CHAIN,
+    DT_CHAIN,
+    DT_T,
+    FFBS_N,
+    JAX_MEAN,
+    PG_BURN,
+    PG_CHAIN,
+    PG_LG_BURN,
+    PG_LG_N,
+    PG_LG_SWEEPS,
+    PG_LG_T,
+    PG_N,
+    PG_SWEEPS,
+    T,
+    lg_series,
+    ucsv_series,
+    window_means,
+)
 from sequential_monte_carlo_tpu.ops.batched_filter import batched_log_likelihood  # noqa: E402
 
 
@@ -115,15 +152,93 @@ def ucsv_bank(seeds: int, m: int, n: int) -> None:
                           "logz_var": round(lz.var(ddof=1), 6)}), flush=True)
 
 
+def _report(key: str, rows: list) -> dict:
+    """Mean and standard deviation over the seeds of each row's ``key``."""
+    vals = np.asarray([r[key] for r in rows], np.float64)
+    return {f"{key}_mean": vals.mean(0).round(6).tolist(),
+            f"{key}_sd": vals.std(0, ddof=1).round(6).tolist()}
+
+
+def pg_ucsv(seeds: int) -> None:
+    """Particle Gibbs on UC-SV at bench_pg.py's configuration, per method."""
+    y = jnp.asarray(ucsv_series(T))
+    for method in ("bs", "as"):
+        cfg = smc.PGConfig(n_particles=PG_N, sweeps=PG_SWEEPS, chain=PG_CHAIN, method=method)
+        rows = []
+        for s in range(seeds):
+            t0 = time.perf_counter()
+            res = smc.particle_gibbs(jax.random.key(s), smc.ucsv_model, _ucsv_prior(), y, cfg)
+            th = np.asarray(res.theta, np.float64)
+            rows.append({"chain_mean": th[PG_BURN:].mean(0), "acc": float(res.acc_ratio)})
+            print(json.dumps({"run": "pg_ucsv", "method": method, "seed": s,
+                              "seconds": round(time.perf_counter() - t0, 2),
+                              "chain_mean": rows[-1]["chain_mean"].round(6).tolist(),
+                              "acc": round(rows[-1]["acc"], 4)}), flush=True)
+        print(json.dumps({"run": "pg_ucsv", "method": method, "n": PG_N, "T": T,
+                          "sweeps": PG_SWEEPS, "chain": PG_CHAIN, "burn": PG_BURN,
+                          "seeds": seeds, **_report("chain_mean", rows),
+                          **_report("acc", rows)}), flush=True)
+
+
+def ffbs_ucsv(seeds: int) -> None:
+    """FFBS marginals on UC-SV at θ = JAX_MEAN, N = FFBS_N."""
+    from sequential_monte_carlo_tpu.ops.smoothing import smoothed_marginals, smoothed_mean
+
+    model = smc.ucsv_model(jnp.asarray(JAX_MEAN, jnp.float32))
+    y = jnp.asarray(ucsv_series(T))
+    rows = []
+    for s in range(seeds):
+        t0 = time.perf_counter()
+        out = smoothed_marginals(jax.random.key(s), model, FFBS_N, y)
+        rows.append({"windows": window_means(np.asarray(smoothed_mean(out))),
+                     "log_z": float(out.log_z)})
+        print(json.dumps({"run": "ffbs_ucsv", "seed": s,
+                          "seconds": round(time.perf_counter() - t0, 2),
+                          "windows": rows[-1]["windows"].round(6).tolist(),
+                          "log_z": round(rows[-1]["log_z"], 6)}), flush=True)
+    lz = np.asarray([r["log_z"] for r in rows])
+    print(json.dumps({"run": "ffbs_ucsv", "n": FFBS_N, "T": T, "seeds": seeds,
+                      **_report("windows", rows),
+                      "log_z_mean": round(lz.mean(), 6),
+                      "log_z_var": round(lz.var(ddof=1), 6)}), flush=True)
+
+
+def pg_lg(seeds: int) -> None:
+    """Particle Gibbs on LG at the JAX test's configuration: the seeds'
+    chain means against the prior-IS oracle."""
+    y = jnp.asarray(lg_series(PG_LG_T))
+    theta = _lg_prior().sample(jax.random.key(77), (100_000,))
+    logz = jax.vmap(lambda m: smc.kalman_log_likelihood(m, y)[1])(jax.vmap(smc.lg_model)(theta))
+    oracle = np.asarray(jax.nn.softmax(logz) @ theta, np.float64)
+    cfg = smc.PGConfig(n_particles=PG_LG_N, sweeps=PG_LG_SWEEPS, chain=PG_CHAIN)
+    run = jax.jit(lambda k: smc.particle_gibbs(k, smc.lg_model, _lg_prior(), y, cfg).theta)
+    rows = []
+    for s in range(seeds):
+        th = np.asarray(run(jax.random.key(s)), np.float64)
+        rows.append({"chain_mean": th[PG_LG_BURN:].mean(0)})
+        off = np.abs(rows[-1]["chain_mean"] - oracle)
+        print(json.dumps({"run": "pg_lg", "seed": s,
+                          "chain_mean": rows[-1]["chain_mean"].round(6).tolist(),
+                          "within_0.3": bool(np.all(off < 0.3))}), flush=True)
+    print(json.dumps({"run": "pg_lg", "n": PG_LG_N, "T": PG_LG_T, "sweeps": PG_LG_SWEEPS,
+                      "seeds": seeds, "oracle": oracle.round(6).tolist(),
+                      **_report("chain_mean", rows)}), flush=True)
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--run", default="dt", choices=("dt", "apf_ucsv", "apf_lg", "ucsv_bank"))
+    p.add_argument("--run", default="dt",
+                   choices=("dt", "apf_ucsv", "apf_lg", "ucsv_bank", "pg_ucsv", "ffbs_ucsv",
+                            "pg_lg"))
     p.add_argument("--seeds", type=int, default=8)
     p.add_argument("--m", type=int, default=512)
     p.add_argument("--n", type=int, default=1024)
     args = p.parse_args()
     if args.run == "ucsv_bank":
         ucsv_bank(args.seeds, args.m, args.n)
+        return 0
+    if args.run in ("pg_ucsv", "ffbs_ucsv", "pg_lg"):
+        {"pg_ucsv": pg_ucsv, "ffbs_ucsv": ffbs_ucsv, "pg_lg": pg_lg}[args.run](args.seeds)
         return 0
     run = _runner(args.run, args.m, args.n)
     means = []

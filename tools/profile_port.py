@@ -8,7 +8,12 @@ T=100, chain=3) with (a) the systematic inner filter at every step and
 (b) the stratified one triggered at ESS < N/2; 512 parallel LG filters at θ*
 (config 3); online SMC² on UC-SV at 512 × 1024 (bench.py) and at the
 flagship 512 × 8192; the 512 × 1024 SMC² and the LG filters with the
-auxiliary particle filter inside — it runs the
+auxiliary particle filter inside; one θ's UC-SV filter_sequence at N=8192
+with a quantile summary, smoothed_marginals on UC-SV at N=8192 (the blocked
+backward pass), posterior_smoothed_paths (8 θ × 64 paths, N=8192, from a
+512-θ cloud at chip_smoke.JAX_MEAN), 10 sweeps of particle Gibbs on UC-SV at
+241 × 8192 ("bs" and "as"; chip_smoke.py runs 50) and 100 sweeps of the LG
+chain at T=60, N=128 — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
@@ -55,7 +60,39 @@ def _cells(torch):
             "smc2_ucsv_512x8192": lambda seed: cs.run_slice(torch, 8192, seed),
             "filters_lg_apf_512": filters(cs.APF),
             "smc2_ucsv_apf_512x1024": lambda seed: cs.run_apf_smc2(
-                torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed)}
+                torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed),
+            **_smoothing_cells(torch, smc, prior_from_spec)}
+
+
+def _smoothing_cells(torch, smc, prior_from_spec):
+    """The per-θ filter, smoother and particle-Gibbs cells (chip_smoke.py's
+    per_theta, smoothing and pg phases)."""
+    from sequential_monte_carlo_tpu_torch.analysis import weighted_quantile
+
+    y = cs.series(torch, "cuda")
+    ucsv = smc.ucsv_model(torch.tensor(cs.JAX_MEAN, device="cuda"))
+    cloud = torch.tensor(cs.JAX_MEAN, device="cuda").expand(cs.DT_M, 4).contiguous()
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+
+    def pg(model_fn, spec, ys, cfg):
+        prior = prior_from_spec(spec, device="cuda")
+        return lambda seed: smc.particle_gibbs(gen(seed), model_fn, prior, ys, cfg)
+
+    return {
+        "filter_sequence_ucsv_1x8192": lambda seed: smc.filter_sequence(
+            gen(seed), ucsv, cs.FFBS_N, y, summarize=lambda s: weighted_quantile(
+                s.particles[:, 0], torch.exp(s.log_weights), [0.05, 0.5, 0.95])),
+        "ffbs_ucsv_8192": lambda seed: smc.smoothed_marginals(gen(seed), ucsv, cs.FFBS_N, y),
+        "posterior_paths_8x8192": lambda seed: smc.posterior_smoothed_paths(
+            gen(seed), smc.ucsv_model, cloud, torch.zeros(cs.DT_M, device="cuda"), y, cs.FFBS_N,
+            n_theta=cs.MIX_THETA, n_paths=cs.MIX_PATHS),
+        **{f"pg_ucsv_{m}_241x8192_10sweeps": pg(smc.ucsv_model, cs.PRIOR_SPEC, y, smc.PGConfig(
+            n_particles=cs.PG_N, sweeps=10, chain=cs.PG_CHAIN, method=m)) for m in ("bs", "as")},
+        "pg_lg_60x128_100sweeps": pg(smc.lg_model, cs.LG_PRIOR_SPEC,
+                                     torch.tensor(cs.lg_series(cs.PG_LG_T), device="cuda"),
+                                     smc.PGConfig(n_particles=cs.PG_LG_N, sweeps=100,
+                                                  chain=cs.PG_CHAIN)),
+    }
 
 
 def _profile(torch, fn, seed: int) -> dict:
