@@ -111,7 +111,29 @@ Phases, one line each or more; any failure raises and exits non-zero:
      chain through particle_gibbs and 8 as one bank, pooled; on LG at
      the JAX test's configuration (T=60, N=128, 400 sweeps, chain=3), 8
      chains as one bank, pooled against the Kalman prior-IS oracle; iterated
-     CSMC (N=256, 120 sweeps, both methods) against RTS.
+     CSMC (N=256, 120 sweeps, both methods) against RTS;
+ 23. dsl — UC-SV written with the model DSL (ssm_model, no fused kernel: its
+     propagate is plain tensor code) in online SMC² at the slice's
+     configuration (K1 at every inner step of the schedule, no K2 or K6),
+     posterior against JAX_MEAN; 512 DSL UC-SV filters at θ = JAX_MEAN,
+     bootstrap and APF (K1), against UCSV_BANK_JAX; density-tempered SMC on
+     the dt configuration with the AR(1) declared by linear_ssm_model (K1 +
+     K2-LG), against DT_JAX_MEAN; 512 filters of the AR(1) written with
+     ssm_model, systematic (K1) and stratified at ESS < N/2 (K3), against the
+     Kalman log Z; the wall per inner step, DSL against native;
+ 24. inflation — the port's inflation example at --full sizes (UC
+     512×1024 chain 3, UC-SV 512×8192 chain 5) without figures: launch
+     counts, θ̂ of both models against the JAX package's 8-seed means, the
+     UC model's filtered quartiles and FFBS trend at θ̂ against the Kalman
+     filter and smoother; K1 C=1 and K2-LG at the UC posterior mixture's
+     8×1024 against their plain versions; the loader, rejuvenations and
+     walls of each part;
+ 25. utils — a UC-SV run_segmented run at 512×1024 split at t=120 through
+     save_checkpoint/load_checkpoint (a file, the generator's state
+     included) ends bitwise equal to two uninterrupted runs, which agree
+     bitwise, with the restored cloud's storage planar; debug_nans raises
+     on a NaN made on the card, naming the op; profiling.trace writes a
+     trace holding K1's and K2's launches.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -174,6 +196,25 @@ APF = ("systematic", 1.0, None, "apf")  # PFConfig(*APF)
 # (mean, variance, rows) per filter (tools/jax_reference.py --run ucsv_bank).
 UCSV_BANK_JAX = {"bootstrap": (-262.597221, 0.676004, 2048),
                  "apf": (-263.338226, 1.226307, 2048)}
+
+# The inflation phase: θ̂ of the port's inflation example against the JAX
+# package's (examples/inflation_example.py's configuration on the vendored PCE
+# series, ess_threshold 0.5) on the CPU over seeds jax.random.key(0..7): the
+# mean of the 8 runs' posterior means and their standard deviation, UC at
+# 512×1024 chain 3 (tools/jax_reference.py --run inflation_uc) and UC-SV at
+# 512×1024 chain 5 (--run inflation_ucsv; the example runs N=8192: SMC² with
+# PMMH moves targets the same posterior at every N, and its spread at N=8192
+# is no wider than at 1024). Held as the slice's, within TOL_Z·sd·√(1 + 1/8).
+INFLATION_UC_JAX_MEAN = [1.525395, 0.198121, 0.050582]
+INFLATION_UC_JAX_SD = [0.309163, 0.033618, 0.017842]
+INFLATION_UCSV_JAX_MEAN = [0.412027, 2.001368, 0.342319, 0.387831]
+INFLATION_UCSV_JAX_SD = [0.020751, 0.326096, 0.066759, 0.069967]
+# The UC model at θ̂ against the exact filter and smoother of its target: the
+# mean over t of |PF − Kalman| in sd units, of the filtered quartiles and of
+# the FFBS smoothed trend, as tests/test_torch_examples.py holds them at
+# N=512 (about twice the largest of 8 CPU seeds' there).
+INFLATION_FILTER_TOL, INFLATION_SMOOTH_TOL = 0.2, 0.15
+INFLATION_Z_QUARTILES = np.array([-0.6744897501960817, 0.0, 0.6744897501960817])
 
 # The exchange phase: the slice's UC-SV run with the exchange step armed.
 # acc_threshold 1.1 fires it after every rejuvenation while N ≤ 4096, so N
@@ -794,16 +835,17 @@ def expect_counts(phase: str, counts, expected):
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
 
 
-def run_dt(torch, inner, seed: int):
-    """Density-tempered SMC on LG at config 4, through the public entry
-    points. Returns (state, trace, wall-clock s, launch counts)."""
+def run_dt(torch, inner, seed: int, model_fn=None):
+    """Density-tempered SMC on LG at config 4 (``model_fn``, lg_model unless
+    given), through the public entry points. Returns (state, trace,
+    wall-clock s, launch counts)."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 
     prior = prior_from_spec(LG_PRIOR_SPEC, device="cuda")
     cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5,
                         inner=smc.PFConfig(*inner))
-    sampler = smc.SMC2(smc.lg_model, prior, cfg)
+    sampler = smc.SMC2(model_fn or smc.lg_model, prior, cfg)
     y = torch.tensor(lg_series(), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
@@ -815,24 +857,25 @@ def run_dt(torch, inner, seed: int):
     return state, trace, wall, launch_counts()
 
 
-def check_dt(torch, label, inner, k_resample, k_propagate):
+def check_dt(torch, label, inner, k_resample, k_propagate, model_fn=None, phase="dt"):
     """One checked run (seed 0), then a warm run of seed 1, timed."""
     import sequential_monte_carlo_tpu_torch as smc
 
-    state, trace, wall, counts = run_dt(torch, inner, SEED)
+    state, trace, wall, counts = run_dt(torch, inner, SEED, model_fn)
     moves = sum(stage.xi < 1.0 for stage in trace)
     expected = (DT_T - 1) * (1 + DT_CHAIN * moves)
-    expect_counts(f"dt ({label})", counts, {k_resample: expected, k_propagate: expected})
+    expect_counts(f"{phase} ({label})", counts, {k_resample: expected, k_propagate: expected})
     mean = smc.expected_parameters(state).cpu().numpy()
     tol = TOL_Z * np.asarray(DT_JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
     if not np.all(np.abs(mean - np.asarray(DT_JAX_MEAN)) <= tol):
-        raise AssertionError(f"dt ({label}): posterior mean {mean} vs JAX {DT_JAX_MEAN} beyond {tol}")
-    say("dt", run=label, inner=list(inner), shape=f"{DT_M}x{DT_N}", T=DT_T, chain=DT_CHAIN,
+        raise AssertionError(f"{phase} ({label}): posterior mean {mean} vs JAX {DT_JAX_MEAN}"
+                             f" beyond {tol}")
+    say(phase, run=label, inner=list(inner), shape=f"{DT_M}x{DT_N}", T=DT_T, chain=DT_CHAIN,
         wall_s=round(wall, 4), schedule=[round(s.xi, 5) for s in trace], rejuvenations=moves,
         launches=expected, posterior_mean=np.round(mean, 5).tolist(), jax_mean=DT_JAX_MEAN,
         tolerance=np.round(tol, 5).tolist())
-    _, trace, wall2, _ = run_dt(torch, inner, SEED + 1)
-    say("dt", run=label, seed=SEED + 1, warm_wall_s=round(wall2, 4), stages=len(trace))
+    _, trace, wall2, _ = run_dt(torch, inner, SEED + 1, model_fn)
+    say(phase, run=label, seed=SEED + 1, warm_wall_s=round(wall2, 4), stages=len(trace))
     return counts
 
 
@@ -2136,6 +2179,278 @@ def check_pg(torch):
     return total
 
 
+# -- phases 23 to 25: the DSL, the inflation example, the utils ---------------
+
+def ucsv_dsl(smc, torch):
+    """UC-SV written with ``ssm_model`` in ucsv_model's θ layout (γ shared,
+    x0, log σε0, log ση0; sequential_monte_carlo_tpu/models/ucsv.py:141-152):
+    no fused kernel, so the filters propagate it by plain tensor code."""
+    normal = smc.Normal
+    return smc.ssm_model(
+        "ucsv_dsl", params=("gamma", "x0", "lse0", "lsn0"),
+        init=lambda p: dict(x=normal(p["x0"], torch.exp(0.5 * p["lse0"])),
+                            lse=normal(p["lse0"], p["gamma"]),
+                            lsn=normal(p["lsn0"], p["gamma"])),
+        transition=lambda p, prev: dict(x=normal(prev["x"], torch.exp(0.5 * prev["lse"])),
+                                        lse=normal(prev["lse"], p["gamma"]),
+                                        lsn=normal(prev["lsn"], p["gamma"])),
+        observe=lambda p, s: normal(s["x"], torch.exp(0.5 * s["lsn"])))
+
+
+def ar1_dsl(smc, torch):
+    """lg_model's AR(1) written with ``ssm_model`` (no fused kernel)."""
+    normal = smc.Normal
+    return smc.ssm_model(
+        "ar1_dsl", params=("a", "q", "r"),
+        init=lambda p: dict(x=normal(0.0, 1.0)),
+        transition=lambda p, prev: dict(x=normal(p["a"] * prev["x"], torch.sqrt(p["q"]))),
+        observe=lambda p, s: normal(s["x"], torch.sqrt(p["r"])))
+
+
+def ar1_linear(smc):
+    """lg_model's AR(1) declared with ``linear_ssm_model``: the port's
+    LinearGaussianModel, with K2-LG and the Kalman filter."""
+    return smc.linear_ssm_model(
+        "ar1_linear", params=("a", "q", "r"), A=lambda p: p["a"], B=lambda p: 1.0,
+        Q=lambda p: p["q"], R=lambda p: p["r"], x0=lambda p: 0.0, sigma0=lambda p: 1.0)
+
+
+def check_dsl(torch, native_ms_per_step: float, kind: str):
+    """(a) online SMC² on UC-SV written with the DSL at the slice's
+    configuration (512×1024, T=241, chain=5, bench.py's prior and series):
+    K1 at every inner step of the schedule, no propagate kernel, posterior
+    mean against JAX_MEAN as the slice's; (b) 512 DSL UC-SV filters at θ =
+    JAX_MEAN, bootstrap and APF (K1 on the cloud with the lookahead plane),
+    log Z against UCSV_BANK_JAX; (c) density-tempered SMC on the dt phase's
+    configuration with the AR(1) declared by linear_ssm_model (K1 + K2-LG),
+    posterior against DT_JAX_MEAN; (d) 512 filters of the AR(1) written with
+    ssm_model, systematic (K1) and stratified at ESS < N/2 (K3), log Z
+    against the Kalman filter's. The wall per inner step of (a) is printed
+    beside the native UC-SV slice's (``native_ms_per_step``) and the card's
+    name. Returns the runs' launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    # (a) SMC² on the DSL UC-SV
+    y = series(torch, "cuda")
+    cfg = smc.SMCConfig(n_particles=1024, n_theta=512, chain=CHAIN, ess_threshold=0.5,
+                        inner=smc.PFConfig("systematic", 1.0))
+    sampler = smc.SMC2(ucsv_dsl(smc, torch), prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+    (state, infos), wall, counts = _counted(
+        torch, lambda: sampler.run(torch.Generator(device="cuda").manual_seed(SEED), y))
+    steps = _schedule(infos, CHAIN, [])
+    expect_counts("dsl (ucsv smc2)", counts, {"resample_count": steps})
+    total = counts
+    mean = smc.expected_parameters(state).cpu().numpy()
+    tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    if not (math.isfinite(state.ess.item()) and np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol)):
+        raise AssertionError(f"dsl (ucsv smc2): posterior mean {mean} vs JAX {JAX_MEAN}"
+                             f" beyond {tol}")
+    say("dsl", model="ucsv via ssm_model", shape="512x1024", T=T, chain=CHAIN,
+        wall_s=round(wall, 4), rejuvenations=int(infos.rejuvenated.sum()), launches=steps,
+        posterior_mean=np.round(mean, 5).tolist(), jax_mean=JAX_MEAN,
+        tolerance=np.round(tol, 5).tolist())
+    say("dsl", wall_ms_per_inner_step=round(1e3 * wall / steps, 5),
+        native_wall_ms_per_inner_step=round(native_ms_per_step, 5),
+        ratio=round(1e3 * wall / steps / native_ms_per_step, 3), card=repr(kind))
+
+    # (b) 512 DSL UC-SV filters, bootstrap and APF
+    models = ucsv_dsl(smc, torch)(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
+    for i, alg in enumerate(("bootstrap", "apf")):
+        lz, wall, counts = run_filters(torch, models, y, ("systematic", 1.0, None, alg), 40 + i)
+        expect_counts(f"dsl (ucsv bank, {alg})", counts, {"resample_count": T - 1})
+        total = _add(total, counts)
+        mean, var = lz.mean().item(), lz.var().item()
+        ref_mean, ref_var, ref_rows = UCSV_BANK_JAX[alg]
+        se = math.sqrt(var / DT_M + ref_var / ref_rows)
+        if abs(mean - ref_mean) > 5 * se:
+            raise AssertionError(f"dsl (ucsv bank, {alg}): mean log Z {mean} vs JAX {ref_mean}"
+                                 f" beyond 5·{se}")
+        say("dsl", model="ucsv via ssm_model", filter=alg, rows=DT_M, n=DT_N, T=T,
+            wall_s=round(wall, 4), logz_mean=round(mean, 5), logz_var=round(var, 5),
+            jax_logz_mean=ref_mean, five_se=round(5 * se, 5), launches=T - 1)
+
+    # (c) the AR(1) declared by linear_ssm_model in density-tempered SMC
+    total = _add(total, check_dt(torch, "linear_ssm_model", ("systematic", 1.0),
+                                 "resample_count", "fused_propagate_lg1", ar1_linear(smc), "dsl"))
+
+    # (d) 512 filters of the AR(1) written with ssm_model
+    y = torch.tensor(lg_series(), device="cuda")
+    a, q, r = LG_THETA
+    target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
+    kz = smc.kalman_log_likelihood(target, y)[1].item()
+    models = ar1_dsl(smc, torch)(torch.tensor(LG_THETA, device="cuda").expand(DT_M, 3))
+    for i, (label, inner, kernel) in enumerate((
+            ("systematic", ("systematic", 1.0), "resample_count"),
+            ("stratified ess<N/2", ("stratified", 0.5), "resample_sorted"))):
+        lz, wall, counts = run_filters(torch, models, y, inner, 50 + i)
+        expect_counts(f"dsl (ar1 {label})", counts, {kernel: DT_T - 1})
+        check_delta(f"ar1 via ssm_model, {label}", lz, kz, wall, DT_T - 1, "dsl")
+        total = _add(total, counts)
+    return total
+
+
+def check_inflation(torch, gen, k1, k2i):
+    """The port's inflation example at --full sizes (UC 512×1024 chain 3,
+    UC-SV 512×8192 chain 5) without figures, through its public functions:
+    launch counts (each model's online schedule plus T − 1 steps each for
+    the filter at θ̂, the FFBS forward pass and the posterior mixture's
+    8-row bank); θ̂ of both models against the JAX package's 8-seed means
+    (INFLATION_*_JAX); at the UC θ̂ the filtered quartiles against the
+    Kalman filter's Gaussian quartiles and the FFBS smoothed trend against
+    kalman_smooth, within the Monte-Carlo bounds of
+    tests/test_torch_examples.py; then K1 (C=1) and K2-LG dx=1 at the UC
+    posterior mixture's 8×1024 against their plain versions. Prints the
+    loader, the rejuvenations and the walls of each part. Returns the launch
+    counts."""
+    import tempfile
+
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.examples import inflation as ex
+
+    outdir = tempfile.mkdtemp(prefix="smc_inflation_")
+    out, wall, counts = _counted(torch, lambda: ex.run_example(ex.FULL_SIZES, outdir,
+                                                               figures=False, device="cuda"))
+    sched = {name: _schedule(out[name]["online"]["infos"], ex.FULL_SIZES[name][2], [])
+             for name in ("uc", "ucsv")}
+    expect_counts("inflation", counts, {
+        "resample_count": sched["uc"] + sched["ucsv"] + 6 * (T - 1),
+        "fused_propagate_lg1": sched["uc"] + 3 * (T - 1),
+        "fused_propagate_ucsv": sched["ucsv"] + 3 * (T - 1)})
+    for name, ref_mean, ref_sd in (("uc", INFLATION_UC_JAX_MEAN, INFLATION_UC_JAX_SD),
+                                   ("ucsv", INFLATION_UCSV_JAX_MEAN, INFLATION_UCSV_JAX_SD)):
+        res = out[name]
+        th = res["online"]["theta_hat"].cpu().numpy()
+        tol = TOL_Z * np.asarray(ref_sd) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+        if not np.all(np.abs(th - np.asarray(ref_mean)) <= tol):
+            raise AssertionError(f"inflation ({name}): θ̂ {th} vs JAX {ref_mean} beyond {tol}")
+        n, m, chain = ex.FULL_SIZES[name]
+        say("inflation", model=name, shape=f"{m}x{n}", chain=chain, loader=out["loader"],
+            rejuvenations=res["online"]["rejuvenations"], inner_steps=sched[name],
+            theta_hat=np.round(th, 5).tolist(), jax_mean=ref_mean,
+            tolerance=np.round(tol, 5).tolist(), online_wall_s=round(res["online"]["wall_s"], 4),
+            filter_wall_s=round(res["pf"]["filter_wall_s"], 4),
+            ffbs_wall_s=round(res["pf"]["ffbs_wall_s"], 4),
+            postmix_wall_s=round(res["postmix"]["wall_s"], 4), logz_at_theta_hat=round(
+                res["pf"]["logz"], 4))
+    say("inflation", total_wall_s=round(wall, 4))
+
+    # the UC model at θ̂ against the exact filter and smoother of its target
+    x0, se, sn = out["uc"]["online"]["theta_hat"].tolist()
+    target = smc.univariate_linear_gaussian(1.0, 1.0, se, sn, x0=x0, sigma0=0.0)
+    y = ex.load_pce("cuda")[1]
+    ms, ps, _, _ = smc.kalman_filter(target, y)
+    m_, s_ = ms[:, 0].cpu().numpy(), torch.sqrt(ps[:, 0, 0]).cpu().numpy()
+    pf = out["uc"]["pf"]
+    filt = np.abs(pf["xq"] - (m_[:, None] + s_[:, None] * INFLATION_Z_QUARTILES)) / s_[:, None]
+    rm, rp = smc.kalman_smooth(target, y)
+    smooth = np.abs(pf["trend"] - rm[:, 0].cpu().numpy()) / torch.sqrt(rp[:, 0, 0]).cpu().numpy()
+    if not (filt.mean() < INFLATION_FILTER_TOL and smooth.mean() < INFLATION_SMOOTH_TOL):
+        raise AssertionError(f"inflation (uc at θ̂): mean |error| {filt.mean()} filtered,"
+                             f" {smooth.mean()} smoothed (sd units) beyond"
+                             f" {INFLATION_FILTER_TOL}, {INFLATION_SMOOTH_TOL}")
+    say("inflation", model="uc at θ̂ vs Kalman", n=ex.FULL_SIZES["uc"][0],
+        filtered_quartiles_mean_abs_err_sd=round(float(filt.mean()), 5),
+        smoothed_trend_mean_abs_err_sd=round(float(smooth.mean()), 5),
+        bounds=[INFLATION_FILTER_TOL, INFLATION_SMOOTH_TOL])
+
+    # K1 C=1 and K2-LG dx=1 at the UC posterior mixture's bank shape
+    key = f"{MIX_THETA}x{ex.FULL_SIZES['uc'][0]}"
+    res = check_k1(torch, [(MIX_THETA, ex.FULL_SIZES["uc"][0], 1)], gen)
+    k1[f"c1_{key}"] = res[f"c1_{key}"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], res["max_abs_err"])
+    lg = smc.uc_model(out["uc"]["online"]["state"].theta[:MIX_THETA])
+    state = torch.randn((MIX_THETA, 1, ex.FULL_SIZES["uc"][0]), generator=gen, device="cuda")
+    moments = _k2_case(torch, gen, "lg1", lg, k2i["lg1"], state, torch.tensor(2.0, device="cuda"),
+                       f"inflation K2 lg1 {key}", key)
+    say("inflation", shape=key, k1_c1="bitwise", k2_lg1="within 1e-5",
+        k1_c1_ms=round(k1[f"c1_{key}"][0], 5), k2_lg1_ms=round(k2i["lg1"][key][0], 5),
+        k2_lg1_normals=moments)
+    return counts
+
+
+def check_utils(torch):
+    """(a) Checkpoint: two uninterrupted run_segmented runs of the UC-SV
+    slice at 512×1024 (seed SEED + 2) agree bitwise; a third, split at t=120
+    by save_checkpoint/load_checkpoint (a file, the generator's state
+    included, the state read back against a fresh template) and resumed,
+    ends bitwise equal to them (θ, log ω, log Z, particles, log-weights),
+    and the restored cloud's storage is planar. (b) debug_nans raises on a
+    NaN made on the card and names the op. (c) profiling.trace of 512 LG
+    filters (K1 + K2-LG) writes a trace holding K1's and K2's launches.
+    Returns the runs' launch counts."""
+    import tempfile
+
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from sequential_monte_carlo_tpu_torch.utils.debug import debug_nans
+    from sequential_monte_carlo_tpu_torch.utils.profiling import trace
+
+    y = series(torch, "cuda")
+    cfg = smc.SMCConfig(n_particles=1024, n_theta=512, chain=CHAIN, ess_threshold=0.5)
+    sampler = smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+    fields = ("theta", "log_omega", "log_z", "particles", "log_w")
+    tmp = tempfile.mkdtemp(prefix="smc_utils_")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def whole():
+        return sampler.run_segmented(gen(), y, segment_size=16)[0]
+
+    def split():
+        g = gen()
+        mid, _ = sampler.run_segmented(g, y, segment_size=16, max_steps=119)
+        path = f"{tmp}/mid.pt"
+        save_checkpoint(path, mid, g)
+        g2 = torch.Generator(device="cuda").manual_seed(987)
+        back = load_checkpoint(path, sampler.init(torch.Generator(device="cuda").manual_seed(1),
+                                                  y), generator=g2)
+        if not back.particles.transpose(1, 2).is_contiguous() or back.t != 120:
+            raise AssertionError("utils: the restored state lost its planar storage or its t")
+        return sampler.run_segmented(g2, y, segment_size=16, state=back)[0]
+
+    (a, b, c), wall, counts = _counted(torch, lambda: (whole(), whole(), split()))
+    same = {f: torch.equal(getattr(a, f), getattr(b, f)) for f in fields}
+    if not all(same.values()):
+        raise AssertionError(f"utils: two uninterrupted runs at one seed differ: {same}")
+    resumed = {f: torch.equal(getattr(a, f), getattr(c, f)) for f in fields}
+    if not all(resumed.values()):
+        raise AssertionError(f"utils: the checkpointed resume differs: {resumed}")
+    say("utils", checkpoint="run_segmented 512x1024 split at t=120, resumed bitwise",
+        uninterrupted_runs_bitwise=True, planar=True, wall_s_three_runs=round(wall, 4))
+
+    x = torch.tensor([1.0, -1.0], device="cuda")
+    try:
+        with debug_nans():
+            torch.log(x)
+    except FloatingPointError as e:
+        if "log" not in str(e):
+            raise AssertionError(f"utils: debug_nans raised without naming the op: {e}")
+        say("utils", debug_nans=repr(str(e)))
+    else:
+        raise AssertionError("utils: debug_nans let a NaN from the card through")
+
+    models = smc.lg_model(torch.tensor(LG_THETA, device="cuda").expand(DT_M, 3))
+    yl = torch.tensor(lg_series(10), device="cuda")
+    reset_counts()
+    with trace(f"{tmp}/trace"):
+        smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(3), models, DT_N,
+                                   DT_M, yl)
+        torch.cuda.synchronize()
+    counts = _add(counts, launch_counts())
+    with open(f"{tmp}/trace/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels) for k in ("resample_count", "step_kernel")}
+    if not all(v >= 9 for v in found.values()):
+        raise AssertionError(f"utils: the trace holds {found} launches of K1 and K2, not 9 each")
+    say("utils", trace_kernel_events=len(kernels), k1_events=found["resample_count"],
+        k2_events=found["step_kernel"])
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2151,6 +2466,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say("device", name=repr(kind), count=torch.cuda.device_count(), nvidia_smi=repr(smi),
         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t_phase, phase_s = time.perf_counter(), {}
+
+    def mark(name: str) -> None:  # the seconds each group of phases took
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase, 2)
+        t_phase = now
 
     # -- 2. build
     from sequential_monte_carlo_tpu_torch.kernels import _build
@@ -2171,6 +2494,8 @@ def main() -> int:
     k2 = check_k2(torch, shapes + doubling, gen)
     k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1)], gen)
     k2i = check_k2_instances(torch, shapes, gen)
+
+    mark("build_and_kernels")
 
     # -- 7. the UC-SV slice, through the public entry points
     reset_counts()
@@ -2193,8 +2518,9 @@ def main() -> int:
         rejuvenations=len(rejuv_t), rejuv_t=rejuv_t, launches=expected,
         ess=round(ess, 3), posterior_mean=np.round(mean, 5).tolist(),
         jax_mean=JAX_MEAN, tolerance=np.round(tol, 5).tolist())
-    _, _, wall2 = run_slice(torch, 1024, SEED + 1)
+    _, infos2, wall2 = run_slice(torch, 1024, SEED + 1)
     say("slice", shape="512x1024", run="second (warm)", wall_s=round(wall2, 4))
+    native_ms_per_step = 1e3 * wall2 / _schedule(infos2, CHAIN, [])
     reset_counts()
     fstate, finfos, fwall = run_slice(torch, 8192, SEED)
     flagship_counts = launch_counts()
@@ -2211,6 +2537,8 @@ def main() -> int:
         posterior_mean=np.round(smc.expected_parameters(fstate).cpu().numpy(), 5).tolist())
     slice_counts = {k: v + flagship_counts[k] for k, v in slice_counts.items()}
 
+    mark("slice")
+
     # -- 8. density-tempered SMC on LG, two inner filters
     dt_counts = check_dt(torch, "a", ("systematic", 1.0), "resample_count", "fused_propagate_lg1")
     counts_b = check_dt(torch, "b", ("stratified", 0.5), "resample_sorted",
@@ -2219,16 +2547,24 @@ def main() -> int:
     oracle, oracle_ess = kalman_is_oracle(torch)
     say("dt", kalman_prior_is_mean=np.round(oracle, 5).tolist(), is_ess=round(oracle_ess, 1))
 
+    mark("dt")
+
     # -- 9. parallel filters
     filter_counts = check_filters(torch)
+
+    mark("filters")
 
     # -- 10 to 12. K6, K2's route without the normalize, K3 on K7–K9's grids
     k6 = check_k6(torch, shapes, gen)
     k2r = check_k2_instances(torch, shapes, gen, names=("ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw"))
     check_k3_grids(torch, gen, k3)
 
+    mark("k6_k2raw_k3grids")
+
     # -- 13. the auxiliary particle filter
     apf_counts = check_apf(torch)
+
+    mark("apf")
 
     # -- 14 to 18. the exchange step, large N, K2-LG at dx ≥ 3, IBIS, the
     # inner filter's other routes
@@ -2238,6 +2574,8 @@ def main() -> int:
     check_ibis(torch)
     routes_counts = check_routes(torch)
 
+    mark("exchange_to_routes")
+
     # -- 19 to 22. the kernels at one row, the per-θ filters, the smoothers,
     # particle Gibbs
     check_one_row(torch, gen, k1, k3, k2, k2i, k2r, k6)
@@ -2246,11 +2584,22 @@ def main() -> int:
     smoothing_counts = check_smoothing(torch, fstate)
     pg_counts = check_pg(torch)
 
+    mark("one_row_to_pg")
+
+    # -- 23 to 25. the DSL, the inflation example, the utils
+    dsl_counts = check_dsl(torch, native_ms_per_step, kind)
+    inflation_counts = check_inflation(torch, gen, k1, k2i)
+    utils_counts = check_utils(torch)
+
+    mark("dsl_inflation_utils")
+
     # launches of each kernel over the main paths (slice at 512×1024 and
     # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
-    # per_theta, smoothing, pg), each read just after its run
+    # per_theta, smoothing, pg, dsl, inflation, utils), each read just after
+    # its run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
-            lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts)
+            lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts,
+            dsl_counts, inflation_counts, utils_counts)
     launches = {k: sum(run[k] for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",
@@ -2301,6 +2650,7 @@ def main() -> int:
     for inst in LG_DX_INSTANCES:
         kernels.append(entry(f"fused_propagate_{inst}", "triton", f"{pkg}/kernels/propagate.py",
                              propagate, k2dx[inst]))
+    say("timing", seconds=phase_s, total=round(sum(phase_s.values()), 2))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@
 Same layer map as the JAX package, which stays the reference it is tested
 against:
   distributions/  L0  distribution kit
-  models/         L1  state-space models (UC-SV, linear-Gaussian, SV)
+  models/         L1  the SSM protocol, state-space models (UC-SV,
+                      linear-Gaussian, SV) and the declarative DSL
   ops/            L2  weight math, resamplers, the batched particle filter
                       and the per-θ filters (the batched one at one row),
                       the Kalman filter and smoother, the particle smoothers,
@@ -13,8 +14,10 @@ against:
                       density-tempered SMC, with PMMH rejuvenation; particle
                       Gibbs
   analysis/       L4  posterior summaries (weighted quantiles, SMC² and IBIS
-                      summaries)
+                      summaries) and plotting (matplotlib, imported on use)
   kernels/        L5  hand-written Hopper kernels (CUDA C++ and Triton)
+  utils/              checkpoints, the CSV loader, debug and profiling helpers
+  examples/           the inflation and linear-Gaussian examples
   interop.py          state and models carried across from the JAX package
 
 The inner filter is the bootstrap, guided or auxiliary particle filter, with
@@ -22,7 +25,7 @@ any of the JAX package's resampling schemes, at every step or when the ESS
 falls below a threshold. Entry points run on the device of the data they are
 given. Nothing here imports JAX.
 """
-from . import analysis, distributions, models, ops, samplers
+from . import analysis, distributions, models, ops, samplers, utils
 from .distributions import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

@@ -4,9 +4,8 @@ TruncatedNormal, Uniform, Product and TupleProduct.
 
 Each distribution is a frozen dataclass of tensors with
 ``sample(generator, sample_shape)``, ``log_prob(x)``, ``in_support(x)`` and
-``mean()`` (and ``variance()`` where the JAX package has it; ``quantile(p)``
-on ``Normal``, which the analysis summaries take) that broadcast
-over batch shapes, as in the JAX package. Draws come from an explicit
+``mean()``, ``quantile(p)`` (and ``variance()`` where the JAX package has
+it) that broadcast over batch shapes, as in the JAX package. Draws come from an explicit
 ``torch.Generator`` on the parameters' device (the counterpart of a
 ``jax.random`` key). Conventions match Distributions.jl: ``Normal``'s
 ``scale`` is the standard deviation.
@@ -20,6 +19,12 @@ import torch
 from ..utils.struct import struct
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _as_like(p, like: torch.Tensor) -> torch.Tensor:
+    """Probabilities ``p`` (a number, an array or a tensor) as a tensor of
+    ``like``'s dtype and device."""
+    return torch.as_tensor(p, dtype=like.dtype, device=like.device)
 
 
 def _std_pdf(t):
@@ -58,8 +63,7 @@ class Normal:
         return (self.scale**2).expand(self.batch_shape)
 
     def quantile(self, p):
-        return self.loc + self.scale * torch.special.ndtri(torch.as_tensor(p, dtype=self.loc.dtype,
-                                                                          device=self.loc.device))
+        return self.loc + self.scale * torch.special.ndtri(_as_like(p, self.loc))
 
 
 @struct
@@ -90,6 +94,9 @@ class LogNormal:
 
     def mean(self):
         return torch.exp(self.mu + 0.5 * self.sigma**2)
+
+    def quantile(self, p):
+        return torch.exp(self.mu + self.sigma * torch.special.ndtri(_as_like(p, self.mu)))
 
 
 @struct
@@ -147,6 +154,13 @@ class TruncatedNormal:
         m1 = (_std_pdf(a) - _std_pdf(b)) / z
         return self.scale**2 * (1.0 + (tphi(a) - tphi(b)) / z - m1 * m1)
 
+    def quantile(self, p):
+        """Inverse CDF loc + σ·Φ⁻¹(Φ(α) + p·Z), clipped as the sampler
+        clips, so that ``sample`` is ``quantile`` of a uniform."""
+        fa, fb = self._cdf_bounds()
+        q = torch.clamp(fa + _as_like(p, self.loc) * (fb - fa), 1e-7, 1.0 - 1e-7)
+        return self.loc + self.scale * torch.special.ndtri(q)
+
 
 @struct
 class Uniform:
@@ -175,6 +189,9 @@ class Uniform:
     def mean(self):
         return 0.5 * (self.low + self.high)
 
+    def quantile(self, p):
+        return self.low + (self.high - self.low) * _as_like(p, self.low)
+
 
 @struct
 class Product:
@@ -198,6 +215,9 @@ class Product:
 
     def mean(self):
         return self.base.mean()
+
+    def quantile(self, p):
+        return self.base.quantile(p)
 
 
 @struct
@@ -229,6 +249,9 @@ class TupleProduct:
     def mean(self):
         return torch.stack([c.mean().expand(self.batch_shape) for c in self.components],
                            dim=-1)
+
+    def quantile(self, p):
+        return torch.stack([c.quantile(p) for c in self.components], dim=-1)
 
 
 def product_distribution(dists) -> TupleProduct:

@@ -1,17 +1,40 @@
-"""Ancestral simulation (L1) — counterpart of
-``sequential_monte_carlo_tpu/models/base.py::simulate`` — and the lift of
-one θ's model to a θ-cloud of identical rows.
+"""The state-space-model protocol and ancestral simulation (L1) —
+counterpart of ``sequential_monte_carlo_tpu/models/base.py`` — and the lift
+of one θ's model to a θ-cloud of identical rows.
 
 A model is anything with ``initial_distribution()``,
-``transition_distribution(x)`` and ``observation_distribution(x)``; states
-carry a trailing state axis. Where the JAX package scans with split keys, the
-port loops over T drawing from one ``torch.Generator``.
+``transition_distribution(x)`` and ``observation_distribution(x)``
+(:class:`StateSpaceModel`); states carry a trailing state axis. Where the JAX
+package scans with split keys, the port loops over T drawing from one
+``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import torch
+
+
+@runtime_checkable
+class StateSpaceModel(Protocol):
+    """Duck-typed SSM: any object with these members qualifies. A θ-cloud
+    of models is one model whose tensors carry a leading θ axis; its
+    distribution methods take states with the θ axis just before the state
+    axis, (..., M, dx)."""
+
+    @property
+    def state_dim(self) -> int:
+        ...
+
+    def initial_distribution(self):
+        """Distribution over the initial state, event shape (dx,)."""
+
+    def transition_distribution(self, x):
+        """Distribution over x_t given x_{t-1} = x (..., dx)."""
+
+    def observation_distribution(self, x):
+        """Distribution over scalar y_t given x_t = x (..., dx)."""
 
 
 def simulate(generator, model, T: int):
@@ -27,10 +50,12 @@ def simulate(generator, model, T: int):
 
 
 def broadcast_model(model, m: int = 1):
-    """One θ's model (any family: its dataclass fields are that θ's tensors)
-    as a θ-cloud of ``m`` identical rows: every field gets a leading axis of
-    length m. The per-θ filters run the batched filter on this bank at
-    m = 1."""
+    """One θ's model (any family: its tensor fields are that θ's parameters)
+    as a θ-cloud of ``m`` identical rows: every tensor field gets a leading
+    axis of length m; other fields (a DSL model's name, state names and
+    functions) are carried through. The per-θ filters run the batched filter
+    on this bank at m = 1."""
+    fields = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
     return dataclasses.replace(model, **{
-        f.name: getattr(model, f.name).expand((m,) + tuple(getattr(model, f.name).shape))
-        .contiguous() for f in dataclasses.fields(model)})
+        name: v.expand((m,) + tuple(v.shape)).contiguous()
+        for name, v in fields.items() if isinstance(v, torch.Tensor)})

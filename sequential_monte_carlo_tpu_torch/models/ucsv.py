@@ -58,6 +58,10 @@ class UCSVModel:
 
     update = UCSV_UPDATE
 
+    @property
+    def state_dim(self) -> int:
+        return 3
+
     def initial_distribution(self):
         return TupleProduct((
             Normal(self.x0, torch.exp(0.5 * self.log_sigma_eps0)),
@@ -96,6 +100,18 @@ class UCSVModel:
             raise ValueError("carry_logw requires normalize=True")
         return ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], cloud,
                                        normals=normals)
+
+
+def unobserved_components_stochastic_volatility(x0, gamma_eps, gamma_eta, log_sigma_eps,
+                                                log_sigma_eta, device="cuda") -> UCSVModel:
+    """≡ the JAX package's keyword constructor (the reference's
+    state_space_models.jl:225-227): one UC-SV model, or a θ-cloud where the
+    arguments are (M,) tensors, on the tensor arguments' device, or on
+    ``device`` when every argument is a number."""
+    vals = (x0, gamma_eps, gamma_eta, log_sigma_eps, log_sigma_eta)
+    device = next((v.device for v in vals if isinstance(v, torch.Tensor)), device)
+    x0, ge, gn, lse, lsn = (torch.as_tensor(v, dtype=torch.float32, device=device) for v in vals)
+    return UCSVModel(gamma_eps=ge, gamma_eta=gn, x0=x0, log_sigma_eps0=lse, log_sigma_eta0=lsn)
 
 
 def ucsv_model(theta: torch.Tensor) -> UCSVModel:

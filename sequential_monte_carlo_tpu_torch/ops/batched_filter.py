@@ -12,9 +12,12 @@ resample + ancestor gather and a propagate + reweight:
   plain tensor code, as the JAX package runs them on its XLA route.
 - Propagate. The model's fused kernel (``kernels/propagate.py``, or
   ``kernels/ucsv.py`` on UC-SV's route without the normalize), whatever the
-  resampling scheme; or, with a guided ``proposal``, the proposal's draw and
-  the importance-corrected weight (plain tensor code over the models'
-  distributions, JAX's unfused route).
+  resampling scheme; for a model without one (a DSL model), a draw from its
+  transition and the observation density of the draw, plain tensor code over
+  the models' distributions, as the JAX package's unfused route
+  (:func:`propagate_reweight`, which the smoothers and conditional SMC call
+  too); or, with a guided ``proposal``, the proposal's draw and the
+  importance-corrected weight (plain tensor code, JAX's unfused route).
 
 ``PFConfig(resampling, ess_threshold, proposal, algorithm)``: the bootstrap
 or guided filter, resampling at every step or where the ESS fell below
@@ -55,8 +58,9 @@ kernels read and write, seen through a transposed view (:func:`as_cloud`,
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
 the CPU the normals themselves, from an explicit ``torch.Generator``; the
-rest of the step is :func:`_pf_step_from_draws`. The metropolis resampler and
-a guided proposal draw from the generator there.
+rest of the step is :func:`_pf_step_from_draws`. The metropolis resampler, a
+guided proposal and the propagate of a model without a kernel draw from the
+generator there.
 """
 from __future__ import annotations
 
@@ -75,6 +79,8 @@ __all__ = [
     "BatchedPFOut",
     "as_cloud",
     "from_cloud",
+    "kernel_params",
+    "propagate_reweight",
     "batched_pf_init",
     "batched_pf_step",
     "batched_log_likelihood_masked",
@@ -101,6 +107,36 @@ def as_cloud(particles: torch.Tensor) -> torch.Tensor:
 def from_cloud(cloud: torch.Tensor) -> torch.Tensor:
     """(M, dx, N) cloud → (M, N, dx) particles, as a view."""
     return cloud.transpose(1, 2)
+
+
+def _has_kernel(models) -> bool:
+    """Whether the models carry a fused propagate kernel (the zoo's
+    families do, a DSL model does not)."""
+    return hasattr(models, "fused_propagate_reweight")
+
+
+def kernel_params(models, config: PFConfig = PFConfig()):
+    """The step-invariant kernel parameters (``models.fused_params()``) of a
+    filter run that propagates through the model's kernel; None for a
+    guided proposal or a model without a kernel."""
+    if config.proposal is None and _has_kernel(models):
+        return models.fused_params()
+    return None
+
+
+def propagate_reweight(models, y, cloud, draws, params=None):
+    """Propagate + reweight the (M, dx, N) cloud without the normalize:
+    (new cloud (M, dx, N), log g(y | x′) (M, N)). Through the model's kernel
+    (``draws`` its Philox seed or normals, :func:`_draws`), or, for a model
+    without one, by a draw from its transition on the (N, M, dx) view, the
+    layout of the models' distributions, and the observation density of the
+    draw (``draws`` the generator) — the JAX package's unfused route."""
+    if _has_kernel(models):
+        return models.fused_propagate_reweight(y, cloud, params=params, normalize=False,
+                                               **_propagate_draws(draws))
+    x_new = models.transition_distribution(cloud.permute(2, 0, 1)).sample(draws)
+    incr = models.observation_distribution(x_new).log_prob(y)
+    return x_new.permute(1, 2, 0).contiguous(), incr.T.contiguous()
 
 
 def _elastic_sorted_u(offsets: torch.Tensor, n: int, active_n: int) -> torch.Tensor:
@@ -199,7 +235,7 @@ def _draws(generator, models, m: int, n: int, device,
       draws in the step;
     - the propagate's: a (1,) int64 Philox seed on a GPU or
       (n_normals, M, N) normals on the CPU; the generator itself for a
-      guided proposal, which samples in the step.
+      guided proposal or a model without a kernel, which sample in the step.
     """
     scheme = config.resampling
     if scheme == "metropolis" and active_n is None:
@@ -210,7 +246,7 @@ def _draws(generator, models, m: int, n: int, device,
         u = stratified_uniforms(generator, m, n, device)
     else:
         u = torch.rand((m, n), generator=generator, device=device)
-    if config.proposal is not None:
+    if config.proposal is not None or not _has_kernel(models):
         rest = generator
     elif device.type == "cpu":
         rest = torch.randn((models.update.n_normals, m, n), generator=generator)
@@ -269,9 +305,10 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     (:func:`_draws`): the resample + gather, the adaptive per-row selects
     when ``config.ess_threshold < 1``, then the propagate — the fused kernel
     with its Philox seed (an int64 tensor) or injected normals (a float
-    tensor), or a guided proposal sampled from the generator passed in their
-    place. ``params`` are the model's step-invariant kernel parameters
-    (``models.fused_params()``); ``active_n`` the elastic live count."""
+    tensor), or, from the generator passed in their place, a guided proposal
+    or the transition of a model without a kernel. ``params`` are the
+    model's step-invariant kernel parameters (:func:`kernel_params`);
+    ``active_n`` the elastic live count."""
     n = particles.shape[1]
     cloud = as_cloud(particles)
     w = torch.exp(log_w)
@@ -287,7 +324,7 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         fire = 1.0 / torch.sum(w * w, dim=-1) < config.ess_threshold * n_live
         xp = torch.where(fire[:, None, None], xp, cloud)
         lw = torch.where(fire[:, None], reset, log_w)
-    if config.proposal is None and active_n is None:
+    if config.proposal is None and active_n is None and _has_kernel(models):
         # the kernel's normalize: with a carry (normalized weights), lse of
         # carry + logw is the evidence increment; else the log-mean of the
         # unnormalized weights (the weights after resampling are all 1/N)
@@ -297,8 +334,7 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
         return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
     if config.proposal is None:
-        new, incr = models.fused_propagate_reweight(
-            y, xp, params=params, normalize=False, **_propagate_draws(seed_or_normals))
+        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params)
     else:
         states = xp.permute(2, 0, 1)  # (N, M, dx): the models' distributions' layout
         q = config.proposal.step(models, states)
@@ -333,9 +369,7 @@ def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     lam_mean, lam_norm, _ = log_normalize(log_w + log_g_mu)
     aug = torch.cat([as_cloud(particles), log_g_mu[:, None, :]], dim=1)
     gathered = _resample_gather(u, config, aug, torch.exp(lam_norm))
-    new, incr = models.fused_propagate_reweight(y, gathered[:, :dx], params=params,
-                                                normalize=False,
-                                                **_propagate_draws(seed_or_normals))
+    new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params)
     corr_mean, log_norm, ess = log_normalize(incr - gathered[:, dx])
     return BatchedPFOut(from_cloud(new), log_norm, lam_mean + log_n + corr_mean, ess)
 
@@ -346,7 +380,7 @@ def batched_pf_step(generator, models, particles, log_w, y,
     """One filter step for all M clouds: resample (every row, or the rows
     whose ESS fell below ``config.ess_threshold``·N), propagate, reweight by
     y and normalize — or, with ``config.algorithm == "apf"``, the auxiliary
-    particle filter's step. ``params``: ``models.fused_params()``, computed
+    particle filter's step. ``params``: :func:`kernel_params`, computed
     once by callers that step the same models many times. ``active_n``: the
     elastic live count (slots past it are dead, at log-weight −inf)."""
     m, n, _ = particles.shape
@@ -369,7 +403,7 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
     init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
-    params = models.fused_params() if config.proposal is None else None
+    params = kernel_params(models, config)
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
     for t in live.tolist():
         out = batched_pf_step(generator, models, particles, log_w, y[t], config,

@@ -12,7 +12,9 @@ Slot 0 carries the reference trajectory. Each step:
   package);
 - propagate + reweight by the model's raw kernel route
   (``fused_propagate_reweight(..., normalize=False)``: K6 on UC-SV, K2 raw
-  on LG and SV) on the one-row θ-cloud of the lifted model;
+  on LG and SV), or for a model without a kernel (a DSL model) by plain
+  tensor code over its distributions (``batched_filter.propagate_reweight``),
+  on the one-row θ-cloud of the lifted model;
 - slot 0's state overwritten with ref_t and its log-weight with
   g(y_t | ref_t), evaluated in torch (the kernel wrote both for its own
   draw), then the normalize.
@@ -33,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import broadcast_model
-from .batched_filter import _draws, _gather, _propagate_draws
+from .batched_filter import _draws, _gather, kernel_params, propagate_reweight
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf
 from .smoothing import SmoothedCloud, _categorical, _sample_paths
@@ -62,7 +64,8 @@ def _csmc_step_from_draws(u, v, seed_or_normals, bank, cloud, log_w, y, ref, ref
     """One conditional step of an M-row bank from its draws: u (M, N)
     uniforms of the free slots' multinomial ancestors, v (M, 1) the PGAS
     uniforms (None: slot 0's ancestor is 0), the propagate's Philox seed or
-    normals. ``cloud`` (M, dx, N), ``log_w`` (M, N) normalized, ``ref`` the
+    normals (the generator for a model without a kernel). ``cloud``
+    (M, dx, N), ``log_w`` (M, N) normalized, ``ref`` the
     rows' reference states at this step (M, dx), ``ref_log_g`` their
     g(y | ref) (M,) (:func:`_ref_log_g`). Returns (new cloud, raw
     log-weights (M, N) with slot 0's g(y | ref), ancestors (M, N) int32)."""
@@ -73,9 +76,7 @@ def _csmc_step_from_draws(u, v, seed_or_normals, bank, cloud, log_w, y, ref, ref
         anc[:, :1] = _inverse_cdf(v, torch.exp(log_as - torch.amax(log_as, -1, keepdim=True)))
     else:
         anc[:, 0] = 0
-    new, logw = bank.fused_propagate_reweight(y, _gather(cloud, anc), params=params,
-                                              normalize=False,
-                                              **_propagate_draws(seed_or_normals))
+    new, logw = propagate_reweight(bank, y, _gather(cloud, anc), seed_or_normals, params)
     new[:, :, 0] = ref
     logw[:, 0] = ref_log_g
     return new, logw, anc
@@ -87,7 +88,7 @@ def _csmc_forward_bank(generator, bank, n: int, y, ref, ancestor_sampling: bool 
     (T, M, N, dx), normalized log-weights (T, M, N), ancestors (T−1, M, N)
     int32, log Z (M,))."""
     m = ref.shape[1]
-    params = bank.fused_params()
+    params = kernel_params(bank)
     x = bank.initial_distribution().sample(generator, (n,))  # (N, M, dx)
     x[0] = ref[0]
     logz, log_w, _ = log_normalize(bank.observation_distribution(x).log_prob(y[0]).T)

@@ -174,7 +174,7 @@ def filter_sequence(generator, model, n: int, y, config: PFConfig = PFConfig(),
     over T)."""
     config = _config(config, proposal)
     bank = broadcast_model(model)
-    params = bank.fused_params() if config.proposal is None else None
+    params = _bf.kernel_params(bank, config)
 
     def emit(out: PFStepOut) -> dict:
         d = {"log_mean": out.log_mean, "ess": out.ess}

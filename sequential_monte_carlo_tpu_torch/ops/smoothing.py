@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import broadcast_model
-from .batched_filter import as_cloud, batched_pf_init, batched_pf_step
+from .batched_filter import as_cloud, batched_pf_init, batched_pf_step, kernel_params
 from .kalman import kalman_init, kalman_step
 from .particle_filter import PFConfig, _config
 from .resampling import _inverse_cdf
@@ -99,7 +99,7 @@ def _forward_bank(generator, models, n: int, m: int, y, config: PFConfig):
     (T, m, N), log Z (m,))."""
     out = batched_pf_init(generator, models, n, m, y[0], config)
     clouds, lws, logz = [as_cloud(out.particles)], [out.log_weights], out.log_mean
-    params = models.fused_params() if config.proposal is None else None
+    params = kernel_params(models, config)
     for t in range(1, y.shape[0]):
         out = batched_pf_step(generator, models, out.particles, out.log_weights, y[t], config,
                               params)

@@ -60,8 +60,10 @@ def _tuple_like(like: tuple, fields: list) -> tuple:
 
 
 def _stack(items: list):
-    """Per-step outputs — tensors, or (named) tuples of them — stacked over
-    the steps."""
+    """Per-step outputs — tensors, or dicts and (named) tuples of them —
+    stacked over the steps."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
     if isinstance(items[0], tuple):
         return _tuple_like(items[0], [_stack(list(f)) for f in zip(*items)])
     return torch.stack([torch.as_tensor(x) for x in items])
@@ -69,6 +71,8 @@ def _stack(items: list):
 
 def _first(tree, k: int):
     """The first k steps of stacked outputs."""
+    if isinstance(tree, dict):
+        return {key: _first(v, k) for key, v in tree.items()}
     if isinstance(tree, tuple):
         return _tuple_like(tree, [_first(f, k) for f in tree])
     return tree[:k]

@@ -660,11 +660,13 @@ def test_propagate_kernels_at_one_row(cuda, n, layout, name, route):
 
 @pytest.mark.parametrize("m,n,name,route", [(8, 8192, "ucsv", "normalized"),
                                           (8, 8192, "ucsv", "k6"), (8, 128, "lg1", "normalized"),
-                                          (8, 128, "lg1", "raw"), (1, 256, "lg1", "raw")])
+                                          (8, 128, "lg1", "raw"), (1, 256, "lg1", "raw"),
+                                          (8, 1024, "lg1", "normalized")])
 def test_propagate_kernels_at_the_bank_shapes(cuda, m, n, name, route):
     """K2 and K6 at the banks' shapes of the smoothers and particle Gibbs
     (the posterior mixture's and the pooled UC-SV chains' 8×8192, the pooled
-    LG chains' 8×128, the CSMC runs' 1×256), distinct parameters per row:
+    LG chains' 8×128, the CSMC runs' 1×256, the inflation example's UC
+    posterior mixture's 8×1024), distinct parameters per row:
     the plain version, fed the normals recovered from the kernel's state
     deltas, gives its outputs to rtol 1e-5; K6 equals K2-UC-SV raw at the
     same seed to 1e-5; the normals' moments within 5 standard errors of
@@ -757,3 +759,99 @@ def test_particle_gibbs_on_the_card_reads_nothing_back(cuda, method):
     assert fused_elementwise_step.instance_launches["ucsv"] == k2 + 39
     assert res.theta.device.type == "cuda" and res.theta.shape == (5, 4)
     assert torch.isfinite(res.theta).all() and torch.isfinite(res.final_path).all()
+
+
+@pytest.mark.parametrize("m,n,c", [(8, 1024, 1), (8, 8192, 3), (1, 1024, 1), (512, 1024, 4)])
+def test_resample_kernels_at_the_new_paths_shapes(cuda, m, n, c):
+    """K1 and K3 at the shapes the inflation example and the DSL routes hand
+    them (the UC posterior mixture's 8×1024 C=1, the UC-SV one's 8×8192
+    C=3, the UC filter at θ̂'s 1×1024, the DSL UC-SV APF's 512×1024 C=4):
+    ancestors and output bitwise the plain versions'."""
+    rng = np.random.default_rng(50 + c)
+    a = 2.0 * rng.standard_normal((m, n))
+    w = torch.tensor(np.exp(a - a.max(-1, keepdims=True)), dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.standard_normal((m, c, n)), dtype=torch.float32, device=cuda)
+    u0 = torch.tensor(rng.random((m, 1)), dtype=torch.float32, device=cuda)
+    out, anc = resample_gather(u0, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_plain(u0, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
+    u = torch.sort(torch.tensor(rng.random((m, n)), dtype=torch.float32, device=cuda), -1).values
+    out, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    ref, anc_ref = resample_gather_sorted_plain(u, w, xs)
+    assert torch.equal(anc, anc_ref) and torch.equal(out, ref)
+
+
+def _dsl_ucsv(m: int, cuda):
+    """UC-SV written with ssm_model (ucsv_model's θ layout), an m-row bank
+    on the card."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.distributions import Normal
+
+    spec = smc.ssm_model(
+        "ucsv4", params=("gamma", "x0", "lse0", "lsn0"),
+        init=lambda p: dict(x=Normal(p["x0"], torch.exp(0.5 * p["lse0"])),
+                            lse=Normal(p["lse0"], p["gamma"]),
+                            lsn=Normal(p["lsn0"], p["gamma"])),
+        transition=lambda p, prev: dict(x=Normal(prev["x"], torch.exp(0.5 * prev["lse"])),
+                                        lse=Normal(prev["lse"], p["gamma"]),
+                                        lsn=Normal(prev["lsn"], p["gamma"])),
+        observe=lambda p, s: Normal(s["x"], torch.exp(0.5 * s["lsn"])))
+    return spec(torch.tensor([0.2, 3.0, -1.0, -1.0], device=cuda).expand(m, 4))
+
+
+@pytest.mark.parametrize("inner, active_n, kernel", [
+    (("systematic", 1.0), None, "count"), (("stratified", 0.5), None, "sorted"),
+    (("systematic", 1.0), 768, "sorted"), (("systematic", 1.0, None, "apf"), None, "count")])
+def test_dsl_route_on_the_card(cuda, inner, active_n, kernel):
+    """A DSL UC-SV bank (64×1024, T=40) on the bootstrap, ESS-triggered,
+    elastic and auxiliary routes: every step launches K1 or K3 once, no
+    propagate kernel runs, the weights are normalized and log Z finite."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    rng = np.random.default_rng(1998)
+    y = torch.tensor(3.0 + np.cumsum(rng.normal(0, 0.3, 40)) + rng.normal(0, 0.5, 40),
+                     dtype=torch.float32, device=cuda)
+    before = (resample_gather.launches, resample_gather_sorted.launches,
+              ucsv_propagate_reweight.launches, sum(fused_elementwise_step.instance_launches.values()))
+    _, lw, lz = smc.batched_log_likelihood(torch.Generator(device=cuda).manual_seed(0),
+                                           _dsl_ucsv(64, cuda), 1024, 64, y,
+                                           smc.PFConfig(*inner), active_n=active_n)
+    after = (resample_gather.launches, resample_gather_sorted.launches,
+             ucsv_propagate_reweight.launches, sum(fused_elementwise_step.instance_launches.values()))
+    steps = {"count": (39, 0), "sorted": (0, 39)}[kernel]
+    assert (after[0] - before[0], after[1] - before[1]) == steps
+    assert after[2:] == before[2:]
+    assert torch.isfinite(lz).all()
+    torch.testing.assert_close(torch.logsumexp(lw, 1), torch.zeros(64, device=cuda),
+                               atol=1e-4, rtol=0)
+
+
+def test_checkpoint_on_the_card_keeps_planar_storage(cuda, tmp_path):
+    """An SMC² state on the card round-trips through a checkpoint bitwise,
+    onto the card, with its planar particle storage and its generator."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    prior = prior_from_spec([("uniform", 0.0, 1.0), ("normal", 3.0, 2.0),
+                             ("uniform", 0.0, 2.0), ("uniform", 0.0, 2.0)], device=cuda)
+    y = torch.linspace(2.0, 4.0, 20, device=cuda)
+    sampler = smc.SMC2(smc.ucsv_model, prior, smc.SMCConfig(n_particles=256, n_theta=32, chain=2))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state = sampler.init(gen, y)
+    state, _ = sampler.step(gen, state, y)
+    path = str(tmp_path / "s.pt")
+    save_checkpoint(path, state, gen)
+    gen2 = torch.Generator(device=cuda).manual_seed(9)
+    back = load_checkpoint(path, state, generator=gen2)
+    assert back.particles.device.type == "cuda" and back.particles.transpose(1, 2).is_contiguous()
+    assert torch.equal(back.particles, state.particles) and torch.equal(back.theta, state.theta)
+    assert torch.equal(gen2.get_state(), gen.get_state())
+
+
+def test_debug_nans_on_the_card(cuda):
+    from sequential_monte_carlo_tpu_torch.utils.debug import debug_nans
+
+    x = torch.tensor([1.0, -1.0], device=cuda)
+    with debug_nans(), pytest.raises(FloatingPointError, match="sqrt"):
+        torch.sqrt(x)

@@ -3,7 +3,8 @@
 checks, computed on the CPU.
 
     JAX_PLATFORMS=cpu python tools/jax_reference.py
-        [--run dt|apf_ucsv|apf_lg|ucsv_bank|pg_ucsv|ffbs_ucsv|pg_lg] [--seeds 8]
+        [--run dt|apf_ucsv|apf_lg|ucsv_bank|pg_ucsv|ffbs_ucsv|pg_lg|inflation_uc|
+               inflation_ucsv] [--seeds 8]
         [--m 512] [--n 1024]
 
 Each sampler run repeats one sampler over ``jax.random.key(0..seeds-1)`` and
@@ -20,6 +21,14 @@ prints the mean of the runs' posterior means and their standard deviation:
 - ``apf_lg``: the README's APF SMC² on the linear-Gaussian model (M=512,
   N=1024, chain=3) with the ``dt`` run's prior and series —
   ``APF_LG_JAX_MEAN``/``APF_LG_JAX_SD``.
+
+- ``inflation_uc``: the inflation example's online SMC² on the UC model
+  (``examples/inflation_example.py``: M=512, N=1024, chain=3,
+  ``ess_threshold`` 0.5, its ``uc_prior``, the vendored PCE series
+  ``examples/data/pce_inflation.csv``) — ``INFLATION_UC_JAX_MEAN``/``_SD``;
+- ``inflation_ucsv``: the same on UC-SV with chain=5 and ``ucsv_prior``, at
+  N=1024 (the example's N is 8192; SMC² with PMMH moves targets the same
+  posterior at every N) — ``INFLATION_UCSV_JAX_MEAN``/``_SD``.
 
 ``ucsv_bank`` runs M parallel UC-SV filters at θ = ``chip_smoke.JAX_MEAN``
 on ``chip_smoke.ucsv_series`` (N=1024, T=241), bootstrap and APF, over the
@@ -119,6 +128,14 @@ def _runner(name: str, m: int, n: int):
                             inner=apf)
         sampler = smc.SMC2(smc.lg_model, _lg_prior(), cfg)
         y = jnp.asarray(lg_series(DT_T))
+    elif name in ("inflation_uc", "inflation_ucsv"):
+        from examples.inflation_example import load_pce, uc_prior, ucsv_prior
+
+        uc = name == "inflation_uc"
+        cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=3 if uc else 5, ess_threshold=0.5)
+        sampler = smc.SMC2(smc.uc_model if uc else smc.ucsv_model,
+                           uc_prior() if uc else ucsv_prior(), cfg)
+        y = load_pce()[1]
     else:
         raise SystemExit(f"unknown run {name!r}")
 
@@ -229,7 +246,7 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--run", default="dt",
                    choices=("dt", "apf_ucsv", "apf_lg", "ucsv_bank", "pg_ucsv", "ffbs_ucsv",
-                            "pg_lg"))
+                            "pg_lg", "inflation_uc", "inflation_ucsv"))
     p.add_argument("--seeds", type=int, default=8)
     p.add_argument("--m", type=int, default=512)
     p.add_argument("--n", type=int, default=1024)

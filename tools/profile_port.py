@@ -13,7 +13,10 @@ with a quantile summary, smoothed_marginals on UC-SV at N=8192 (the blocked
 backward pass), posterior_smoothed_paths (8 θ × 64 paths, N=8192, from a
 512-θ cloud at chip_smoke.JAX_MEAN), 10 sweeps of particle Gibbs on UC-SV at
 241 × 8192 ("bs" and "as"; chip_smoke.py runs 50) and 100 sweeps of the LG
-chain at T=60, N=128 — it runs the
+chain at T=60, N=128; online SMC² on UC-SV written with the model DSL (no
+fused propagate kernel) at 512 × 1024; the inflation example at --full sizes
+without figures (UC 512 × 1024 chain 3, UC-SV 512 × 8192 chain 5, each with
+its filter at θ̂, FFBS and posterior mixture) — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
@@ -61,7 +64,27 @@ def _cells(torch):
             "filters_lg_apf_512": filters(cs.APF),
             "smc2_ucsv_apf_512x1024": lambda seed: cs.run_apf_smc2(
                 torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed),
-            **_smoothing_cells(torch, smc, prior_from_spec)}
+            **_smoothing_cells(torch, smc, prior_from_spec),
+            **_dsl_inflation_cells(torch, smc, prior_from_spec)}
+
+
+def _dsl_inflation_cells(torch, smc, prior_from_spec):
+    """chip_smoke.py's dsl phase's SMC² and its inflation phase's example."""
+    import tempfile
+
+    from sequential_monte_carlo_tpu_torch.examples import inflation
+
+    cfg = smc.SMCConfig(n_particles=1024, n_theta=512, chain=cs.CHAIN, ess_threshold=0.5)
+    dsl = smc.SMC2(cs.ucsv_dsl(smc, torch), prior_from_spec(cs.PRIOR_SPEC, device="cuda"), cfg)
+    y = cs.series(torch, "cuda")
+    outdir = tempfile.mkdtemp(prefix="profile_inflation_")
+    return {
+        "smc2_ucsv_dsl_512x1024": lambda seed: dsl.run(
+            torch.Generator(device="cuda").manual_seed(seed), y),
+        # the example's seeds are its own: every run is the same run
+        "inflation_full": lambda seed: inflation.run_example(
+            inflation.FULL_SIZES, outdir, figures=False, device="cuda"),
+    }
 
 
 def _smoothing_cells(torch, smc, prior_from_spec):
