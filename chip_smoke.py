@@ -9,17 +9,20 @@ Phases, one line each or more; any failure raises and exits non-zero:
      name and power limit as nvidia-smi reports them;
   2. build   — compiles the CUDA kernels from the package's csrc/ with nvcc;
   3. K1      — the systematic resample + gather kernel against its plain
-     version at 512×1024, 512×8192 and 512×1000 under flat, skewed and
-     point-mass weights, on C=3 normal planes and on the auxiliary filter's
+     version at 512×1024, 512×8192 and 512×1000, and at 256×1024 and
+     256×8192 (a θ-shard's rows), under flat, skewed and point-mass
+     weights, on C=3 normal planes and on the auxiliary filter's
      clouds with the lookahead plane (UC-SV C=4, LG C=2; also its
      first-stage weights; no ancestor may differ);
   4. K2      — the fused propagate + reweight + normalize kernel, UC-SV
      instance, against its plain version at the same shapes, and the
-     moments of the normals recovered from its state deltas;
+     moments of the normals recovered from its state deltas; rows 256.. of
+     each 512-row call equal the 256-row call at row_offset 256 (the
+     θ-sharded filter's rows);
   5. K3      — the sorted-grid resample + gather kernel against its plain
-     version on stratified grids at 512×1024 (C=1), 512×8192 (C=3) and
-     512×1000 (C=1, a shape the TPU walk cannot tile), flat, skewed and
-     point-mass weights;
+     version on stratified grids at 512×1024 (C=1), 512×8192 (C=3),
+     512×1000 (C=1, a shape the TPU walk cannot tile) and 256×8192 (C=3, a
+     θ-shard's rows), flat, skewed and point-mass weights;
   6. K2 instances — LG dx=1, LG dx=1 with carried log-weights, LG dx=2 (a
      model with a non-singular Q, so that the normals can be recovered) and
      SV against the plain version at 512×1024 and 512×8192, and the moments
@@ -44,7 +47,9 @@ Phases, one line each or more; any failure raises and exits non-zero:
      moments of the normals recovered from its state deltas, its log-weights
      against the density at the returned state, the normalize against a
      torch normalize of the raw log-weights, γ = 0, the row_offset
-     (θ-sharding) property, and against K2's UC-SV instance at the same seed
+     (θ-sharding) property raw and normalized (rows 256.. of each 512-row
+     call equal the 256-row call at row_offset 256), and against K2's UC-SV
+     instance at the same seed
      (within 1e-5; the line says per route whether bitwise), all four timed;
  11. K2 raw  — K2's route without the normalize, per instance (UC-SV, LG
      dx 1 and 2, SV), against the plain version, with the recovered normals'
@@ -134,6 +139,25 @@ Phases, one line each or more; any failure raises and exits non-zero:
      bitwise, with the restored cloud's storage planar; debug_nans raises
      on a NaN made on the card, naming the op; profiling.trace writes a
      trace holding K1's and K2's launches.
+ 26. parallel — θ-sharded SMC² (``parallel.ShardedSMC2``) in worker
+     processes of this script, each on cuda:0: (a) one NCCL rank at
+     512×1024 and 512×8192 (T=241, chain=5); (b) two gloo ranks (NCCL
+     refuses two ranks on one card) at 512×1024 and 512×8192, K1 and
+     K2-UC-SV launched per shard at 256 rows with row_offset 0 and 256, the
+     launch counts equal to the schedule; (c) two ranks with the exchange
+     armed, grow (K1 + K2-UC-SV, N 1024 … 8192) and full padding (K3 on the
+     live-prefix grid + K6 raw per shard); (d) ShardedIBIS on two ranks on
+     the ibis phase's configuration; two NCCL ranks on the one card are
+     refused at initialization with the remedy named. Every rank's θ, log ω,
+     log Z and ESS equal the one-process run's of phases 7, 14 and 17 bit for
+     bit; the
+     wall per inner step against one rank's, the collectives' calls, bytes
+     and host seconds, and the θ-resample's cloud gather timed alone;
+ 27. animations — the two animation programs at their defaults (SV T=150,
+     N=4096; UC-SV on the PCE series at θ̂, N=4096), 4 seeds each, without
+     figures: launch counts of T − 1 a run for K1 and K2-SV or K2-UC-SV, the
+     SV log Z against the grid filter and the UC-SV log Z against the JAX
+     program's (ANIMATION_UCSV_JAX), walls.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -220,6 +244,13 @@ INFLATION_Z_QUARTILES = np.array([-0.6744897501960817, 0.0, 0.6744897501960817])
 # acc_threshold 1.1 fires it after every rejuvenation while N ≤ 4096, so N
 # runs 1024 → 2048 → 4096 → 8192 (the reference's cap, smc_samplers.jl:166).
 EXCHANGE_ACC, EXCHANGE_MAX_N, N_CAP = 1.1, 4096, 8192
+# log Ẑ of examples/ucsv_animation.py's filter (UC-SV at its THETA_HAT,
+# N=4096, the PCE series) from the JAX package on the CPU over
+# jax.random.key(0..63), fused_resample="off": the mean and variance over
+# the seeds (tools/jax_reference.py --run ucsv_animation --seeds 64).
+ANIMATION_UCSV_JAX = (-167.235905, 1.468378, 64)
+ANIMATION_SEEDS = 4
+PARALLEL_WORKER = "--parallel-worker"
 # K2's LG instances generated for dx ≥ 3 (the lg_dx phase), and the rows and
 # particles of the large_n phase (the reference ran SMC² at M=64, N=65,536,
 # BASELINE.md:72)
@@ -537,6 +568,12 @@ def check_k2(torch, shapes, gen):
         gamma = (0.3, 0.2)
         params = torch.tensor(gamma, device="cuda").expand(m, 2).contiguous()
         new, log_norm, lse, ess = fused_elementwise_step(UCSV_UPDATE, params, state, y, seed=seed)
+        # θ-sharding: rows r.. at row_offset r are rows r.. of the full call
+        r = m // 2
+        half = fused_elementwise_step(UCSV_UPDATE, params[r:], state[r:], y, seed=seed,
+                                      row_offset=r)
+        if not all(torch.equal(a, b[r:]) for a, b in zip(half, (new, log_norm, lse, ess))):
+            raise AssertionError(f"K2 {m}x{n}: rows at row_offset {r} differ from the full call's")
         # logw from the plain UC-SV density at the returned state, normalized
         # by the plain log_normalize
         zcol = torch.zeros((m, 1), device="cuda")
@@ -1079,12 +1116,15 @@ def check_k6(torch, shapes, gen):
                 err = max(err, (a - b).abs().max().item())
         out["max_abs_err"] = max(out["max_abs_err"], err)
         moments = check_normals(torch, f"K6 {m}x{n}", z)
-        # θ-sharding: rows r.. at row_offset r are rows r.. of the full call
+        # θ-sharding: rows r.. at row_offset r are rows r.. of the full call,
+        # raw (the sharded exchange's route) and normalized
         r = m // 2
-        half = ucsv_propagate_reweight(seed, y, ge[r:], gn[r:], cloud[r:], row_offset=r,
-                                       normalize=True)
-        if not all(torch.equal(a, b[r:]) for a, b in zip(half, norm)):
-            raise AssertionError(f"K6 {m}x{n}: rows at row_offset {r} differ from the full call's")
+        for normalize, full in ((False, raw), (True, norm)):
+            half = ucsv_propagate_reweight(seed, y, ge[r:], gn[r:], cloud[r:], row_offset=r,
+                                           normalize=normalize)
+            if not all(torch.equal(a, b[r:]) for a, b in zip(half, full)):
+                raise AssertionError(f"K6 {m}x{n} normalize={normalize}: rows at row_offset {r}"
+                                     " differ from the full call's")
         # against K2's UC-SV instance at the same seed, per route
         diff, bitwise = 0.0, {}
         for route, k6 in (("raw", raw), ("normalized", norm)):
@@ -1347,12 +1387,12 @@ def run_exchange(torch, pad: str, via: str, seed: int = SEED):
 def check_exchange(torch, gen):
     """The exchange phase: (a) grow, (b) full padding, (c) run_segmented,
     each checked for its N schedule, launch counts and posterior; (d) K3 on
-    the elastic grid. Returns the runs' launch counts and K3's elastic
-    mismatch count."""
+    the elastic grid. Returns the runs' launch counts, K3's elastic
+    mismatch count and the final states of (a) and (b) by padding."""
     import sequential_monte_carlo_tpu_torch as smc
 
     tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
-    total, grow_state = None, None
+    total, grow_state, states = None, None, {}
     for run, pad, via, kernels in (
             ("a", "grow", "step", ("resample_count", "fused_propagate_ucsv")),
             ("b", "full", "step", ("resample_sorted", "ucsv_propagate")),
@@ -1383,6 +1423,8 @@ def check_exchange(torch, gen):
         if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
             raise AssertionError(f"{label}: posterior mean {mean} vs JAX {JAX_MEAN} beyond {tol}")
         extra = {}
+        if via == "step":
+            states[pad] = state
         if via == "step" and pad == "grow":
             grow_state = state
         if via == "segmented":
@@ -1403,7 +1445,7 @@ def check_exchange(torch, gen):
             steps2 = _schedule(infos2, CHAIN, doubled2)
             say("exchange", run=run, pad=pad, seed=SEED + 1, warm_wall_s=round(wall2, 4),
                 inner_steps=steps2, wall_ms_per_inner_step=round(1e3 * wall2 / steps2, 4))
-    return total, check_k3_elastic(torch, gen)
+    return total, check_k3_elastic(torch, gen), states
 
 
 def check_k3_elastic(torch, gen) -> int:
@@ -1596,6 +1638,7 @@ def check_ibis(torch):
     say("ibis", shape=f"{DT_M} θ", T=DT_T, chain=DT_CHAIN, wall_s=round(wall, 4),
         rejuvenations=int(infos.rejuvenated.sum()), posterior_mean=np.round(mean, 5).tolist(),
         oracle=np.round(oracle, 5).tolist(), tolerance=np.round(tol, 5).tolist())
+    return state
 
 
 def check_routes(torch):
@@ -2451,6 +2494,322 @@ def check_utils(torch):
     return counts
 
 
+def _record_shards(seen: set) -> None:
+    """Wrap the kernel wrappers where the filter calls them so that each
+    launch on the card adds (kernel, rows, row_offset) to ``seen``."""
+    import sequential_monte_carlo_tpu_torch.models.ucsv as mucsv
+    import sequential_monte_carlo_tpu_torch.ops.batched_filter as bf
+
+    def wrap(module, name, label, rows_of, offset_of):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            rows = rows_of(*args)
+            if rows.is_cuda:
+                seen.add((label, rows.shape[0], offset_of(kw)))
+            return out
+        setattr(module, name, wrapped)
+
+    wrap(bf, "resample_gather", "resample_count", lambda u, w, xs, *a: xs, lambda kw: None)
+    wrap(bf, "resample_gather_sorted", "resample_sorted", lambda u, w, xs, *a: xs,
+         lambda kw: None)
+    wrap(mucsv, "fused_elementwise_step", "fused_propagate_ucsv", lambda up, p, st, *a: st,
+         lambda kw: kw.get("row_offset", 0))
+    wrap(mucsv, "ucsv_propagate_reweight", "ucsv_propagate", lambda sd, y, ge, gn, c, *a: c,
+         lambda kw: kw.get("row_offset", 0))
+
+
+def _theta_fields(state) -> dict:
+    return {k: getattr(state, k).cpu().numpy() for k in ("theta", "log_omega", "log_z", "ess")}
+
+
+def parallel_worker(argv) -> int:
+    """One rank of the parallel phase: ``chip_smoke.py --parallel-worker
+    JOBS RANK WORLD BACKEND STORE OUT``. Runs the comma-separated JOBS on
+    cuda:0 (LOCAL_RANK unset: rank % the card count) and writes
+    OUT/RANK.npz (each job's whole θ-level fields) and OUT/RANK.json (launch
+    counts, the shards seen, walls, collectives)."""
+    import torch
+
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch import parallel
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.ops.batched_filter import as_cloud
+    from sequential_monte_carlo_tpu_torch.ops.sharding import (
+        all_gather_rows,
+        collective_stats,
+        theta_rows,
+    )
+
+    jobs, rank, world, backend, store, out = argv[0].split(","), int(argv[1]), int(argv[2]), \
+        argv[3], argv[4], argv[5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = parallel.initialize_distributed(init_method=f"file://{store}", num_processes=world,
+                                             process_id=rank, backend=backend, timeout_s=300.0)
+    mesh = parallel.make_mesh()
+    seen: set = set()
+    _record_shards(seen)
+    arrays, meta = {}, {"device": str(device), "info": parallel.process_info()}
+    y = series(torch, device)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        collective_stats.clear()
+        seen.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"wall_s": time.perf_counter() - t0, "counts": launch_counts(),
+                     "seen": sorted(map(list, seen), key=str),
+                     "collectives": {k: round(v, 6) for k, v in collective_stats.items()}}
+
+    for job in jobs:
+        if job.startswith("slice"):
+            n = int(job[len("slice"):])
+            cfg = smc.SMCConfig(n_particles=n, n_theta=512, chain=CHAIN, ess_threshold=0.5,
+                                inner=smc.PFConfig("systematic", 1.0))
+            sh = parallel.ShardedSMC2(smc.SMC2(smc.ucsv_model, prior_from_spec(
+                PRIOR_SPEC, device=device), cfg), mesh)
+            for run in ("cold", "warm"):  # the same seed twice: the second is warm
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                (state, infos), rec = timed(lambda: sh.run(gen, y))
+                rec["inner_steps"] = _schedule(infos, CHAIN, [])
+                rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
+                meta[f"{job}_{run}"] = rec
+            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+            # the θ-resample's cloud exchange alone: the planar cloud and log_w
+            rows = theta_rows(mesh, 512)
+            cloud = as_cloud(state.particles)
+            for _ in range(2):
+                all_gather_rows(cloud, rows), all_gather_rows(state.log_w, rows)
+            _, rec = timed(lambda: [(all_gather_rows(cloud, rows), all_gather_rows(
+                state.log_w, rows)) for _ in range(5)])
+            meta[f"{job}_resample_gather"] = {
+                "ms": 1e3 * rec["wall_s"] / 5, "bytes": (cloud.numel() + state.log_w.numel())
+                * 4 * world}
+        elif job in ("grow", "full"):
+            cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
+                                acc_threshold=EXCHANGE_ACC, exchange_max_n=EXCHANGE_MAX_N,
+                                elastic_pad=job, inner=smc.PFConfig("systematic", 1.0))
+            sh = parallel.ShardedSMC2(smc.SMC2(smc.ucsv_model, prior_from_spec(
+                PRIOR_SPEC, device=device), cfg), mesh)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+
+            def drive():
+                state, infos, doubled_at = sh.init(gen, y), [], []
+                for _ in range(1, T):
+                    t0_step, n0 = state.t, state.active_n
+                    state, info = sh.step(gen, state, y)
+                    if state.active_n != n0:
+                        doubled_at.append(t0_step)
+                    if state.exchange_pending:
+                        doubled_at.append(state.t)
+                    state = sh.sampler.maybe_exchange(gen, state, y, info)
+                    infos.append(info)
+                return state, infos, doubled_at
+
+            (state, infos, doubled_at), rec = timed(drive)
+            from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
+
+            rec["inner_steps"] = _schedule(_stack(infos), CHAIN, doubled_at)
+            rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
+            meta[job] = rec
+            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+        elif job == "ibis":
+            ibis = parallel.ShardedIBIS(smc.IBIS(
+                smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device),
+                smc.SMCConfig(n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5)), mesh)
+            (state, _), rec = timed(lambda: ibis.run(
+                torch.Generator(device=device).manual_seed(SEED),
+                torch.tensor(lg_series(), device=device)))
+            whole = ibis.gather(state)
+            arrays.update({f"ibis/{k}": getattr(whole, k).cpu().numpy()
+                           for k in ("theta", "log_omega", "log_z", "ess", "mean", "cov")})
+            meta["ibis"] = rec
+        elif job != "init":  # "init": the process group and the mesh only
+            raise ValueError(f"unknown job {job!r}")
+    torch.distributed.destroy_process_group()
+    np.savez(f"{out}/{rank}.npz", **arrays)
+    with open(f"{out}/{rank}.json", "w") as f:
+        json.dump(meta, f)
+    return 0
+
+
+def run_ranks(jobs: str, world: int, backend: str, timeout_s: float = 900.0):
+    """Start ``world`` worker processes of this script on the jobs and wait
+    for all; raises if one fails or outlasts ``timeout_s``. Returns
+    [(arrays, meta)] per rank."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="smc_parallel_")
+    store = f"{out}/store"
+    procs = [subprocess.Popen([sys.executable, __file__, PARALLEL_WORKER, jobs, str(r),
+                               str(world), backend, store, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel: rank {r} of {world} ({backend}) exited "
+                                 f"{p.returncode}:\n{log[-6000:]}")
+    res = []
+    for r in range(world):
+        with np.load(f"{out}/{r}.npz") as z, open(f"{out}/{r}.json") as f:
+            res.append(({k: z[k] for k in z.files}, json.load(f)))
+    return res
+
+
+def _expect_equal(label: str, arrays: dict, prefix: str, ref: dict) -> None:
+    for k, want in ref.items():
+        got = arrays[f"{prefix}/{k}"]
+        if not np.array_equal(got, want):
+            diff = np.max(np.abs(got.astype(np.float64) - want)) if got.shape == want.shape \
+                else f"shapes {got.shape} {want.shape}"
+            raise AssertionError(f"parallel {label}: {prefix}/{k} differs from the one-process "
+                                 f"run's (max |Δ| {diff})")
+
+
+def check_parallel(torch, refs: dict, one_rank_ms: dict):
+    """Phase 26 (see the module docstring). ``refs``: the one-process runs'
+    θ-level fields per job; ``one_rank_ms``: phase 7's walls per inner step.
+    Returns the ranks' launch counts summed over every job's runs."""
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    if torch.cuda.device_count() == 1:  # NCCL refuses two ranks on one card, and says so
+        try:
+            run_ranks("init", 2, "nccl", timeout_s=300.0)
+        except AssertionError as e:
+            if "ranks that share a card need backend='gloo'" not in str(e):
+                raise
+        else:
+            raise AssertionError("parallel: two NCCL ranks on one card initialized")
+        say("parallel", world=2, backend="nccl", refused="Duplicate GPU detected")
+    one = run_ranks("slice1024,slice8192", 1, "nccl")
+    two = run_ranks("slice1024,slice8192,grow,full,ibis", 2, "gloo")
+    for world, ranks in ((1, one), (2, two)):
+        for r, (arrays, meta) in enumerate(ranks):
+            jobs = [j for j in ("slice1024", "slice8192", "grow", "full", "ibis")
+                    if f"{j}/theta" in arrays]
+            for job in jobs:
+                _expect_equal(f"{world} rank(s), rank {r}", arrays, job, refs[job])
+            for key, rec in meta.items():
+                if isinstance(rec, dict) and "counts" in rec:
+                    add(rec["counts"])
+            for n in (1024, 8192):
+                for run in ("cold", "warm"):
+                    rec = meta[f"slice{n}_{run}"]
+                    expected = (T - 1) + sum(CHAIN * (t - 1) for t in rec["rejuv_t"])
+                    expect_counts(f"parallel {world} rank(s) slice{n}", rec["counts"],
+                                  {"resample_count": expected,
+                                   "fused_propagate_ucsv": expected})
+                    want = {("resample_count", 512 // world, None),
+                            ("fused_propagate_ucsv", 512 // world, r * 512 // world)}
+                    if {tuple(x) for x in rec["seen"]} != want:
+                        raise AssertionError(f"parallel slice{n} rank {r}: launches at "
+                                             f"{rec['seen']}, expected {sorted(want, key=str)}")
+                g = meta[f"slice{n}_resample_gather"]
+                say("parallel", world=world, backend=meta["info"]["backend"], rank=r,
+                    shape=f"512x{n}", T=T, chain=CHAIN, bitwise_as_one_process=True,
+                    rows=f"{r * 512 // world}..{(r + 1) * 512 // world}",
+                    inner_steps=meta[f"slice{n}_warm"]["inner_steps"],
+                    wall_s_cold=round(meta[f"slice{n}_cold"]["wall_s"], 4),
+                    wall_s_warm=round(meta[f"slice{n}_warm"]["wall_s"], 4),
+                    wall_ms_per_inner_step=round(1e3 * meta[f"slice{n}_warm"]["wall_s"]
+                                                 / meta[f"slice{n}_warm"]["inner_steps"], 4),
+                    one_process_ms_per_inner_step=one_rank_ms[n],
+                    collectives=meta[f"slice{n}_warm"]["collectives"],
+                    resample_gather_ms=round(g["ms"], 4), resample_gather_bytes=g["bytes"])
+    for r, (arrays, meta) in enumerate(two):
+        for job, kernels in (("grow", ("resample_count", "fused_propagate_ucsv")),
+                             ("full", ("resample_sorted", "ucsv_propagate"))):
+            rec = meta[job]
+            if rec["final_n"] != N_CAP or len(rec["doubled_at"]) != 3:
+                raise AssertionError(f"parallel {job} rank {r}: N={rec['final_n']} after "
+                                     f"doublings at {rec['doubled_at']}")
+            expect_counts(f"parallel {job} rank {r}", rec["counts"],
+                          {k: rec["inner_steps"] for k in kernels})
+            offsets = {x[2] for x in rec["seen"]}
+            rows = {x[1] for x in rec["seen"]}
+            if {x[0] for x in rec["seen"]} != set(kernels) or rows != {256} \
+                    or offsets != {None, 256 * r}:
+                raise AssertionError(f"parallel {job} rank {r}: launches at {rec['seen']}")
+            say("parallel", world=2, backend="gloo", rank=r, exchange=job,
+                shape=f"512x{DT_N}..{N_CAP}", bitwise_as_one_process=True,
+                inner_steps=rec["inner_steps"], doubled_at_t=rec["doubled_at"],
+                wall_s=round(rec["wall_s"], 4),
+                wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+                collectives=rec["collectives"])
+        expect_counts(f"parallel ibis rank {r}", meta["ibis"]["counts"], {})
+        say("parallel", world=2, backend="gloo", rank=r, ibis=f"{DT_M} θ",
+            bitwise_as_one_process=True, wall_s=round(meta["ibis"]["wall_s"], 4),
+            collectives=meta["ibis"]["collectives"])
+    for job in refs:  # the ranks agree with each other too (implied; checked once more)
+        if not np.array_equal(two[0][0][f"{job}/theta"], two[1][0][f"{job}/theta"]):
+            raise AssertionError(f"parallel {job}: the ranks' θ differ")
+    return total
+
+
+def check_animations(torch):
+    """Phase 27: both animation programs at their defaults without figures,
+    ANIMATION_SEEDS seeds each. Returns their launch counts."""
+    import tempfile
+
+    from sequential_monte_carlo_tpu_torch.examples import sv_animation, ucsv_animation
+
+    outdir = tempfile.mkdtemp(prefix="smc_animations_")
+    total = {}
+    for name, run, kernel in (
+            ("sv", lambda s: sv_animation.run_animation(
+                out=f"{outdir}/sv.gif", figures=False, device="cuda", seed=s),
+             "fused_propagate_sv"),
+            ("ucsv", lambda s: ucsv_animation.run_animation(
+                out=f"{outdir}/ucsv.gif", figures=False, device="cuda", seed=s),
+             "fused_propagate_ucsv")):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = [run(s) for s in range(ANIMATION_SEEDS)]
+        counts = launch_counts()
+        t_len = len(res[0]["y"])
+        expect_counts(f"animations ({name})", counts,
+                      {"resample_count": ANIMATION_SEEDS * (t_len - 1),
+                       kernel: ANIMATION_SEEDS * (t_len - 1)})
+        total = counts if not total else {k: v + counts[k] for k, v in total.items()}
+        lz = np.array([r["log_z"] for r in res])
+        with np.load(res[0]["npz"]) as z:
+            shapes = {k: z[k].shape for k in z.files}
+        if name == "sv":
+            ref = sv_grid_log_z(res[0]["y"], *sv_animation.SV_THETA)
+            tol = TOL_Z * lz.std(ddof=1) / math.sqrt(ANIMATION_SEEDS)
+            extra = {"grid_log_z": round(ref, 4)}
+        else:
+            ref, var, seeds = ANIMATION_UCSV_JAX
+            tol = TOL_Z * math.sqrt(var * (1.0 / ANIMATION_SEEDS + 1.0 / seeds))
+            extra = {"jax_log_z": ref}
+        if not abs(lz.mean() - ref) <= tol:
+            raise AssertionError(f"animations ({name}): mean log Z {lz.mean()} vs {ref} "
+                                 f"beyond {tol}")
+        say("animations", program=name, T=t_len, N=4096, seeds=ANIMATION_SEEDS,
+            log_z=np.round(lz, 4).tolist(), tolerance=round(tol, 4), **extra,
+            wall_s=[round(r["wall_s"], 4) for r in res],
+            wall_ms_per_step=round(1e3 * res[-1]["wall_s"] / (t_len - 1), 4),
+            launches={k: v for k, v in counts.items() if v}, npz=shapes)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2487,12 +2846,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     # the exchange's doublings run K1 and K2-UC-SV at 512×2048 and 512×4096
     # too; the LG banks run K1 at C=1 (dx=1) and C=5, 6 (dx=5, dx=5's APF)
+    # the parallel phase's two θ-shards run K1 and K3 at 256 rows
     doubling = [(512, 2048), (512, 4096)]
     k1 = check_k1(torch, [(m, n, c) for c in (3, 4, 2) for m, n in shapes]
                   + [(m, n, 3) for m, n in doubling] + [(512, 1000, 3)]
-                  + [(512, 1024, c) for c in (1, 5, 6)], gen)
+                  + [(512, 1024, c) for c in (1, 5, 6)] + [(256, 1024, 3), (256, 8192, 3)], gen)
     k2 = check_k2(torch, shapes + doubling, gen)
-    k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1)], gen)
+    k3 = check_k3(torch, [(512, 1024, 1), (512, 8192, 3), (512, 1000, 1), (256, 8192, 3)], gen)
     k2i = check_k2_instances(torch, shapes, gen)
 
     mark("build_and_kernels")
@@ -2568,10 +2928,10 @@ def main() -> int:
 
     # -- 14 to 18. the exchange step, large N, K2-LG at dx ≥ 3, IBIS, the
     # inner filter's other routes
-    exchange_counts, _ = check_exchange(torch, gen)
+    exchange_counts, _, exchange_states = check_exchange(torch, gen)
     large_counts = check_large_n(torch, gen, k1, k3, k2i)
     k2dx, lg_dx_counts = check_lg_dx(torch, shapes, gen)
-    check_ibis(torch)
+    ibis_state = check_ibis(torch)
     routes_counts = check_routes(torch)
 
     mark("exchange_to_routes")
@@ -2593,13 +2953,26 @@ def main() -> int:
 
     mark("dsl_inflation_utils")
 
+    # -- 26 and 27. θ-sharded SMC² and IBIS on two ranks of the card, the
+    # animations
+    refs = {"slice1024": _theta_fields(state), "slice8192": _theta_fields(fstate),
+            **{pad: _theta_fields(st) for pad, st in exchange_states.items()},
+            "ibis": {**_theta_fields(ibis_state), "mean": ibis_state.mean.cpu().numpy(),
+                     "cov": ibis_state.cov.cpu().numpy()}}
+    one_rank_ms = {1024: round(native_ms_per_step, 4),
+                   8192: round(1e3 * fwall / _schedule(finfos, CHAIN, []), 4)}
+    parallel_counts = check_parallel(torch, refs, one_rank_ms)
+    animation_counts = check_animations(torch)
+
+    mark("parallel_animations")
+
     # launches of each kernel over the main paths (slice at 512×1024 and
     # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
-    # per_theta, smoothing, pg, dsl, inflation, utils), each read just after
-    # its run
+    # per_theta, smoothing, pg, dsl, inflation, utils, parallel (every
+    # rank's runs), animations), each read just after its run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
             lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts,
-            dsl_counts, inflation_counts, utils_counts)
+            dsl_counts, inflation_counts, utils_counts, parallel_counts, animation_counts)
     launches = {k: sum(run[k] for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",
@@ -2660,4 +3033,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PARALLEL_WORKER]:
+        sys.exit(parallel_worker(sys.argv[2:]))
     sys.exit(main())

@@ -15,9 +15,13 @@ against:
                       Gibbs
   analysis/       L4  posterior summaries (weighted quantiles, SMC² and IBIS
                       summaries) and plotting (matplotlib, imported on use)
+  parallel/       L4  θ-sharded SMC² and IBIS over torch.distributed: the
+                      launcher, the (theta, particle) mesh, the
+                      particle-axis building blocks
   kernels/        L5  hand-written Hopper kernels (CUDA C++ and Triton)
   utils/              checkpoints, the CSV loader, debug and profiling helpers
-  examples/           the inflation and linear-Gaussian examples
+  examples/           the inflation and linear-Gaussian examples and the SV and
+                      UC-SV filtering animations
   interop.py          state and models carried across from the JAX package
 
 The inner filter is the bootstrap, guided or auxiliary particle filter, with
@@ -25,7 +29,7 @@ any of the JAX package's resampling schemes, at every step or when the ESS
 falls below a threshold. Entry points run on the device of the data they are
 given. Nothing here imports JAX.
 """
-from . import analysis, distributions, models, ops, samplers, utils
+from . import analysis, distributions, models, ops, parallel, samplers, utils
 from .distributions import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

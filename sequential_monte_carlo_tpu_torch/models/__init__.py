@@ -1,4 +1,4 @@
-from .base import StateSpaceModel, broadcast_model, simulate
+from .base import StateSpaceModel, broadcast_model, model_rows, simulate
 from .dsl import DSLModel, ModelSpec, linear_ssm_model, ssm_model
 from .linear_gaussian import (
     LinearGaussianModel,
@@ -23,6 +23,7 @@ __all__ = [
     "hodrick_prescott",
     "lg_model",
     "linear_ssm_model",
+    "model_rows",
     "multivariate_linear_gaussian",
     "simulate",
     "stochastic_volatility",

@@ -1,6 +1,6 @@
 """The state-space-model protocol and ancestral simulation (L1) —
 counterpart of ``sequential_monte_carlo_tpu/models/base.py`` — and the lift
-of one θ's model to a θ-cloud of identical rows.
+of one θ's model to a θ-cloud of identical rows, and a θ-cloud's rows.
 
 A model is anything with ``initial_distribution()``,
 ``transition_distribution(x)`` and ``observation_distribution(x)``
@@ -59,3 +59,12 @@ def broadcast_model(model, m: int = 1):
     return dataclasses.replace(model, **{
         name: v.expand((m,) + tuple(v.shape)).contiguous()
         for name, v in fields.items() if isinstance(v, torch.Tensor)})
+
+
+def model_rows(model, lo: int, hi: int):
+    """Rows [lo, hi) of a θ-cloud model (any family): every tensor field
+    sliced along its leading θ axis, as a view; other fields carried
+    through. A θ-sharded filter runs its rank's rows on this."""
+    fields = {f.name: getattr(model, f.name) for f in dataclasses.fields(model)}
+    return dataclasses.replace(model, **{
+        name: v[lo:hi] for name, v in fields.items() if isinstance(v, torch.Tensor)})

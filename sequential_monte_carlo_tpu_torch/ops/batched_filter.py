@@ -55,6 +55,22 @@ package, but their storage is planar — the (M, dx, N) cloud that the
 kernels read and write, seen through a transposed view (:func:`as_cloud`,
 :func:`from_cloud`) — so no step copies the cloud between layouts.
 
+θ-sharding (``config.mesh``, ``parallel.make_mesh``): the models are the
+whole M-row bank, and the particles and log-weights this rank's rows
+[r·M/R, (r+1)·M/R) (``ops/sharding.py``). Every draw is made at the whole
+bank's shape from the generator that all ranks hold alike, and this rank
+keeps its rows: the resample's draws and the CPU's normals are sliced, the
+kernels take ``row_offset`` = r·M/R (their Philox stream is keyed by the
+global row), and a draw through a distribution (the init, a model without a
+kernel, a guided proposal, the metropolis resampler) runs on the rank's rows
+tiled to M. So a sharded step computes, row for row, the unsharded step's
+numbers, and needs no collective: its rows are independent. The price of
+equal numbers: the resample's uniforms and, on the CPU, all the
+(n_normals, M, N) normals are drawn at the whole bank on every rank, and a
+draw through a distribution runs on the whole tiled bank, so those routes
+cost every rank R times its rows' work and sharding saves none of it. Only
+the kernel routes (K1/K3 and K2/K6 on the card) do a rank's rows alone.
+
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
 the CPU the normals themselves, from an explicit ``torch.Generator``; the
@@ -73,6 +89,7 @@ from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniform
 from ..kernels.resample_walk import resample_gather
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf, _residual_from_uniforms, get_resampler, metropolis
+from .sharding import local_model, local_rows, theta_rows, theta_shards, tile_rows
 from .weights import log_normalize
 
 __all__ = [
@@ -124,18 +141,26 @@ def kernel_params(models, config: PFConfig = PFConfig()):
     return None
 
 
-def propagate_reweight(models, y, cloud, draws, params=None):
+def propagate_reweight(models, y, cloud, draws, params=None, rows=None):
     """Propagate + reweight the (M, dx, N) cloud without the normalize:
     (new cloud (M, dx, N), log g(y | x′) (M, N)). Through the model's kernel
     (``draws`` its Philox seed or normals, :func:`_draws`), or, for a model
     without one, by a draw from its transition on the (N, M, dx) view, the
     layout of the models' distributions, and the observation density of the
-    draw (``draws`` the generator) — the JAX package's unfused route."""
+    draw (``draws`` the generator) — the JAX package's unfused route. With
+    ``rows`` (θ-sharding), ``models`` is the whole bank, the cloud and
+    ``params`` this rank's rows."""
+    local = local_model(models, rows)
     if _has_kernel(models):
-        return models.fused_propagate_reweight(y, cloud, params=params, normalize=False,
-                                               **_propagate_draws(draws))
-    x_new = models.transition_distribution(cloud.permute(2, 0, 1)).sample(draws)
-    incr = models.observation_distribution(x_new).log_prob(y)
+        return local.fused_propagate_reweight(y, cloud, params=params, normalize=False,
+                                              **_propagate_draws(draws, rows))
+    states = cloud.permute(2, 0, 1)
+    if rows is None:
+        x_new = models.transition_distribution(states).sample(draws)
+    else:  # drawn at the whole bank's shape, kept at this rank's rows
+        x_new = local_rows(models.transition_distribution(tile_rows(states, rows, 1))
+                           .sample(draws), rows, 1)
+    incr = local.observation_distribution(x_new).log_prob(y)
     return x_new.permute(1, 2, 0).contiguous(), incr.T.contiguous()
 
 
@@ -190,6 +215,13 @@ def _check_config(config: PFConfig, n: int, active_n=None) -> None:
         raise ValueError(f"active_n must be in [1, {n}], got {active_n}")
 
 
+def _rows(config: PFConfig, m_local: int):
+    """This rank's rows of the bank whose m_local rows it holds (None
+    without a mesh)."""
+    mesh = config.mesh
+    return None if mesh is None else theta_rows(mesh, m_local * theta_shards(mesh))
+
+
 def _active(active_n):
     """The live count as a host int (it sets the step's shapes of work)."""
     return None if active_n is None else int(active_n)
@@ -202,17 +234,21 @@ def batched_pf_init(generator, models, n: int, m: int, y0,
     observation density; with ``config.proposal``, N draws from its initial
     distribution q0, weighted by the observation density times p(x)/q0(x).
     With ``active_n``, slots ≥ active_n get log-weight −inf and the
-    evidence normalizes by active_n."""
+    evidence normalizes by active_n. With ``config.mesh``, ``models`` is
+    the whole M-row bank and the outputs are this rank's rows."""
     active_n = _active(active_n)
     _check_config(config, n, active_n)
+    rows = theta_rows(config.mesh, m)
     proposal = config.proposal
     q0 = models.initial_distribution() if proposal is None else proposal.initial(models)
     x = q0.sample(generator, (n,))  # (N, M, dx)
     if tuple(x.shape[:2]) != (n, m):
         raise ValueError(f"models must carry {m} θ, drew shape {tuple(x.shape)}")
-    logw = models.observation_distribution(x).log_prob(y0)
+    x, local = local_rows(x, rows, 1), local_model(models, rows)
+    logw = local.observation_distribution(x).log_prob(y0)
     if proposal is not None:
-        logw = logw + models.initial_distribution().log_prob(x) - q0.log_prob(x)
+        logw = (logw + local.initial_distribution().log_prob(x)
+                - proposal.initial(local).log_prob(x))
     logw = logw.T.contiguous()
     particles = from_cloud(x.permute(1, 2, 0).contiguous())
     if active_n is None:
@@ -224,7 +260,7 @@ def batched_pf_init(generator, models, n: int, m: int, y0,
 
 
 def _draws(generator, models, m: int, n: int, device,
-           config: PFConfig = PFConfig(), active_n=None):
+           config: PFConfig = PFConfig(), active_n=None, rows=None):
     """The step's randomness, drawn in this order:
 
     - the resample's: u0 (M, 1) (systematic, ``residual_systematic``), a
@@ -236,6 +272,9 @@ def _draws(generator, models, m: int, n: int, device,
     - the propagate's: a (1,) int64 Philox seed on a GPU or
       (n_normals, M, N) normals on the CPU; the generator itself for a
       guided proposal or a model without a kernel, which sample in the step.
+
+    With ``rows`` (θ-sharding), m is the whole bank's and this rank keeps
+    its rows of u and of the normals.
     """
     scheme = config.resampling
     if scheme == "metropolis" and active_n is None:
@@ -253,14 +292,20 @@ def _draws(generator, models, m: int, n: int, device,
     else:
         rest = torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=device, dtype=torch.int64)
+    if rows is not None:
+        if isinstance(u, torch.Tensor):
+            u = local_rows(u, rows).contiguous()
+        if isinstance(rest, torch.Tensor) and rest.dtype != torch.int64:
+            rest = local_rows(rest, rows, 1).contiguous()
     return u, rest
 
 
-def _propagate_draws(seed_or_normals) -> dict:
-    """The propagate kernel's draws: its Philox seed (an int64 tensor) or
-    its injected normals (a float tensor)."""
+def _propagate_draws(seed_or_normals, rows=None) -> dict:
+    """The propagate kernel's draws: its Philox seed (an int64 tensor) with
+    the global index of the rank's first row, or its injected normals (a
+    float tensor, already the rank's rows)."""
     if seed_or_normals.dtype == torch.int64:
-        return {"seed": seed_or_normals}
+        return {"seed": seed_or_normals, "row_offset": 0 if rows is None else rows.lo}
     return {"normals": seed_or_normals}
 
 
@@ -268,10 +313,11 @@ def _gather(cloud: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
     return torch.gather(cloud, 2, anc.long()[:, None, :].expand(cloud.shape))
 
 
-def _resample_gather(u, config: PFConfig, cloud, w, active_n=None):
+def _resample_gather(u, config: PFConfig, cloud, w, active_n=None, rows=None):
     """The resample + gather of :func:`_pf_step_from_draws`: the (M, C, N)
     cloud gathered by each row's ancestors under the weights w, from the
-    scheme's draws u (see :func:`_draws`)."""
+    scheme's draws u (see :func:`_draws`; the metropolis resampler draws
+    at the whole bank's shape under θ-sharding, ``rows``)."""
     scheme, n = config.resampling, cloud.shape[2]
     if active_n is not None:
         if scheme == "multinomial":  # unsorted uniforms: the inverse cdf
@@ -285,8 +331,10 @@ def _resample_gather(u, config: PFConfig, cloud, w, active_n=None):
         anc = _inverse_cdf(u, w)
     elif scheme == "residual":
         anc = _residual_from_uniforms(u, w)
-    else:
+    elif rows is None:
         anc = metropolis(u, w)
+    else:
+        anc = local_rows(metropolis(u, tile_rows(w, rows)), rows)
     return _gather(cloud, anc)
 
 
@@ -307,12 +355,14 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     with its Philox seed (an int64 tensor) or injected normals (a float
     tensor), or, from the generator passed in their place, a guided proposal
     or the transition of a model without a kernel. ``params`` are the
-    model's step-invariant kernel parameters (:func:`kernel_params`);
-    ``active_n`` the elastic live count."""
+    model's step-invariant kernel parameters (:func:`kernel_params`), the
+    rank's rows of them under θ-sharding, where ``models`` is the whole
+    bank; ``active_n`` the elastic live count."""
     n = particles.shape[1]
+    rows = _rows(config, particles.shape[0])
     cloud = as_cloud(particles)
     w = torch.exp(log_w)
-    xp = _resample_gather(u, config, cloud, w, active_n)
+    xp = _resample_gather(u, config, cloud, w, active_n, rows)
     if active_n is None:
         reset, n_live = torch.full_like(log_w, -math.log(n)), n
     else:
@@ -329,18 +379,20 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         # carry + logw is the evidence increment; else the log-mean of the
         # unnormalized weights (the weights after resampling are all 1/N)
         carry = lw if config.ess_threshold < 1.0 else None
-        new, log_norm, lse, ess = models.fused_propagate_reweight(
-            y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals))
+        new, log_norm, lse, ess = local_model(models, rows).fused_propagate_reweight(
+            y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals, rows))
         log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
         return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
     if config.proposal is None:
-        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params)
+        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params, rows)
     else:
         states = xp.permute(2, 0, 1)  # (N, M, dx): the models' distributions' layout
+        if rows is not None:  # the whole bank's draw, kept at this rank's rows
+            states = tile_rows(states, rows, 1)
         q = config.proposal.step(models, states)
         x_new = q.sample(seed_or_normals)
-        incr = _guided_increment(models, q, states, x_new, y).T
-        new = x_new.permute(1, 2, 0).contiguous()
+        incr = local_rows(_guided_increment(models, q, states, x_new, y).T, rows)
+        new = local_rows(x_new, rows, 1).permute(1, 2, 0).contiguous()
     if active_n is not None:
         incr = torch.where(live, incr, 0.0)  # the dead tail stays exactly −inf
     log_mean, log_norm, ess = log_normalize(lw + incr, log_n=0.0)
@@ -365,11 +417,12 @@ def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     copied), then the correction and the normalize."""
     n, dx = particles.shape[1], particles.shape[2]
     log_n = math.log(n)
-    log_g_mu = apf_lookahead(models, particles, y)
+    rows = _rows(config, particles.shape[0])
+    log_g_mu = apf_lookahead(local_model(models, rows), particles, y)
     lam_mean, lam_norm, _ = log_normalize(log_w + log_g_mu)
     aug = torch.cat([as_cloud(particles), log_g_mu[:, None, :]], dim=1)
-    gathered = _resample_gather(u, config, aug, torch.exp(lam_norm))
-    new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params)
+    gathered = _resample_gather(u, config, aug, torch.exp(lam_norm), rows=rows)
+    new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params, rows)
     corr_mean, log_norm, ess = log_normalize(incr - gathered[:, dx])
     return BatchedPFOut(from_cloud(new), log_norm, lam_mean + log_n + corr_mean, ess)
 
@@ -382,11 +435,17 @@ def batched_pf_step(generator, models, particles, log_w, y,
     y and normalize — or, with ``config.algorithm == "apf"``, the auxiliary
     particle filter's step. ``params``: :func:`kernel_params`, computed
     once by callers that step the same models many times. ``active_n``: the
-    elastic live count (slots past it are dead, at log-weight −inf)."""
+    elastic live count (slots past it are dead, at log-weight −inf). With
+    ``config.mesh``, ``models`` and ``params`` are the whole M-row bank's
+    and the particles and log-weights this rank's rows."""
     m, n, _ = particles.shape
     active_n = _active(active_n)
     _check_config(config, n, active_n)
-    u, rest = _draws(generator, models, m, n, particles.device, config, active_n)
+    rows = _rows(config, m)
+    if rows is not None:
+        m = rows.m
+        params = None if params is None else local_rows(params, rows)
+    u, rest = _draws(generator, models, m, n, particles.device, config, active_n, rows)
     if config.algorithm == "apf":
         return _apf_step_from_draws(u, rest, models, particles, log_w, y, config, params)
     return _pf_step_from_draws(u, rest, models, particles, log_w, y, config, params, active_n)
@@ -400,7 +459,8 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     masked scan over all T). ``mask`` is read on the host; the model's
     kernel parameters are packed once, outside the loop.
 
-    Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
+    Returns (particles (M, N, dx), log_w (M, N), log Z (M,)), this rank's
+    rows of them under ``config.mesh``."""
     init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
     params = kernel_params(models, config)

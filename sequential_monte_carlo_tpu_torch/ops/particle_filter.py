@@ -54,14 +54,17 @@ class Proposal(NamedTuple):
 
 
 class PFConfig(NamedTuple):
-    """Static filter configuration. The JAX package's TPU routing fields
-    (``fused_resample``, ``mesh``) have no counterpart: the port has one
-    route per device."""
+    """Static filter configuration. The JAX package's TPU routing field
+    ``fused_resample`` has no counterpart: the port has one route per
+    device. ``mesh`` (JAX's field) is the (theta, particle) mesh of a
+    θ-sharded run (``parallel.make_mesh``): the batched filter then holds
+    this rank's rows of the bank (``ops/batched_filter.py``)."""
 
     resampling: str = "systematic"
     ess_threshold: float = 1.0  # resample when ESS < τ·N; 1.0 ≡ every step
     proposal: object = None  # a Proposal for the guided filter; None = bootstrap
     algorithm: str = "bootstrap"  # or "apf"
+    mesh: object = None  # a DeviceMesh: θ-sharded over its theta axis
 
 
 class ParticleState(NamedTuple):

@@ -1,6 +1,7 @@
 """Resampling schemes as ancestor-index computations — counterpart of
-``sequential_monte_carlo_tpu/ops/resampling.py`` less its sharded variants
-(ROADMAP Queue 1 item 15): ``multinomial`` (the θ-resampler,
+``sequential_monte_carlo_tpu/ops/resampling.py`` (the systematic resampler
+of a particle axis sharded over ranks is ``parallel/collective.py``'s):
+``multinomial`` (the θ-resampler,
 ``SMCConfig.theta_resampling``), ``systematic``, ``stratified``,
 ``residual`` (remainder-multinomial), ``residual_systematic`` (pointwise
 ``systematic``) and ``metropolis`` (Murray, arXiv 1202.6163).

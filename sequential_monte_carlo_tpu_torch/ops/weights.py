@@ -1,13 +1,16 @@
 """Log-weight normalization and effective-sample-size math — counterpart of
-``sequential_monte_carlo_tpu/ops/weights.py`` less its sharded variants
-(ROADMAP Queue 1 item 15): ``normalize`` (and its alias ``reweight``) to
-linear weights, ``log_normalize`` in log space, ``ess_from_log_weights``."""
+``sequential_monte_carlo_tpu/ops/weights.py``: ``normalize`` (and its alias
+``reweight``) to linear weights, ``log_normalize`` in log space,
+``ess_from_log_weights``, and ``normalize_sharded`` over a particle axis
+split across the ranks of a process group."""
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
 import torch
+
+from .sharding import all_reduce
 
 
 class Normalized(NamedTuple):
@@ -55,3 +58,19 @@ def ess_from_log_weights(log_w: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """ESS = 1/Σw² of the normalized weights, computed in log space."""
     lw = log_w - torch.logsumexp(log_w, dim=dim, keepdim=True)
     return 1.0 / torch.sum(torch.exp(2.0 * lw), dim=dim)
+
+
+def normalize_sharded(log_w: torch.Tensor, group=None) -> Normalized:
+    """``normalize`` of a particle axis split over the ranks of ``group``
+    (the default group when None): each rank holds a slice of it in its
+    trailing dim, and the max and the sums ride ``all_reduce``. The total
+    particle count is local N × the group's size."""
+    n = log_w.shape[-1] * torch.distributed.get_world_size(group)
+    maxw = all_reduce(torch.amax(log_w, dim=-1, keepdim=True), "max", group)
+    maxw = torch.where(torch.isfinite(maxw), maxw, 0.0)
+    w = torch.exp(log_w - maxw)
+    sumw = all_reduce(torch.sum(w, dim=-1, keepdim=True), "sum", group)
+    log_mean = torch.squeeze(maxw, -1) + torch.log(torch.squeeze(sumw, -1)) - math.log(n)
+    w = w / sumw
+    ess = 1.0 / all_reduce(torch.sum(w * w, dim=-1), "sum", group)
+    return Normalized(log_mean, w, ess)

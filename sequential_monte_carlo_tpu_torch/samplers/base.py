@@ -55,6 +55,7 @@ class SMC2State:
 
     theta: torch.Tensor  # (M, dθ)
     log_omega: torch.Tensor  # (M,) unnormalized θ log-weights
+    # the clouds: under θ-sharding this rank's M/R rows
     particles: torch.Tensor  # (M, N, dx), planar storage
     log_w: torch.Tensor  # (M, N) normalized per-θ particle log-weights
     log_z: torch.Tensor  # (M,) running per-θ marginal-likelihood estimate
@@ -83,6 +84,7 @@ class IBISState:
 
     theta: torch.Tensor  # (M, dθ)
     log_omega: torch.Tensor  # (M,)
+    # the Kalman bank: under θ-sharding this rank's M/R rows
     mean: torch.Tensor  # (M, dx) Kalman filtered means
     cov: torch.Tensor  # (M, dx, dx) Kalman filtered covariances
     log_z: torch.Tensor  # (M,)

@@ -44,6 +44,9 @@ def density_tempered(sampler: SMC2, generator, y, verbose: bool = False):
     """Run density-tempered SMC to ξ = 1 on the observations y (T,), on
     their device. Returns (state, [TemperStage, ...])."""
     cfg = sampler.config
+    if cfg.inner.mesh is not None:
+        raise ValueError("density_tempered runs unsharded: pass a sampler whose "
+                         "inner PFConfig carries no mesh")
     T = y.shape[0]
     theta = sampler.prior.sample(generator, (cfg.n_theta,))
     particles, log_w, log_z = batched_log_likelihood(

@@ -8,6 +8,12 @@ Linear-Gaussian models only.
 The M Kalman filters are one batched bank (``ops/kalman.py``): a step is a
 few (M, dx, dx) products. Like the port's SMC², a host loop with an explicit
 ``torch.Generator``; it runs no kernel.
+
+θ-sharding (``config.inner.mesh``, ``parallel.ShardedIBIS``): as SMC²'s, θ,
+log ω, log Z, the ESS and t are whole on every rank and the Kalman bank's
+``mean`` and ``cov`` hold the rank's rows; the per-row log-likelihoods of a
+step and of a rejuvenation's proposals are gathered whole, and a θ-resample
+gathers the bank and keeps the ancestors' rows of this rank.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from ..ops.kalman import KalmanState, kalman_init, kalman_log_likelihood_masked, kalman_step
 from ..ops.resampling import get_resampler
+from ..ops.sharding import all_gather_rows, local_model, local_rows, theta_rows
 from ..ops.weights import ess_from_log_weights
 from ..utils.struct import replace
 from .base import IBISState, SMCConfig, StepInfo
@@ -40,14 +47,20 @@ class IBIS:
         self.model_fn = model_fn
         self.prior = prior
         self.config = config
+        # this rank's rows of the θ-bank under config.inner.mesh
+        self._rows = theta_rows(config.inner.mesh, config.n_theta)
+
+    def _models(self, theta: torch.Tensor):
+        """This rank's rows of the θ-cloud's models."""
+        return local_model(self.model_fn(theta), self._rows)
 
     def init(self, generator, y) -> IBISState:
         """θ from the prior; each θ's Kalman state updated with y[0]."""
         cfg = self.config
         theta = self.prior.sample(generator, (cfg.n_theta,))
-        models = self.model_fn(theta)
+        models = self._models(theta)
         out = kalman_step(models, kalman_init(models), y[0])
-        ll = out.log_lik
+        ll = all_gather_rows(out.log_lik, self._rows)
         return IBISState(theta=theta, log_omega=ll, mean=out.state.mean, cov=out.state.cov,
                          log_z=ll, ess=ess_from_log_weights(ll),
                          acc_ratio=torch.zeros((), device=theta.device), t=1)
@@ -56,7 +69,10 @@ class IBIS:
         """Multinomial resample of θ, co-indexing the Kalman states and log Z."""
         w = torch.softmax(state.log_omega, dim=0)
         a = get_resampler(self.config.theta_resampling)(generator, w).long()
-        return replace(state, theta=state.theta[a], mean=state.mean[a], cov=state.cov[a],
+        mine = local_rows(a, self._rows)
+        return replace(state, theta=state.theta[a],
+                       mean=all_gather_rows(state.mean, self._rows)[mine],
+                       cov=all_gather_rows(state.cov, self._rows)[mine],
                        log_z=state.log_z[a], log_omega=torch.zeros_like(state.log_omega))
 
     def _rejuvenate(self, generator, state: IBISState, y, mask) -> IBISState:
@@ -72,7 +88,8 @@ class IBIS:
             ok = self.prior.in_support(theta_prop)
             theta_safe = torch.where(ok[:, None], theta_prop, theta)
             (mean_prop, cov_prop), logz_prop = kalman_log_likelihood_masked(
-                self.model_fn(theta_safe), y, mask)
+                self._models(theta_safe), y, mask)
+            logz_prop = all_gather_rows(logz_prop, self._rows)
             lp_prop = self.prior.log_prob(theta_prop)
             lp_curr = self.prior.log_prob(theta)
             log_ratio = (logz_prop - log_z) + (lp_prop - lp_curr)
@@ -80,8 +97,9 @@ class IBIS:
             log_u = torch.log(torch.rand(m, generator=generator, device=theta.device))
             accept = ok & guard & (log_u < log_ratio)
             theta = torch.where(accept[:, None], theta_prop, theta)
-            mean = torch.where(accept[:, None], mean_prop, mean)
-            cov = torch.where(accept[:, None, None], cov_prop, cov)
+            mine = local_rows(accept, self._rows)
+            mean = torch.where(mine[:, None], mean_prop, mean)
+            cov = torch.where(mine[:, None, None], cov_prop, cov)
             log_z = torch.where(accept, logz_prop, log_z)
             accepted = accepted | accept
         return replace(state, theta=theta, mean=mean, cov=cov, log_z=log_z,
@@ -98,13 +116,14 @@ class IBIS:
         if degenerate:
             mask = torch.arange(y.shape[0]) < state.t
             state = self._rejuvenate(generator, self._resample_theta(generator, state), y, mask)
-        out = kalman_step(self.model_fn(state.theta), KalmanState(state.mean, state.cov),
+        out = kalman_step(self._models(state.theta), KalmanState(state.mean, state.cov),
                           y[state.t])
+        log_lik = all_gather_rows(out.log_lik, self._rows)
         prev_lse = torch.logsumexp(state.log_omega, dim=0)
-        log_omega = state.log_omega + out.log_lik
+        log_omega = state.log_omega + log_lik
         ess = ess_from_log_weights(log_omega)
         state = replace(state, mean=out.state.mean, cov=out.state.cov, log_omega=log_omega,
-                        log_z=state.log_z + out.log_lik, ess=ess, t=state.t + 1)
+                        log_z=state.log_z + log_lik, ess=ess, t=state.t + 1)
         info = StepInfo(ess=ess, rejuvenated=torch.tensor(degenerate),
                         acc_ratio=state.acc_ratio,
                         log_evidence_incr=torch.logsumexp(log_omega, dim=0) - prev_lse)

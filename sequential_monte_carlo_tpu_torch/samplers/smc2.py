@@ -29,6 +29,19 @@ corrected by new log Z − old log Z. ``SMCConfig.elastic_pad`` picks how:
   count ``state.active_n`` doubles inside the step, right after the
   rejuvenation, with the refilter at the padded shape; slots past it hold
   log-weight −inf.
+
+θ-sharding (``config.inner.mesh``, ``parallel.ShardedSMC2``): every rank
+runs this program in lockstep. The θ-level state (θ, log ω, log Z, ESS, the
+acceptance rate, t) is whole on every rank and the clouds (``particles``,
+``log_w``) hold the rank's rows [r·M/R, (r+1)·M/R). The filters return the
+rank's rows, and one ``all_gather`` a event makes their per-row numbers
+whole: the evidence increments of an online step, the log-likelihoods of a
+rejuvenation's proposals (after its whole masked filter) and of a refilter.
+A θ-resample gathers the clouds whole and keeps the ancestors' rows of this
+rank. Every draw is made at the whole bank's shape from the generator all
+ranks hold alike, and the gathers are exact, so the host's decisions (the
+θ-ESS, the exchange test) read the same values on every rank and a sharded
+run equals the unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ from ..ops.batched_filter import (
     from_cloud,
 )
 from ..ops.resampling import get_resampler
+from ..ops.sharding import all_gather_rows, local_rows, theta_rows
 from ..ops.weights import ess_from_log_weights
 from ..utils.struct import replace
 from .base import SMC2State, SMCConfig, StepInfo
@@ -119,6 +133,16 @@ class SMC2:
             while n_pad <= config.exchange_max_n:
                 n_pad *= 2
         self._n_pad = n_pad
+        # this rank's rows of the θ-bank under config.inner.mesh
+        self._rows = theta_rows(config.inner.mesh, config.n_theta)
+
+    def _whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a per-row quantity, gathered whole."""
+        return all_gather_rows(x, self._rows)
+
+    def _mine(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole per-row quantity."""
+        return local_rows(x, self._rows)
 
     def _active(self, state: SMC2State):
         return state.active_n if self._use_active else None
@@ -131,13 +155,14 @@ class SMC2:
         outs = batched_pf_init(generator, self.model_fn(theta), self._n_pad, cfg.n_theta,
                                y[0], cfg.inner,
                                cfg.n_particles if self._use_active else None)
+        log_mean = self._whole(outs.log_mean)
         return SMC2State(
             theta=theta,
-            log_omega=outs.log_mean,
+            log_omega=log_mean,
             particles=outs.particles,
             log_w=outs.log_weights,
-            log_z=outs.log_mean,
-            ess=ess_from_log_weights(outs.log_mean),
+            log_z=log_mean,
+            ess=ess_from_log_weights(log_mean),
             acc_ratio=torch.zeros((), device=theta.device),
             t=1,
             active_n=cfg.n_particles,
@@ -146,14 +171,16 @@ class SMC2:
 
     def _resample_theta(self, generator, state: SMC2State) -> SMC2State:
         """Multinomial resample of the θ-particles, co-indexing their clouds
-        and running log Z."""
+        and running log Z (under θ-sharding the clouds are gathered whole and
+        each rank keeps its rows' ancestors)."""
         w = torch.softmax(state.log_omega, dim=0)
         a = get_resampler(self.config.theta_resampling)(generator, w).long()
+        mine = self._mine(a)
         return replace(
             state,
             theta=state.theta[a],
-            particles=from_cloud(as_cloud(state.particles)[a]),
-            log_w=state.log_w[a],
+            particles=from_cloud(self._whole(as_cloud(state.particles))[mine]),
+            log_w=self._whole(state.log_w)[mine],
             log_z=state.log_z[a],
             log_omega=torch.zeros_like(state.log_omega),
         )
@@ -178,6 +205,7 @@ class SMC2:
                 generator, self.model_fn(theta_safe), n, m, y, mask, cfg.inner,
                 self._active(state)
             )
+            logz_prop = self._whole(logz_prop)
             lp_prop = self.prior.log_prob(theta_prop)
             lp_curr = self.prior.log_prob(theta)
             log_ratio = xi * (logz_prop - log_z) + (lp_prop - lp_curr)
@@ -186,8 +214,9 @@ class SMC2:
                                          device=theta.device))
             accept = ok & guard & (log_u < log_ratio)
             theta = torch.where(accept[:, None], theta_prop, theta)
-            cloud = torch.where(accept[:, None, None], as_cloud(new_p), cloud)
-            log_w = torch.where(accept[:, None], new_lw, log_w)
+            mine = self._mine(accept)
+            cloud = torch.where(mine[:, None, None], as_cloud(new_p), cloud)
+            log_w = torch.where(mine[:, None], new_lw, log_w)
             log_z = torch.where(accept, logz_prop, log_z)
             accepted = accepted | accept
         return replace(
@@ -217,6 +246,7 @@ class SMC2:
         particles, log_w, log_z = batched_log_likelihood_masked(
             generator, self.model_fn(state.theta), n, cfg.n_theta, y, mask, cfg.inner,
             active_n)
+        log_z = self._whole(log_z)
         log_omega = log_z - state.log_z
         return replace(state, particles=particles, log_w=log_w, log_z=log_z,
                        log_omega=log_omega, ess=ess_from_log_weights(log_omega))
@@ -253,15 +283,16 @@ class SMC2:
         outs = batched_pf_step(generator, self.model_fn(state.theta),
                                state.particles, state.log_w, y[state.t],
                                cfg.inner, active_n=self._active(state))
+        log_mean = self._whole(outs.log_mean)
         prev_lse = torch.logsumexp(state.log_omega, dim=0)
-        log_omega = state.log_omega + outs.log_mean
+        log_omega = state.log_omega + log_mean
         ess = ess_from_log_weights(log_omega)
         state = replace(
             state,
             log_omega=log_omega,
             particles=outs.particles,
             log_w=outs.log_weights,
-            log_z=state.log_z + outs.log_mean,
+            log_z=state.log_z + log_mean,
             ess=ess,
             t=state.t + 1,
         )

@@ -7,7 +7,10 @@ native CSV loader, and at the UC model's θ̂ its filtered quantiles and FFBS
 smoothed trend agree with the Kalman filter's Gaussian quantiles and
 ``kalman_smooth`` (the UC model is linear). The linear-Gaussian example
 passes its own checks (the Kalman log Z, the exact-IS posterior oracle) at
-small M and N."""
+small M and N. The two animations write their frames' series (and, with
+figures, the GIF); the SV filter's log Z agrees with a grid filter's, and
+the UC-SV filter's log Z and quantile bands with the JAX program's in
+distribution (the random streams differ: DEVIATIONS.md §4)."""
 import os
 
 import numpy as np
@@ -15,7 +18,12 @@ import pytest
 import torch
 
 import sequential_monte_carlo_tpu_torch as tsmc
-from sequential_monte_carlo_tpu_torch.examples import inflation, linear_gaussian
+from sequential_monte_carlo_tpu_torch.examples import (
+    inflation,
+    linear_gaussian,
+    sv_animation,
+    ucsv_animation,
+)
 
 # One intra-op thread, as in the other port test files (ROADMAP Queue 3).
 torch.set_num_threads(1)
@@ -112,3 +120,79 @@ def test_linear_gaussian_example_check_can_fail():
     with pytest.raises(AssertionError, match="oracle"):
         linear_gaussian.check_posterior("x", torch.tensor([0.0, 0.0, 0.0]),
                                         torch.tensor([0.5, 0.9, 0.8]))
+
+
+def test_sv_animation_series_and_log_z_against_grid_filter(tmp_path):
+    """The SV animation at T=40, N=512 over 4 seeds: its .npz holds each
+    frame's quantiles and histogram (the weighted histogram's masses sum to
+    1), and the mean log Z sits within 5 standard errors of the point-mass
+    grid filter's (chip_smoke.sv_grid_log_z)."""
+    import chip_smoke
+
+    t, bins = 40, 20
+    runs = [sv_animation.run_animation(t=t, n=512, bins=bins, out=str(tmp_path / f"sv{s}.gif"),
+                                       figures=False, device="cpu", seed=s) for s in range(4)]
+    with np.load(runs[0]["npz"]) as z:
+        assert z["q"].shape == (t, 3) and z["hist"].shape == (t, bins)
+        assert z["y"].shape == z["x_true"].shape == (t,) and z["edges"].shape == (bins + 1,)
+        assert np.all(z["q"][:, 0] <= z["q"][:, 2])
+        np.testing.assert_allclose(z["hist"].sum(1), 1.0, rtol=1e-5)
+    assert not any(p.suffix == ".gif" for p in tmp_path.iterdir())
+    lz = np.array([r["log_z"] for r in runs])
+    exact = chip_smoke.sv_grid_log_z(runs[0]["y"], *sv_animation.SV_THETA)
+    assert abs(lz.mean() - exact) <= 5.0 * lz.std(ddof=1) / 2.0, (lz, exact)
+
+
+def test_ucsv_animation_against_the_jax_program(tmp_path):
+    """The UC-SV animation's filter at θ̂ on the PCE series, N=1024, 4 seeds
+    each, against the JAX program's (filter_sequence, fused_resample="off"):
+    the mean log Z within 5 combined standard errors, and the trend and both
+    volatilities' 16/50/84% bands, seed-averaged, within 0.3 of JAX's mean
+    band width averaged over t (about twice the gap seen at N=512)."""
+    import jax
+    import jax.numpy as jnp
+
+    import sequential_monte_carlo_tpu as jsmc
+    from sequential_monte_carlo_tpu.analysis import weighted_quantile as jax_quantile
+
+    n, seeds = 1024, 4
+    port = [ucsv_animation.run_animation(n=n, out=str(tmp_path / f"ucsv{s}.gif"),
+                                         figures=False, device="cpu", seed=s)
+            for s in range(seeds)]
+    with np.load(port[0]["npz"]) as z:
+        assert z["xq"].shape == z["seq"].shape == z["snq"].shape == (T, 3)
+        assert z["y"].shape == z["dates"].shape == (T,)
+    ps = jnp.array(ucsv_animation.PS)
+
+    def summarize(st):
+        w, x = jnp.exp(st.log_weights), st.particles
+        return {"xq": jax_quantile(x[:, 0], w, ps),
+                "seq": jax_quantile(jnp.exp(0.5 * x[:, 1]), w, ps),
+                "snq": jax_quantile(jnp.exp(0.5 * x[:, 2]), w, ps)}
+
+    model = jsmc.ucsv_model(jnp.asarray(ucsv_animation.THETA_HAT, jnp.float32))
+    y = jnp.asarray(port[0]["y"])
+    cfg = jsmc.PFConfig("systematic", 1.0, "off")
+    ref = [jsmc.filter_sequence(jax.random.key(s), model, n, y, cfg, summarize=summarize)
+           for s in range(seeds)]
+    lp = np.array([r["log_z"] for r in port])
+    lj = np.array([float(r[1]) for r in ref])
+    se = np.sqrt(lp.var(ddof=1) / seeds + lj.var(ddof=1) / seeds)
+    assert abs(lp.mean() - lj.mean()) <= 5.0 * se, (lp, lj)
+    for k in ("xq", "seq", "snq"):
+        qj = np.mean([np.asarray(r[2]["summary"][k]) for r in ref], 0)
+        qp = np.mean([r[k] for r in port], 0)
+        width = (qj[:, 2] - qj[:, 0]).mean()
+        assert np.abs(qp - qj).mean() / width < 0.3, k
+
+
+@pytest.mark.parametrize("program", ["sv", "ucsv"])
+def test_animation_writes_gif_beside_series(tmp_path, program):
+    """With figures (matplotlib here), the GIF and its .npz side by side."""
+    out = str(tmp_path / f"{program}.gif")
+    if program == "sv":
+        sv_animation.run_animation(t=6, n=64, bins=8, out=out, device="cpu")
+    else:
+        ucsv_animation.run_animation(n=64, out=out, device="cpu", t=6)
+    assert sorted(os.listdir(tmp_path)) == [f"{program}.gif", f"{program}.npz"]
+    assert os.path.getsize(out) > 0

@@ -1,0 +1,369 @@
+"""Worker of the port's multi-rank CPU tests (test_torch_parallel.py,
+test_torch_collective.py, test_torch_multihost.py): one rank of a gloo
+world on the CPU, joined through a ``file://`` store, one thread.
+
+    python tests/torch_dist_worker.py SUITE RANK WORLD STORE OUT_DIR
+
+Runs SUITE's cases (every rank alike) and writes ``OUT_DIR/RANK.npz``; the
+parent process compares them. Imports the port only, never JAX: the JAX
+numbers a suite needs come in as ``OUT_DIR/inputs.npz``. Suite "plain"
+runs the one-process references without a process group.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import sequential_monte_carlo_tpu_torch as smc  # noqa: E402
+from sequential_monte_carlo_tpu_torch import parallel  # noqa: E402
+from sequential_monte_carlo_tpu_torch.interop import prior_from_spec  # noqa: E402
+
+LG_PRIOR = [("truncated_normal", 0.0, 1.0, -1.0, 1.0), ("lognormal", 0.0, 1.0),
+            ("lognormal", 0.0, 1.0)]
+UCSV_PRIOR = [("uniform", 0.0, 1.0), ("normal", 3.0, 2.0), ("uniform", 0.0, 2.0),
+              ("uniform", 0.0, 2.0)]
+
+
+def lg_data(t: int = 40):
+    return smc.simulate(torch.Generator().manual_seed(1998),
+                        smc.lg_model(torch.tensor([0.5, 0.9, 0.8])), t)[1]
+
+
+def ucsv_data(t: int = 12):
+    return smc.simulate(torch.Generator().manual_seed(1998),
+                        smc.ucsv_model(torch.tensor([0.2, 3.0, 0.5, 0.5])), t)[1]
+
+
+def ar1_dsl():
+    """lg_model's AR(1) written with ``ssm_model``: the plain propagate route."""
+    normal = smc.Normal
+    return smc.ssm_model(
+        "ar1_dsl", params=("a", "q", "r"),
+        init=lambda p: dict(x=normal(0.0, 1.0)),
+        transition=lambda p, prev: dict(x=normal(p["a"] * prev["x"], torch.sqrt(p["q"]))),
+        observe=lambda p, s: normal(s["x"], torch.sqrt(p["r"])))
+
+
+# a guided proposal: the LG transition widened 1.5-fold
+WIDENED = smc.Proposal(
+    initial=lambda m: m.initial_distribution(),
+    step=lambda m, xp: smc.Product(smc.Normal(m.A[..., 0, :] * xp,
+                                              1.5 * torch.sqrt(m.Q[..., 0, :]))))
+
+
+def lg_cfg(**kw):
+    base = dict(n_particles=128, n_theta=64, chain=2, ess_threshold=0.5)
+    return smc.SMCConfig(**{**base, **kw})
+
+
+# (model_fn, prior, data, config, exchange stepping) of every SMC² route
+ROUTES = {
+    "lg_systematic": lambda: (smc.lg_model, LG_PRIOR, lg_data(), lg_cfg()),
+    "ucsv_systematic": lambda: (smc.ucsv_model, UCSV_PRIOR, ucsv_data(),
+                                lg_cfg(n_particles=64, n_theta=32)),
+    "lg_stratified_carry": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                                    lg_cfg(inner=smc.PFConfig("stratified", 0.5))),
+    "lg_apf": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                       lg_cfg(inner=smc.PFConfig("systematic", 1.0, None, "apf"))),
+    "lg_guided": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                          lg_cfg(inner=smc.PFConfig(proposal=WIDENED))),
+    "lg_metropolis": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                              lg_cfg(inner=smc.PFConfig("metropolis"))),
+    "exchange_grow": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                              lg_cfg(n_particles=64, acc_threshold=1.1, exchange_max_n=128,
+                                     elastic_pad="grow")),
+    "exchange_full": lambda: (smc.lg_model, LG_PRIOR, lg_data(),
+                              lg_cfg(n_particles=64, acc_threshold=1.1, exchange_max_n=128,
+                                     elastic_pad="full")),
+    "ar1_dsl": lambda: (ar1_dsl(), LG_PRIOR, lg_data(), lg_cfg()),
+}
+EXCHANGE_STEPS = 20  # the JAX test's (test_parallel.py:198)
+
+
+def _theta_fields(state) -> dict:
+    return {"theta": state.theta, "log_omega": state.log_omega, "log_z": state.log_z,
+            "ess": state.ess, "t": torch.tensor(state.t),
+            "active_n": torch.tensor(state.active_n)}
+
+
+def run_route(name: str, mesh=None) -> dict:
+    """One SMC² route, sharded over ``mesh`` or (None) unsharded, from
+    seed 0: step + maybe_exchange over the whole series (20 steps on the
+    exchange routes). Returns the whole state's fields."""
+    model_fn, prior_spec, y, cfg = ROUTES[name]()
+    sampler = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
+    if mesh is not None:
+        sampler = parallel.ShardedSMC2(sampler, mesh)
+    gen = torch.Generator().manual_seed(0)
+    state = sampler.init(gen, y)
+    steps = EXCHANGE_STEPS if name.startswith("exchange") else y.shape[0] - 1
+    inner = sampler.sampler if mesh is not None else sampler
+    for _ in range(steps):
+        state, info = sampler.step(gen, state, y)
+        state = inner.maybe_exchange(gen, state, y, info)
+    whole = sampler.gather(state) if mesh is not None else state
+    out = _theta_fields(whole)
+    out["particles"], out["log_w"] = whole.particles, whole.log_w
+    return out
+
+
+def run_entry(kind: str, mesh=None) -> dict:
+    """``run`` with a collect_fn, and ``run_segmented`` split after 15
+    steps and resumed, through the wrapper (or the plain sampler)."""
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    sampler = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
+    if mesh is not None:
+        sampler = parallel.ShardedSMC2(sampler, mesh)
+    gen = torch.Generator().manual_seed(1)
+    if kind == "run":
+        state, (infos, series) = sampler.run(gen, y, collect_fn=smc.expected_parameters)
+        return {**_theta_fields(state), "infos_ess": infos.ess, "series": series}
+    state, infos = sampler.run_segmented(gen, y, segment_size=8, max_steps=15)
+    state, infos2 = sampler.run_segmented(gen, y, segment_size=8, state=state)
+    return {**_theta_fields(state), "infos_ess": torch.cat([infos.ess, infos2.ess])}
+
+
+def reshard_step(mesh=None) -> dict:
+    """An unsharded run's state after 5 steps, placed on this rank's rows
+    (``reshard``), then one sharded step: t + 1, and the unsharded step's
+    numbers."""
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    base = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
+    gen = torch.Generator().manual_seed(2)
+    state = base.init(gen, y)
+    for _ in range(5):
+        state, _ = base.step(gen, state, y)
+    if mesh is None:
+        stepped, _ = base.step(gen, state, y)
+        return _theta_fields(stepped)
+    sh = parallel.ShardedSMC2(base, mesh)
+    placed = sh.reshard(state)
+    if not torch.equal(placed.theta, state.theta):
+        raise AssertionError("reshard changed θ")
+    stepped, _ = sh.step(gen, placed, y)
+    return _theta_fields(stepped)
+
+
+def run_ibis(mesh=None) -> dict:
+    ibis = smc.IBIS(smc.lg_model, prior_from_spec(LG_PRIOR, device="cpu"),
+                    smc.SMCConfig(n_theta=64, chain=2, ess_threshold=0.5))
+    if mesh is not None:
+        ibis = parallel.ShardedIBIS(ibis, mesh)
+    state, infos = ibis.run(torch.Generator().manual_seed(3), lg_data())
+    whole = ibis.gather(state) if mesh is not None else state
+    return {"theta": whole.theta, "log_omega": whole.log_omega, "log_z": whole.log_z,
+            "ess": whole.ess, "mean": whole.mean, "cov": whole.cov,
+            "t": torch.tensor(whole.t), "rejuvenations": infos.rejuvenated.sum()}
+
+
+def _flat(prefix: str, d: dict) -> dict:
+    return {f"{prefix}/{k}": torch.as_tensor(v).numpy() for k, v in d.items()}
+
+
+def suite_plain(out: dict) -> None:
+    for name in ROUTES:
+        out.update(_flat(name, run_route(name)))
+    for kind in ("run", "segmented"):
+        out.update(_flat(kind, run_entry(kind)))
+    out.update(_flat("reshard", reshard_step()))
+    out.update(_flat("ibis", run_ibis()))
+    out.update(_flat("multihost", multihost_run()))
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def suite_parallel(out: dict, world: int) -> None:
+    mesh = parallel.make_mesh(n_theta_shards=world)
+    out["mesh_shape"] = np.asarray(mesh.shape)
+    out["mesh_error"] = np.asarray(_raises(lambda: parallel.make_mesh(world + 1, 2)))
+    specs = parallel.smc2_state_shardings(mesh)
+    out["specs"] = np.asarray(json.dumps({k: getattr(specs, k) for k in
+                                          ("theta", "particles", "log_w", "log_z", "t")}))
+    for name in ROUTES:
+        out.update(_flat(name, run_route(name, mesh)))
+    for kind in ("run", "segmented"):
+        out.update(_flat(kind, run_entry(kind, mesh)))
+    out.update(_flat("reshard", reshard_step(mesh)))
+    out.update(_flat("ibis", run_ibis(mesh)))
+    # the rank's rows of a sharded state
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
+                                       cfg), mesh)
+    st = sh.init(torch.Generator().manual_seed(0), y)
+    out["dt_error"] = np.asarray(_raises(lambda: smc.density_tempered(
+        sh.sampler, torch.Generator().manual_seed(0), y)))
+    out["local_particles_shape"] = np.asarray(st.particles.shape)
+    out["local_theta_shape"] = np.asarray(st.theta.shape)
+    if world == 4:  # a mesh that shards particles
+        pmesh = parallel.make_mesh(2, 2)
+        out["pmesh_shape"] = np.asarray(pmesh.shape)
+        cfg_p = cfg._replace(inner=cfg.inner._replace(mesh=pmesh))
+        out["particle_error"] = np.asarray(_raises(
+            lambda: smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg_p)))
+        out["particle_error_sharded"] = np.asarray(_raises(
+            lambda: parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(
+                prior_spec, device="cpu"), cfg), pmesh)))
+
+
+def multihost_run(mesh=None) -> dict:
+    """The JAX multi-host worker's run (tests/multihost_worker.py): LG,
+    M=32, N=64, T=24, chain=2; t, the θ-ESS and θ̂."""
+    y = lg_data(24)
+    sampler = smc.SMC2(smc.lg_model, prior_from_spec(LG_PRIOR, device="cpu"),
+                       smc.SMCConfig(n_particles=64, n_theta=32, chain=2, ess_threshold=0.5))
+    if mesh is not None:
+        sampler = parallel.ShardedSMC2(sampler, mesh)
+    gen = torch.Generator().manual_seed(0)
+    state = sampler.init(gen, y)
+    for _ in range(1, y.shape[0]):
+        state, _ = sampler.step(gen, state, y)
+    return {"t": torch.tensor(state.t), "ess": state.ess,
+            "theta_hat": smc.expected_parameters(state)}
+
+
+def suite_multihost(out: dict, world: int) -> None:
+    """Through the launcher: ``make_global_mesh`` over both processes and
+    ``process_info``; prints the JAX worker's JSON line."""
+    info = parallel.process_info()
+    if info["process_count"] != world or info["global_device_count"] != world:
+        raise AssertionError(f"process_info {info}")
+    mesh = parallel.make_global_mesh()
+    res = multihost_run(mesh)
+    out.update(_flat("multihost", res))
+    print(json.dumps({"process": info["process_index"], "ess": float(res["ess"]),
+                      "t": int(res["t"]), "theta_hat": res["theta_hat"].tolist(),
+                      "backend": info["backend"]}), flush=True)
+
+
+def suite_collective(out: dict, world: int) -> None:
+    """The particle-axis blocks on the parent's (JAX's) inputs: this rank's
+    slice of each."""
+    from sequential_monte_carlo_tpu_torch.parallel.collective import (
+        _systematic_from_u0, distributed_pf_step, gather_global)
+
+    inp = np.load(Path(sys.argv[5]) / "inputs.npz")
+    rank = torch.distributed.get_rank()
+
+    def mine(a, axis=0):
+        k = a.shape[axis] // world
+        return torch.from_numpy(np.take(a, np.arange(rank * k, (rank + 1) * k), axis=axis))
+
+    out["ancestors"] = _systematic_from_u0(torch.tensor(inp["u0"]), mine(inp["w"]), None).numpy()
+    n = 256
+    x = torch.arange(n, dtype=torch.float32)[:, None]
+    out["gathered"] = gather_global(mine(x.numpy()), mine(np.flip(np.arange(n)).copy()),
+                                    None).numpy()
+    norm = smc.normalize_sharded(mine(inp["log_w"], 1))
+    out["log_mean"], out["weights"], out["ess"] = (v.numpy() for v in norm)
+    # the sharded bootstrap filter on JAX's LG series, N = 1024
+    y = torch.from_numpy(inp["y"])
+    model = smc.lg_model(torch.tensor([0.5, 0.9, 0.8]))
+    gen = torch.Generator().manual_seed(11)
+    x0 = mine(model.initial_distribution().sample(gen, (1024,)).numpy())
+    lw0 = model.observation_distribution(x0).log_prob(y[0])
+    norm0 = smc.normalize_sharded(lw0)
+    xs, lw, logz, esss = x0, torch.log(norm0.weights), norm0.log_mean, []
+    for t in range(1, y.shape[0]):
+        xs, lw, lm, ess = distributed_pf_step(gen, model, xs, lw, y[t])
+        logz, esss = logz + lm, esss + [ess]
+    out["pf_log_z"], out["pf_ess"] = logz.numpy(), torch.stack(esss).numpy()
+
+
+def suite_diverge(out: dict, world: int) -> None:
+    """Rank 1 leaves the lockstep after 3 steps (as a rank whose host
+    decision differed would) and stops calling collectives; every rank
+    must end in an error within the process group's timeout."""
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
+                                       cfg), parallel.make_mesh())
+    gen = torch.Generator().manual_seed(0)
+    state = sh.init(gen, y)
+    rank = torch.distributed.get_rank()
+    for k in range(y.shape[0] - 1):
+        if rank == 1 and k == 3:
+            time.sleep(DIVERGE_TIMEOUT_S + 1.0)
+        t0 = time.perf_counter()
+        try:
+            state, _ = sh.step(gen, state, y)
+        except RuntimeError as e:  # DistBackendError and gloo's errors
+            out["error"] = np.asarray(repr(e)[:500])
+            out["wait_s"] = np.asarray(time.perf_counter() - t0)
+            return
+    out["error"] = np.asarray("")
+
+
+DIVERGE_TIMEOUT_S = 3.0
+
+
+def start_world(suite: str, world: int, out_dir: Path):
+    """Start ``world`` ranks of SUITE, one process each ("plain" takes
+    world 1); :func:`wait_world` collects them."""
+    import subprocess
+
+    store = Path(out_dir) / "store"
+    return out_dir, [subprocess.Popen([sys.executable, __file__, suite, str(r), str(world),
+                                       str(store), str(out_dir)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for r in range(world)]
+
+
+def wait_world(handle, timeout_s: float = 300.0):
+    """Wait for every rank of a started world, each within ``timeout_s``.
+    Returns (the ranks' npz contents, their stdouts); raises if a rank
+    failed, and kills any rank still running."""
+    out_dir, procs = handle
+    outs, failed = [], []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout_s)
+            outs.append(out)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n{out}\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return [dict(np.load(Path(out_dir) / f"{r}.npz")) for r in range(len(procs))], outs
+
+
+def run_world(suite: str, world: int, out_dir: Path, timeout_s: float = 300.0):
+    """:func:`start_world` then :func:`wait_world`."""
+    return wait_world(start_world(suite, world, out_dir), timeout_s)
+
+
+def main() -> None:
+    suite, rank, world, store, out_dir = sys.argv[1], *map(int, sys.argv[2:4]), *sys.argv[4:6]
+    torch.set_num_threads(1)
+    out: dict = {}
+    t0 = time.perf_counter()
+    if suite == "plain":
+        suite_plain(out)
+    else:
+        parallel.initialize_distributed(
+            init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu",
+            timeout_s=DIVERGE_TIMEOUT_S if suite == "diverge" else 120.0)
+        globals()[f"suite_{suite}"](out, world)
+        if suite != "diverge":
+            torch.distributed.destroy_process_group()
+    out["seconds"] = np.asarray(time.perf_counter() - t0)
+    np.savez(Path(out_dir) / f"{rank}.npz", **out)
+
+
+if __name__ == "__main__":
+    main()

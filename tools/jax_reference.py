@@ -4,7 +4,7 @@ checks, computed on the CPU.
 
     JAX_PLATFORMS=cpu python tools/jax_reference.py
         [--run dt|apf_ucsv|apf_lg|ucsv_bank|pg_ucsv|ffbs_ucsv|pg_lg|inflation_uc|
-               inflation_ucsv] [--seeds 8]
+               inflation_ucsv|ucsv_animation] [--seeds 8]
         [--m 512] [--n 1024]
 
 Each sampler run repeats one sampler over ``jax.random.key(0..seeds-1)`` and
@@ -52,6 +52,13 @@ configuration (N=128, 400 sweeps, chain=3, the ``dt`` run's prior) on
 sweeps, their spread over the seeds and the prior-IS oracle (100,000 prior
 draws weighted by the Kalman likelihood). None of the three takes
 ``--m``/``--n``.
+
+``ucsv_animation`` runs ``examples/ucsv_animation.py``'s filter (the
+bootstrap filter on UC-SV at its ``THETA_HAT``, N=4096, the vendored PCE
+series read by its ``load_pce``) through ``filter_sequence`` with
+``fused_resample="off"`` over the keys, and prints the mean and variance of
+log Ẑ over the seeds — ``ANIMATION_UCSV_JAX``. It takes ``--n`` (default
+4096 here).
 """
 from __future__ import annotations
 
@@ -169,6 +176,25 @@ def ucsv_bank(seeds: int, m: int, n: int) -> None:
                           "logz_var": round(lz.var(ddof=1), 6)}), flush=True)
 
 
+def ucsv_animation(seeds: int, n: int) -> None:
+    """log Ẑ of the UC-SV animation's filter at THETA_HAT, over the seeds."""
+    from examples.ucsv_animation import THETA_HAT, load_pce
+
+    _, y = load_pce()
+    model = smc.ucsv_model(jnp.asarray(THETA_HAT, jnp.float32))
+    cfg = smc.PFConfig("systematic", 1.0, "off")
+    rows = []
+    for s in range(seeds):
+        t0 = time.perf_counter()
+        rows.append(float(smc.filter_sequence(jax.random.key(s), model, n, y, cfg)[1]))
+        print(json.dumps({"run": "ucsv_animation", "seed": s, "log_z": round(rows[-1], 6),
+                          "seconds": round(time.perf_counter() - t0, 2)}), flush=True)
+    lz = np.asarray(rows, np.float64)
+    print(json.dumps({"run": "ucsv_animation", "n": n, "T": int(y.shape[0]), "seeds": seeds,
+                      "logz_mean": round(lz.mean(), 6), "logz_var": round(lz.var(ddof=1), 6)}),
+          flush=True)
+
+
 def _report(key: str, rows: list) -> dict:
     """Mean and standard deviation over the seeds of each row's ``key``."""
     vals = np.asarray([r[key] for r in rows], np.float64)
@@ -246,11 +272,15 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--run", default="dt",
                    choices=("dt", "apf_ucsv", "apf_lg", "ucsv_bank", "pg_ucsv", "ffbs_ucsv",
-                            "pg_lg", "inflation_uc", "inflation_ucsv"))
+                            "pg_lg", "inflation_uc", "inflation_ucsv", "ucsv_animation"))
     p.add_argument("--seeds", type=int, default=8)
     p.add_argument("--m", type=int, default=512)
-    p.add_argument("--n", type=int, default=1024)
+    p.add_argument("--n", type=int, default=None)
     args = p.parse_args()
+    if args.run == "ucsv_animation":
+        ucsv_animation(args.seeds, args.n or 4096)
+        return 0
+    args.n = args.n or 1024
     if args.run == "ucsv_bank":
         ucsv_bank(args.seeds, args.m, args.n)
         return 0

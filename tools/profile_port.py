@@ -141,9 +141,15 @@ def _profile(torch, fn, seed: int) -> dict:
     device = sorted(((e.key, e.self_device_time_total, e.count) for e in events
                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                     key=lambda r: -r[1])
-    device_us = sum(r[1] for r in device)
+    # a collective's device events (NCCL's kernel and its "nccl:" range,
+    # gloo's "gloo:" range) last while the rank waits for the others: a
+    # rendezvous, not the program's work, so they stay out of device time
+    # and busy share
+    coll_us = sum(r[1] for r in device if r[0].startswith(("nccl", "gloo:")))
+    device_us = sum(r[1] for r in device) - coll_us
     return {
         "wall_s": wall, "wall_profiled_s": wall_prof, "device_s": device_us / 1e6,
+        "collective_device_s": coll_us / 1e6,
         "device_calls": sum(r[2] for r in device),
         "device_busy": device_us / 1e6 / wall_prof,
         "host_self_cpu_s": sum(e.self_cpu_time_total for e in events
