@@ -157,7 +157,33 @@ Phases, one line each or more; any failure raises and exits non-zero:
      N=4096; UC-SV on the PCE series at θ̂, N=4096), 4 seeds each, without
      figures: launch counts of T − 1 a run for K1 and K2-SV or K2-UC-SV, the
      SV log Z against the grid filter and the UC-SV log Z against the JAX
-     program's (ANIMATION_UCSV_JAX), walls.
+     program's (ANIMATION_UCSV_JAX), walls;
+ 28. particle — particle-axis sharding (a (θ, particle) mesh with
+     particle > 1): (a) the kernels alone: K1 with a slot window and K3 on a
+     window of the grid at 512×8192 (C=3) over 2 and 4 particle shards and
+     at 64×65,536 over 2, against the whole launch's slots and ancestors bit
+     for bit; K2-UC-SV, K2-LG dx=1 and K6 on particles 4096.. of 512×8192
+     rows at particle_offset 4096 against the whole launch's columns at the
+     same seed bit for bit; each timed. Then worker processes of this
+     script on cuda:0 (gloo): (b) the slice's SMC² at 512×8192 on a (1, 2)
+     mesh over its first P_STEPS observations (at least one rejuvenation):
+     K1 writing each rank's 4096 slots and K6 at 512×4096 with
+     particle_offset 0 and 4096, launch counts equal to the schedule, the
+     ranks bit for bit alike, the posterior mean against P_SEEDS
+     one-process runs at the same cut (the whole rows are normalized in
+     torch, where one process normalizes inside K2: the runs part at ties,
+     so the check is statistical), walls per inner step and the
+     collectives' calls, bytes and host seconds; (c) the slice at 512×1024
+     on a (2, 2) mesh of four ranks, the whole T, posterior against
+     JAX_MEAN; (d) LG SMC² with the exchange armed in full padding (N 256 …
+     1024, the live prefix at first wholly in rank 0's slice) and a
+     stratified inner filter at ESS < N/2 on (1, 2) (K3 on the live-prefix
+     grid's window + K2-LG raw with particle_offset), bit for bit the
+     one-process run; (e) ShardedIBIS on (1, 2), bit for bit phase 17's;
+     (f) phase 13's UC-SV SMC² with the APF inside on (1, 2) over its first
+     P_STEPS observations (K1 on the cloud with the lookahead plane, K6 raw
+     with particle_offset), bit for bit the one-process run (both normalize
+     in torch).
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -251,6 +277,16 @@ EXCHANGE_ACC, EXCHANGE_MAX_N, N_CAP = 1.1, 4096, 8192
 ANIMATION_UCSV_JAX = (-167.235905, 1.468378, 64)
 ANIMATION_SEEDS = 4
 PARALLEL_WORKER = "--parallel-worker"
+# The particle phase. (b) the slice's UC-SV SMC² at 512×8192 on a (1, 2)
+# mesh, cut to its first P_STEPS observations (gloo moves each row's whole
+# cloud through host memory at every inner step: about 90 ms of the 0.4 ms
+# of a one-rank inner step, so the whole T would take minutes; the whole T
+# runs in tools/profile_parallel.py), held against P_SEEDS one-process runs
+# at the same cut; (d) LG SMC² on the dt phase's prior and series with the
+# exchange armed in full padding, N from P_LG_N to the cap 4·P_LG_N, and a
+# stratified inner filter at ESS < N/2.
+P_STEPS, P_SEEDS, P_LG_N = 60, 8, 256
+P_SLICE_B, P_SLICE_C = (512, 8192), (512, 1024)  # (M, N) of (b) and (c)
 # K2's LG instances generated for dx ≥ 3 (the lg_dx phase), and the rows and
 # particles of the large_n phase (the reference ran SMC² at M=64, N=65,536,
 # BASELINE.md:72)
@@ -2496,7 +2532,10 @@ def check_utils(torch):
 
 def _record_shards(seen: set) -> None:
     """Wrap the kernel wrappers where the filter calls them so that each
-    launch on the card adds (kernel, rows, row_offset) to ``seen``."""
+    launch on the card adds (kernel, rows, row_offset, first slot or
+    particle, slots or particles) to ``seen``: K1's slot window, K3's grid
+    width, and K2's and K6's particle_offset and particles."""
+    import sequential_monte_carlo_tpu_torch.models.linear_gaussian as mlg
     import sequential_monte_carlo_tpu_torch.models.ucsv as mucsv
     import sequential_monte_carlo_tpu_torch.ops.batched_filter as bf
 
@@ -2507,17 +2546,20 @@ def _record_shards(seen: set) -> None:
             out = fn(*args, **kw)
             rows = rows_of(*args)
             if rows.is_cuda:
-                seen.add((label, rows.shape[0], offset_of(kw)))
+                seen.add((label, rows.shape[0], *offset_of(args, kw)))
             return out
         setattr(module, name, wrapped)
 
-    wrap(bf, "resample_gather", "resample_count", lambda u, w, xs, *a: xs, lambda kw: None)
+    wrap(bf, "resample_gather", "resample_count", lambda u, w, xs, *a: xs,
+         lambda a, kw: (None, kw.get("slot_lo", 0), kw.get("n_out") or a[2].shape[2]))
     wrap(bf, "resample_gather_sorted", "resample_sorted", lambda u, w, xs, *a: xs,
-         lambda kw: None)
-    wrap(mucsv, "fused_elementwise_step", "fused_propagate_ucsv", lambda up, p, st, *a: st,
-         lambda kw: kw.get("row_offset", 0))
+         lambda a, kw: (None, None, a[0].shape[1]))
+    for module, label in ((mucsv, "fused_propagate_ucsv"), (mlg, "fused_propagate_lg")):
+        wrap(module, "fused_elementwise_step", label, lambda up, p, st, *a: st,
+             lambda a, kw: (kw.get("row_offset", 0), kw.get("particle_offset", 0),
+                            a[2].shape[2]))
     wrap(mucsv, "ucsv_propagate_reweight", "ucsv_propagate", lambda sd, y, ge, gn, c, *a: c,
-         lambda kw: kw.get("row_offset", 0))
+         lambda a, kw: (kw.get("row_offset", 0), kw.get("particle_offset", 0), a[4].shape[2]))
 
 
 def _theta_fields(state) -> dict:
@@ -2566,7 +2608,48 @@ def parallel_worker(argv) -> int:
                      "collectives": {k: round(v, 6) for k, v in collective_stats.items()}}
 
     for job in jobs:
-        if job.startswith("slice"):
+        if job.startswith("mesh"):  # the jobs after it run on a (θ, particle) mesh
+            mesh = parallel.make_mesh(*map(int, job[len("mesh"):].split("x")))
+            meta["mesh"] = list(mesh.shape)
+            meta["coords"] = [mesh.get_local_rank(0), mesh.get_local_rank(1)]
+        elif job.startswith("pslice"):  # pslice<M>x<N>[:<steps>]
+            shape, _, steps = job[len("pslice"):].partition(":")
+            m, n = map(int, shape.split("x"))
+            cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=CHAIN,
+                                ess_threshold=0.5, inner=smc.PFConfig("systematic", 1.0))
+            sh = parallel.ShardedSMC2(smc.SMC2(smc.ucsv_model, prior_from_spec(
+                PRIOR_SPEC, device=device), cfg), mesh)
+            cut = int(steps) - 1 if steps else None
+            # a short run first: the kernels and the collectives warm, and
+            # its wall per inner step is the first reading
+            (_, infos), rec = timed(lambda: sh.run_segmented(
+                torch.Generator(device=device).manual_seed(SEED + 1), y, max_steps=2))
+            rec["inner_steps"] = _schedule(infos, CHAIN, [])
+            meta[f"{job}_first"] = rec
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            (state, infos), rec = timed(lambda: sh.run_segmented(gen, y, max_steps=cut))
+            rec["inner_steps"] = _schedule(infos, CHAIN, [])
+            rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
+            rec["t"] = state.t
+            meta[job] = rec
+            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+        elif job == "papf":  # the APF's SMC² on UC-SV at 512×1024, cut at P_STEPS
+            sh = parallel.ShardedSMC2(particle_apf_sampler(torch, device), mesh)
+            (state, infos), rec = timed(lambda: sh.run_segmented(
+                torch.Generator(device=device).manual_seed(SEED), y, max_steps=P_STEPS - 1))
+            rec["inner_steps"] = _schedule(infos, CHAIN, [])
+            meta[job] = rec
+            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+        elif job == "plg":
+            sh = parallel.ShardedSMC2(particle_lg_sampler(torch, device), mesh)
+            (state, infos, doubled_at), rec = timed(lambda: drive_exchange(
+                sh.sampler, torch.Generator(device=device).manual_seed(SEED),
+                torch.tensor(lg_series(), device=device)))
+            rec["inner_steps"] = _schedule(infos, DT_CHAIN, doubled_at)
+            rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
+            meta[job] = rec
+            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+        elif job.startswith("slice"):
             n = int(job[len("slice"):])
             cfg = smc.SMCConfig(n_particles=n, n_theta=512, chain=CHAIN, ess_threshold=0.5,
                                 inner=smc.PFConfig("systematic", 1.0))
@@ -2716,8 +2799,8 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
                     expect_counts(f"parallel {world} rank(s) slice{n}", rec["counts"],
                                   {"resample_count": expected,
                                    "fused_propagate_ucsv": expected})
-                    want = {("resample_count", 512 // world, None),
-                            ("fused_propagate_ucsv", 512 // world, r * 512 // world)}
+                    want = {("resample_count", 512 // world, None, 0, n),
+                            ("fused_propagate_ucsv", 512 // world, r * 512 // world, 0, n)}
                     if {tuple(x) for x in rec["seen"]} != want:
                         raise AssertionError(f"parallel slice{n} rank {r}: launches at "
                                              f"{rec['seen']}, expected {sorted(want, key=str)}")
@@ -2760,6 +2843,338 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
     for job in refs:  # the ranks agree with each other too (implied; checked once more)
         if not np.array_equal(two[0][0][f"{job}/theta"], two[1][0][f"{job}/theta"]):
             raise AssertionError(f"parallel {job}: the ranks' θ differ")
+    return total
+
+
+def particle_lg_sampler(torch, device):
+    """Phase 28 (d)'s sampler: LG SMC² on the dt phase's prior (M=512,
+    chain=3), the exchange armed in full padding (N from P_LG_N, the arrays
+    at the cap 4·P_LG_N from the init) and a stratified inner filter at
+    ESS < N/2: K3 on the live-prefix grid and K2-LG's raw route, the carried
+    log-weights added before the normalize."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    cfg = smc.SMCConfig(n_particles=P_LG_N, n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5,
+                        acc_threshold=EXCHANGE_ACC, exchange_max_n=2 * P_LG_N,
+                        elastic_pad="full", inner=smc.PFConfig("stratified", 0.5))
+    return smc.SMC2(smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device), cfg)
+
+
+def particle_apf_sampler(torch, device):
+    """Phase 28 (f)'s sampler: phase 13's SMC² on UC-SV with the APF inside
+    (M=512, N=1024, chain=5): K1 on the cloud with the lookahead plane and
+    K6 raw, the first-stage weights and the correction normalized in torch
+    (by one process and by a particle group alike)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
+                        inner=smc.PFConfig(*APF))
+    return smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device=device), cfg)
+
+
+def drive_exchange(sampler, gen, y):
+    """``step`` + ``maybe_exchange`` over the whole series. Returns (state,
+    the stacked infos, the observation counts t at which a refilter ran)."""
+    from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
+
+    state, infos, doubled_at = sampler.init(gen, y), [], []
+    for _ in range(1, y.shape[0]):
+        t0, n0 = state.t, state.active_n
+        state, info = sampler.step(gen, state, y)
+        if state.active_n != n0 or state.exchange_pending:
+            doubled_at.append(t0 if state.active_n != n0 else state.t)
+        state = sampler.maybe_exchange(gen, state, y, info)
+        infos.append(info)
+    return state, _stack(infos), doubled_at
+
+
+def window_cost(m: int, n: int, k: int, c: int, grid: bool) -> dict:
+    """Bytes and operations of a resample call that writes k of a row's n
+    slots: the row's weights read (the cdf is the whole row's), the window's
+    grid (K3) or the offsets (K1), the gathered particles read and written
+    for the window's slots only; the walk over every weight and a search per
+    window slot, as f32 operations (an estimate: bytes bind these kernels)."""
+    nbytes = 4 * m * (n + 2 * c * k + (k if grid else 0)) + (0 if grid else 4 * m)
+    return {"nbytes": nbytes, "f32": m * n * 3 + m * k * math.log2(n)}
+
+
+def check_windows(torch, gen, k1, k3, k2, k2r, k6):
+    """Phase 28 (a): the kernels' contracts under particle sharding, alone.
+    K1 with a slot window and K3 on a window of the grid, at 512×8192 (C=3)
+    over 2 and 4 particle shards and at 64×65,536 over 2 (their large
+    route), against the whole launch's slots and ancestors bit for bit;
+    K2-UC-SV (normalized and raw), K2-LG dx=1 (raw) and K6 (raw) on
+    particles 4096.. of 512×8192 rows at particle_offset 4096 against the
+    whole launch's columns at the same seed bit for bit (the new cloud, and
+    the raw log-weights). Each timed against its plain version and bound;
+    the times go into the kernels' dicts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+        fused_elementwise_step,
+        fused_elementwise_step_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
+        resample_gather_sorted,
+        resample_gather_sorted_plain,
+        stratified_uniforms,
+    )
+    from sequential_monte_carlo_tpu_torch.kernels.resample_walk import (
+        resample_gather,
+        resample_gather_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import (
+        ucsv_propagate_reweight,
+        ucsv_propagate_reweight_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.models.ucsv import UCSV_UPDATE
+
+    for m, n, shards in ((512, 8192, 2), (512, 8192, 4), (64, 65536, 2)):
+        k = n // shards
+        w = weight_profiles(torch, gen, m, n)["skewed"]
+        xs = torch.randn((m, 3, n), generator=gen, device="cuda")
+        u0 = torch.rand((m, 1), generator=gen, device="cuda")
+        u = stratified_uniforms(gen, m, n)
+        whole1, anc1 = resample_gather(u0, w, xs, return_ancestors=True)
+        whole3, anc3 = resample_gather_sorted(u, w, xs, return_ancestors=True)
+        for b in range(shards):
+            lo, hi = b * k, (b + 1) * k
+            out, anc = resample_gather(u0, w, xs, return_ancestors=True, slot_lo=lo, n_out=k)
+            if not (torch.equal(out, whole1[:, :, lo:hi]) and torch.equal(anc, anc1[:, lo:hi])):
+                raise AssertionError(f"K1 {m}x{n} window {lo}..{hi}: not the whole output's")
+            out, anc = resample_gather_sorted(u[:, lo:hi].contiguous(), w, xs,
+                                              return_ancestors=True)
+            if not (torch.equal(out, whole3[:, :, lo:hi]) and torch.equal(anc, anc3[:, lo:hi])):
+                raise AssertionError(f"K3 {m}x{n} window {lo}..{hi}: not the whole output's")
+        uw = u[:, k:2 * k].contiguous()
+        key = f"window_{shards}_{m}x{n}"
+        k1[key] = (time_ms(torch, lambda: resample_gather(u0, w, xs, slot_lo=k, n_out=k)),
+                   time_ms(torch, lambda: resample_gather_plain(u0, w, xs, k, k)),
+                   *bound_ms(**window_cost(m, n, k, 3, grid=False)))
+        k3[key] = (time_ms(torch, lambda: resample_gather_sorted(uw, w, xs)),
+                   time_ms(torch, lambda: resample_gather_sorted_plain(uw, w, xs)),
+                   *bound_ms(**window_cost(m, n, k, 3, grid=True)))
+        say("particle", check="windows", shape=f"{m}x{n}", shards=shards, window=k,
+            bitwise_as_whole=True, k1_ms=k1[key][0], k1_plain_ms=k1[key][1],
+            k1_bound_ms=k1[key][2], k3_ms=k3[key][0], k3_plain_ms=k3[key][1],
+            k3_bound_ms=k3[key][2])
+
+    m, n, k = 512, 8192, 4096
+    y = torch.tensor(1.3, device="cuda")
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+    ucsv = torch.randn((m, 3, n), generator=gen, device="cuda")
+    ucsv[:, 1:] *= 0.5
+    gam = torch.tensor((0.3, 0.2), device="cuda").expand(m, 2).contiguous()
+    lg = _lg_cloud(torch, smc, m, 1)
+    lg_state = torch.randn((m, 1, n), generator=gen, device="cuda")
+    cases = {  # name: (the step on a state, the state, its dict and key, normals, raw)
+        "ucsv": (lambda st, **kw: fused_elementwise_step(UCSV_UPDATE, gam, st, y, seed=seed,
+                                                         **kw), ucsv, k2, 3, False),
+        "ucsv_raw": (lambda st, **kw: fused_elementwise_step(UCSV_UPDATE, gam, st, y, seed=seed,
+                                                             normalize=False, **kw),
+                     ucsv, k2, 3, True),
+        "lg1_raw": (lambda st, **kw: fused_elementwise_step(lg.update, lg.fused_params(), st, y,
+                                                            seed=seed, normalize=False, **kw),
+                    lg_state, k2r["lg1_raw"], 1, True),
+        "k6": (lambda st, **kw: ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], st, **kw),
+               ucsv, k6, 3, True),
+    }
+    for name, (step, state, res, normals, raw) in cases.items():
+        whole = step(state)
+        part_state = state[:, :, k:].contiguous()
+        part = step(part_state, particle_offset=k)
+        if not torch.equal(part[0], whole[0][:, :, k:]) or (
+                raw and not torch.equal(part[1], whole[1][:, k:])):
+            raise AssertionError(f"particle: {name} at particle_offset {k} differs from the "
+                                 f"{m}x{n} launch's columns")
+
+        def plain(name=name, st=part_state, raw=raw, normals=normals):
+            zz = torch.randn((normals, m, k), generator=gen, device="cuda")
+            if name == "k6":
+                return ucsv_propagate_reweight_plain(y, gam[:, 0], gam[:, 1], st, zz)
+            if name.startswith("lg"):
+                return fused_elementwise_step_plain(lg.update, lg.fused_params(), st, y, zz,
+                                                    normalize=not raw)
+            return fused_elementwise_step_plain(UCSV_UPDATE, gam, st, y, zz, normalize=not raw)
+
+        model = "lg1" if name.startswith("lg") else "ucsv"
+        key = f"offset_{k}{'_raw' if name == 'ucsv_raw' else ''}_{m}x{k}"
+        res[key] = (time_ms(torch, lambda: step(part_state, particle_offset=k)),
+                    time_ms(torch, plain),
+                    *bound_ms(**propagate_cost(m, k, state.shape[1], 4 if model == "lg1" else 2,
+                                               False, model, not raw)))
+        say("particle", check="offset", kernel=name, shape=f"{m}x{k}", particle_offset=k,
+            bitwise_as_whole_columns=True, ms=res[key][0], plain_ms=res[key][1],
+            bound_ms=res[key][2])
+
+
+def _mean(theta, log_omega):
+    w = np.exp(log_omega - log_omega.max())
+    return (w / w.sum()) @ theta
+
+
+def check_particle(torch, ibis_ref: dict):
+    """Phase 28 (b)–(e), see the module docstring. ``ibis_ref``: phase
+    17's state. Returns the ranks' launch counts summed over their runs."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    total = {}
+
+    def add(meta):
+        for rec in meta.values():
+            if isinstance(rec, dict) and "counts" in rec:
+                for k, v in rec["counts"].items():
+                    total[k] = total.get(k, 0) + v
+
+    def ranks_agree(label, ranks, prefix):
+        for r, (arrays, _) in enumerate(ranks[1:], 1):
+            for k, v in arrays.items():
+                if k.startswith(prefix + "/") and not np.array_equal(v, ranks[0][0][k]):
+                    raise AssertionError(f"particle {label}: rank {r}'s {k} differs from rank 0's")
+
+    def expect_seen(label, rec, want):
+        if {tuple(x) for x in rec["seen"]} != want:
+            raise AssertionError(f"particle {label}: launches at {rec['seen']}, expected "
+                                 f"{sorted(want, key=str)}")
+
+    # the one-process references: the slice at 512×8192 over the first
+    # P_STEPS observations at P_SEEDS seeds; (d)'s run
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    (mb, nb), (mc, nc) = P_SLICE_B, P_SLICE_C
+    cfg = smc.SMCConfig(n_particles=nb, n_theta=mb, chain=CHAIN, ess_threshold=0.5,
+                        inner=smc.PFConfig("systematic", 1.0))
+    one = smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+    y = series(torch, "cuda")
+    means, one_ms = [], []
+    for seed in range(P_SEEDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, infos = one.run_segmented(torch.Generator(device="cuda").manual_seed(seed), y,
+                                      max_steps=P_STEPS - 1)
+        torch.cuda.synchronize()
+        one_ms.append(1e3 * (time.perf_counter() - t0) / _schedule(infos, CHAIN, []))
+        means.append(smc.expected_parameters(st).cpu().numpy())
+        if seed == SEED:
+            one_mean = means[-1]
+    means = np.asarray(means)
+    lg_one, lg_infos, lg_doubled = drive_exchange(
+        particle_lg_sampler(torch, "cuda"), torch.Generator(device="cuda").manual_seed(SEED),
+        torch.tensor(lg_series(), device="cuda"))
+    apf_one, apf_infos = particle_apf_sampler(torch, "cuda").run_segmented(
+        torch.Generator(device="cuda").manual_seed(SEED), y, max_steps=P_STEPS - 1)
+
+    job, job_c = f"pslice{mb}x{nb}:{P_STEPS}", f"pslice{mc}x{nc}"
+    two = run_ranks(f"mesh1x2,{job},plg,papf,ibis", 2, "gloo")
+    four = run_ranks(f"mesh2x2,{job_c}", 4, "gloo")
+
+    # (b) the slice at 512×8192 on (1, 2), cut at P_STEPS
+    ranks_agree("(1, 2)", two, job)
+    sd = means.std(axis=0, ddof=1)
+    tol = TOL_Z * sd * math.sqrt(1.0 + 1.0 / P_SEEDS)
+    for r, (arrays, meta) in enumerate(two):
+        add(meta)
+        rec = meta[job]
+        if rec["t"] != P_STEPS or not rec["rejuv_t"]:
+            raise AssertionError(f"particle (1, 2): t={rec['t']}, rejuvenations at "
+                                 f"{rec['rejuv_t']}")
+        expect_counts(f"particle (1, 2) rank {r}", rec["counts"],
+                      {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
+        k = nb // 2
+        expect_seen("(1, 2)", rec, {("resample_count", mb, None, k * r, k),
+                                    ("ucsv_propagate", mb, 0, k * r, k)})
+    mean = _mean(two[0][0][f"{job}/theta"], two[0][0][f"{job}/log_omega"])
+    if not np.all(np.abs(mean - means.mean(axis=0)) <= tol):
+        raise AssertionError(f"particle (1, 2): posterior mean at t={P_STEPS} {mean} vs the "
+                             f"one-process seeds' {means.mean(axis=0)} beyond {tol}")
+    for r, (_, meta) in enumerate(two):
+        rec, first = meta[job], meta[f"{job}_first"]
+        say("particle", mesh="1x2", backend="gloo", rank=r, shape=f"{mb}x{nb}", T=P_STEPS,
+            chain=CHAIN, ranks_bitwise_equal=True, slots=f"{nb // 2 * r}..{nb // 2 * (r + 1)}",
+            inner_steps=rec["inner_steps"], rejuv_t=rec["rejuv_t"],
+            wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            first_wall_ms_per_inner_step=round(1e3 * first["wall_s"] / first["inner_steps"], 4),
+            one_process_ms_per_inner_step=round(float(np.median(one_ms)), 4),
+            collectives=rec["collectives"])
+    say("particle", mesh="1x2", check="posterior", T=P_STEPS,
+        posterior_mean=np.round(mean, 5).tolist(),
+        one_process_seed0_mean=np.round(one_mean, 5).tolist(),
+        one_process_seeds_mean=np.round(means.mean(axis=0), 5).tolist(),
+        one_process_seeds_sd=np.round(sd, 5).tolist(), tolerance=np.round(tol, 5).tolist())
+
+    # (c) the slice at 512×1024 on (2, 2), the whole T
+    ranks_agree("(2, 2)", four, job_c)
+    tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    rows, k = mc // 2, nc // 2
+    for r, (arrays, meta) in enumerate(four):
+        add(meta)
+        rec = meta[job_c]
+        a, b = meta["coords"]
+        expect_counts(f"particle (2, 2) rank {r}", rec["counts"],
+                      {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
+        expect_seen("(2, 2)", rec, {("resample_count", rows, None, k * b, k),
+                                    ("ucsv_propagate", rows, rows * a, k * b, k)})
+        say("particle", mesh="2x2", backend="gloo", rank=r, coords=[a, b], shape=f"{mc}x{nc}",
+            T=T, chain=CHAIN, rows=f"{rows * a}..{rows * (a + 1)}",
+            slots=f"{k * b}..{k * (b + 1)}", inner_steps=rec["inner_steps"],
+            wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            collectives=rec["collectives"])
+    mean = _mean(four[0][0][f"{job_c}/theta"], four[0][0][f"{job_c}/log_omega"])
+    if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
+        raise AssertionError(f"particle (2, 2): posterior mean {mean} vs JAX {JAX_MEAN} "
+                             f"beyond {tol}")
+    say("particle", mesh="2x2", check="posterior", ranks_bitwise_equal=True,
+        posterior_mean=np.round(mean, 5).tolist(), jax_mean=JAX_MEAN,
+        tolerance=np.round(tol, 5).tolist())
+
+    # (d) LG, exchange in full padding, stratified at ESS < N/2, on (1, 2):
+    # bitwise the one-process run (the elastic route normalizes whole rows
+    # in both)
+    ref = _theta_fields(lg_one)
+    want_steps = _schedule(lg_infos, DT_CHAIN, lg_doubled)
+    for r, (arrays, meta) in enumerate(two):
+        rec = meta["plg"]
+        _expect_equal(f"particle (1, 2) rank {r}", arrays, "plg", ref)
+        if rec["final_n"] != 4 * P_LG_N or rec["doubled_at"] != lg_doubled \
+                or rec["inner_steps"] != want_steps:
+            raise AssertionError(f"particle plg rank {r}: N={rec['final_n']}, doublings at "
+                                 f"{rec['doubled_at']} (one process {lg_doubled})")
+        expect_counts(f"particle plg rank {r}", rec["counts"],
+                      {"resample_sorted": want_steps, "fused_propagate_lg1_raw": want_steps})
+        expect_seen("plg", rec, {("resample_sorted", DT_M, None, None, 2 * P_LG_N),
+                                 ("fused_propagate_lg", DT_M, 0, 2 * P_LG_N * r, 2 * P_LG_N)})
+        say("particle", mesh="1x2", rank=r, run="lg exchange full, stratified ESS<N/2",
+            shape=f"{DT_M}x{P_LG_N}..{4 * P_LG_N}", T=DT_T, chain=DT_CHAIN,
+            bitwise_as_one_process=True, doubled_at_t=rec["doubled_at"],
+            inner_steps=rec["inner_steps"], wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            collectives=rec["collectives"])
+
+    # (f) the APF's SMC² on UC-SV on (1, 2), cut at P_STEPS: bitwise the
+    # one-process run (both normalize in torch)
+    want_steps = _schedule(apf_infos, CHAIN, [])
+    for r, (arrays, meta) in enumerate(two):
+        rec = meta["papf"]
+        _expect_equal(f"particle (1, 2) rank {r}", arrays, "papf", _theta_fields(apf_one))
+        expect_counts(f"particle papf rank {r}", rec["counts"],
+                      {"resample_count": want_steps, "ucsv_propagate": want_steps})
+        expect_seen("papf", rec, {("resample_count", DT_M, None, DT_N // 2 * r, DT_N // 2),
+                                  ("ucsv_propagate", DT_M, 0, DT_N // 2 * r, DT_N // 2)})
+        say("particle", mesh="1x2", rank=r, run="ucsv apf", shape=f"{DT_M}x{DT_N}",
+            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True, inner_steps=want_steps,
+            wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / want_steps, 4),
+            collectives=rec["collectives"])
+
+    # (e) ShardedIBIS on (1, 2): bitwise phase 17's
+    for r, (arrays, meta) in enumerate(two):
+        _expect_equal(f"particle (1, 2) rank {r}", arrays, "ibis", ibis_ref)
+        expect_counts(f"particle ibis rank {r}", meta["ibis"]["counts"], {})
+        say("particle", mesh="1x2", rank=r, ibis=f"{DT_M} θ", bitwise_as_one_process=True,
+            wall_s=round(meta["ibis"]["wall_s"], 4), collectives=meta["ibis"]["collectives"])
     return total
 
 
@@ -2966,14 +3381,22 @@ def main() -> int:
 
     mark("parallel_animations")
 
+    # -- 28. particle-axis sharding: the kernels' windows and offsets, then
+    # SMC² and IBIS on (θ, particle) meshes of ranks on the card
+    check_windows(torch, gen, k1, k3, k2, k2r, k6)
+    particle_counts = check_particle(torch, refs["ibis"])
+
+    mark("particle")
+
     # launches of each kernel over the main paths (slice at 512×1024 and
     # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
-    # per_theta, smoothing, pg, dsl, inflation, utils, parallel (every
-    # rank's runs), animations), each read just after its run
+    # per_theta, smoothing, pg, dsl, inflation, utils, parallel and
+    # particle (every rank's runs), animations), each read just after its run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
             lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts,
-            dsl_counts, inflation_counts, utils_counts, parallel_counts, animation_counts)
-    launches = {k: sum(run[k] for run in runs) for k in slice_counts}
+            dsl_counts, inflation_counts, utils_counts, parallel_counts, animation_counts,
+            particle_counts)
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",
                         "fused_propagate_ucsv_raw") and n == 0:

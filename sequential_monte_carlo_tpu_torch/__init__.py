@@ -15,9 +15,9 @@ against:
                       Gibbs
   analysis/       L4  posterior summaries (weighted quantiles, SMC² and IBIS
                       summaries) and plotting (matplotlib, imported on use)
-  parallel/       L4  θ-sharded SMC² and IBIS over torch.distributed: the
-                      launcher, the (theta, particle) mesh, the
-                      particle-axis building blocks
+  parallel/       L4  SMC² and IBIS sharded over θ and particles with
+                      torch.distributed: the launcher, the (theta,
+                      particle) mesh, the particle-axis building blocks
   kernels/        L5  hand-written Hopper kernels (CUDA C++ and Triton)
   utils/              checkpoints, the CSV loader, debug and profiling helpers
   examples/           the inflation and linear-Gaussian examples and the SV and

@@ -11,6 +11,12 @@
 //   a_o    = #{j : s_hi_j <= o}, clipped to N - 1
 //   out[m, c, o] = xs[m, c, a_o]          for every component c < C
 //
+// A call may ask for one window of output slots, [slot_lo, slot_lo + n_out):
+// the cdf and the marks still cover the whole row, and out (M, C, n_out)
+// holds the whole output's slots of the window bit for bit. A rank that holds
+// particles [b N/R, (b + 1) N/R) of a row (particle-axis sharding) writes
+// only its own slots from the row's whole cloud.
+//
 // What bounds it on the H100: memory. A call reads w and xs and writes the
 // gathered cloud, (2C + 1) * 4 * M * N bytes: 15 MB at M=512, N=1024, C=3 and
 // 117 MB at N=8192, about 4 and 35 microseconds at 3.35 TB/s. At the smaller
@@ -54,6 +60,10 @@
 //  4. Coalesced gather: lane l takes 4 neighbouring slots, gathers xs by their
 //     ancestors (non-decreasing, so neighbouring lanes read neighbouring
 //     addresses) and writes one 16-byte store per plane.
+// With a window, steps 3 and 4 stop at its end, a warp whose slot chunk
+// lies wholly before it skips them (its largest mark reaches the warps after
+// it through chunk_max), and only the window's slots are written, 16 bytes at
+// a time where slot_lo and n_out are multiples of 4.
 // Two block barriers per row (marks initialised, marks complete). What holds
 // it back now (PERF.md): the walk is compute (an f64 scan and a span per
 // weight) that the gather cannot start before, and the resident rows' walks
@@ -95,7 +105,8 @@ template <int kThreads, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
                       const float* __restrict__ xs, float* __restrict__ out,
-                      int* __restrict__ anc, int* scratch, int n, int c, int shift) {
+                      int* __restrict__ anc, int* scratch, int n, int c, int shift,
+                      int slot_lo, int n_out) {
   constexpr int kWarps = kThreads / 32;
   extern __shared__ int smem_marks[];  // n ints: j at the first slot of j's run, else -1
   __shared__ double chunk_sum[kWarps];
@@ -165,13 +176,18 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
   for (int s = 0; s < steps; ++s) walk(s, load4(w_row, begin + s * kStep + 4 * lane, end, vec));
   __syncthreads();  // every mark is in
 
-  // 3 and 4. the slot chunk: max-scan of the marks, then the gather
+  // 3 and 4. the slot chunk: max-scan of the marks, then the gather of the
+  // window's slots
   int carry = -1;
   for (int q = 0; q < warp; ++q) carry = max(carry, chunk_max[q]);
   const float* xs_row = xs + row * c * n;
-  float* out_row = out + row * c * n;
+  float* out_row = out + row * c * n_out;
+  int* anc_row = anc == nullptr ? nullptr : anc + row * n_out;
+  const int slot_hi = slot_lo + n_out;
+  const bool wvec = vec && ((slot_lo | n_out) & 3) == 0;  // 16-byte window stores
   const int per_lane = vec ? 4 : 1;
-  for (int b = begin; b < end; b += 32 * per_lane) {
+  const int stop = end <= slot_lo ? begin : min(end, slot_hi);
+  for (int b = begin; b < stop; b += 32 * per_lane) {
     const int o = b + lane * per_lane;
     int p[4];
     if (vec) {
@@ -194,25 +210,37 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
     if (vec) {
       const int4 a = make_int4(max(before, p[0]), max(before, p[1]), max(before, p[2]),
                                max(before, p[3]));
-      if (kGlobal) {
-        *reinterpret_cast<int4*>(marks + o) = a;  // over the slot's own marks
-      } else if (anc != nullptr) {
-        *reinterpret_cast<int4*>(anc + row * n + o) = a;
-      }
-      for (int k = 0; k < c; ++k) {
-        const float* src = xs_row + static_cast<long long>(k) * n;
-        *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n + o) =
-            make_float4(src[a.x], src[a.y], src[a.z], src[a.w]);
+      if (kGlobal) *reinterpret_cast<int4*>(marks + o) = a;  // over the slot's own marks
+      if (o + 4 <= slot_lo || o >= slot_hi) continue;
+      if (wvec) {
+        const int q = o - slot_lo;
+        if (!kGlobal && anc_row != nullptr) *reinterpret_cast<int4*>(anc_row + q) = a;
+        for (int k = 0; k < c; ++k) {
+          const float* src = xs_row + static_cast<long long>(k) * n;
+          *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n_out + q) =
+              make_float4(src[a.x], src[a.y], src[a.z], src[a.w]);
+        }
+      } else {
+        const int ai[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = o + i - slot_lo;
+          if (q < 0 || q >= n_out) continue;
+          if (!kGlobal && anc_row != nullptr) anc_row[q] = ai[i];
+          for (int k = 0; k < c; ++k) {
+            out_row[static_cast<long long>(k) * n_out + q] =
+                xs_row[static_cast<long long>(k) * n + ai[i]];
+          }
+        }
       }
     } else {
       const int a = max(before, p[0]);
-      if (kGlobal) {
-        marks[o] = a;
-      } else if (anc != nullptr) {
-        anc[row * n + o] = a;
-      }
+      if (kGlobal) marks[o] = a;
+      const int q = o - slot_lo;
+      if (q < 0 || q >= n_out) continue;
+      if (!kGlobal && anc_row != nullptr) anc_row[q] = a;
       for (int k = 0; k < c; ++k) {
-        out_row[static_cast<long long>(k) * n + o] = xs_row[static_cast<long long>(k) * n + a];
+        out_row[static_cast<long long>(k) * n_out + q] = xs_row[static_cast<long long>(k) * n + a];
       }
     }
   }
@@ -220,7 +248,7 @@ resample_count_kernel(const float* __restrict__ u0, const float* __restrict__ w,
 
 template <int kThreads>
 cudaError_t launch(const float* u0, const float* w, const float* xs, float* out, int* anc,
-                   int m, int n, int c, cudaStream_t stream) {
+                   int m, int n, int c, int slot_lo, int n_out, cudaStream_t stream) {
   const int shift = smc::chunk_shift(n, kThreads / 32);
   const size_t smem = static_cast<size_t>(n) * sizeof(int);
   static bool carveout = false;  // once per instance: all of the SM's shared memory
@@ -238,17 +266,18 @@ cudaError_t launch(const float* u0, const float* w, const float* xs, float* out,
     if (err != cudaSuccess) return err;
   }
   resample_count_kernel<kThreads, false><<<m, kThreads, smem, stream>>>(
-      u0, w, xs, out, anc, nullptr, n, c, shift);
+      u0, w, xs, out, anc, nullptr, n, c, shift, slot_lo, n_out);
   return cudaGetLastError();
 }
 
 // The large route: marks in the ancestor output `anc`, no dynamic shared memory.
 cudaError_t launch_global(const float* u0, const float* w, const float* xs, float* out,
-                          int* anc, int m, int n, int c, cudaStream_t stream) {
+                          int* anc, int m, int n, int c, int slot_lo, int n_out,
+                          cudaStream_t stream) {
   constexpr int kThreads = 1024;
   const int shift = smc::chunk_shift(n, kThreads / 32);
-  resample_count_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(u0, w, xs, out, nullptr,
-                                                                    anc, n, c, shift);
+  resample_count_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(
+      u0, w, xs, out, nullptr, anc, n, c, shift, slot_lo, n_out);
   return cudaGetLastError();
 }
 
@@ -261,21 +290,23 @@ extern "C" {
 int smc_resample_count_max_n() { return kMaxN; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// `anc` may be null for n <= smc_resample_count_max_n() and is required
-// above it, where it also holds the marks. Pointers are device pointers to
-// contiguous f32 / int32 arrays: u0 (m), w (m, n), xs and out (m, c, n), anc
-// (m, n), 16-byte aligned.
+// Writes the output slots [slot_lo, slot_lo + n_out) of each row (0 and n
+// for the whole output). `anc` may be null for n <= smc_resample_count_max_n()
+// and is required above it, where it holds the marks and then every slot's
+// ancestor, (m, n); below it, when given, the window's ancestors (m, n_out).
+// Pointers are device pointers to contiguous f32 / int32 arrays: u0 (m),
+// w (m, n), xs (m, c, n), out (m, c, n_out), 16-byte aligned.
 int smc_resample_count(const float* u0, const float* w, const float* xs,
-                       float* out, int* anc, int m, int n, int c,
+                       float* out, int* anc, int m, int n, int c, int slot_lo, int n_out,
                        cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  if (c <= 0) return cudaErrorInvalidValue;
+  if (c <= 0 || slot_lo < 0 || n_out <= 0 || n_out > n - slot_lo) return cudaErrorInvalidValue;
   if (n > kMaxN) {
     if (anc == nullptr) return cudaErrorInvalidValue;
-    return launch_global(u0, w, xs, out, anc, m, n, c, stream);
+    return launch_global(u0, w, xs, out, anc, m, n, c, slot_lo, n_out, stream);
   }
-  if (n <= 2048) return launch<256>(u0, w, xs, out, anc, m, n, c, stream);
-  return launch<512>(u0, w, xs, out, anc, m, n, c, stream);
+  if (n <= 2048) return launch<256>(u0, w, xs, out, anc, m, n, c, slot_lo, n_out, stream);
+  return launch<512>(u0, w, xs, out, anc, m, n, c, slot_lo, n_out, stream);
 }
 
 const char* smc_error_string(int err) {

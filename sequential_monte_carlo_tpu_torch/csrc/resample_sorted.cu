@@ -12,6 +12,13 @@
 //   a_i    = the first j with u_i <= cdf_j   (searchsorted side="left")
 //   out[m, c, i] = xs[m, c, a_i]           for every component c < C
 //
+// The grid may be shorter than the row: u (M, n_out) with w (M, N) and xs
+// (M, C, N) gives out (M, C, n_out). The ancestors of a grid's slots depend
+// only on their u and the row's cdf, so the window [b n_out, (b + 1) n_out) of
+// a whole grid gives the whole output's slots of that window bit for bit: a
+// rank that holds particles [b N/R, (b + 1) N/R) of a row (particle-axis
+// sharding) resamples its own slots from the row's whole cloud.
+//
 // u_i == 0 lands in bucket 0, and a_i <= N - 1 for every u_i < 1 + 1e-6, so a
 // point-mass row never reads past N. The TPU needed three kernels because it
 // has no fast dynamic gather and Mosaic tiles only some shapes; neither holds
@@ -34,6 +41,8 @@
 //     reduce; then the chunk again from L2, a shuffle scan across the lanes,
 //     cdf_of for the f32 rounding of cum/total without a divide per weight,
 //     and 16-byte shared-memory stores. One block barrier.
+//     Steps 2 and 3 split the n_out slots over the warps in chunks of their
+//     own (the same chunks as the weights' when n_out = N).
 //  2. Ancestors without a full search per slot. The grid is sorted, so
 //     ancestors never decrease along the row. A lane loads its 4 neighbouring
 //     u (16 bytes), binary-searches the first one in [carry, N), carry the
@@ -111,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
 resample_sorted_kernel(const float* __restrict__ u, const float* __restrict__ w,
                        const float* __restrict__ xs, float* __restrict__ out,
                        int* __restrict__ anc, float* scratch, int n, int c, int shift,
-                       bool vec) {
+                       int n_out, int out_shift, bool vec) {
   constexpr int kWarps = kThreads / 32;
   extern __shared__ float4 smem_cdf4[];  // n floats
   const long long row = blockIdx.x;
@@ -152,36 +161,40 @@ resample_sorted_kernel(const float* __restrict__ u, const float* __restrict__ w,
   __syncthreads();  // the row's cdf is in
 
   // 2 and 3. the slot chunk: ancestors by search and merge, then the gather
-  const float* u_row = u + row * n;
+  const float* u_row = u + row * n_out;
   const float* xs_row = xs + row * c * n;
-  float* out_row = out + row * c * n;
+  float* out_row = out + row * c * n_out;
+  const int o_begin = min(warp << out_shift, n_out);
+  const int o_end = min(o_begin + (1 << out_shift), n_out);
   int carry = 0;  // the ancestor of the chunk's last slot so far
-  for (int b = begin; b < end; b += kStep) {
+  for (int b = o_begin; b < o_end; b += kStep) {
     const int o = b + 4 * lane;
-    const float4 uq = smc::load4(u_row, o, end, vec);  // 0 past the chunk: ancestor carry
+    const float4 uq = smc::load4(u_row, o, o_end, vec);  // 0 past the chunk: ancestor carry
     const int a0 = search(cdf, carry, n, uq.x);
     const int next = __shfl_down_sync(kFull, a0, 1);
-    const int cap = lane == 31 || o + 4 >= end ? n - 1 : next;
+    const int cap = lane == 31 || o + 4 >= o_end ? n - 1 : next;
     const int a1 = gallop(cdf, a0, cap, uq.y);
     const int a2 = gallop(cdf, a1, cap, uq.z);
     const int a3 = gallop(cdf, a2, cap, uq.w);
     carry = __shfl_sync(kFull, a3, 31);
-    if (o >= end) continue;
+    if (o >= o_end) continue;
     const int a[4] = {a0, a1, a2, a3};
     if (vec) {
-      if (anc != nullptr) *reinterpret_cast<int4*>(anc + row * n + o) = make_int4(a0, a1, a2, a3);
+      if (anc != nullptr) {
+        *reinterpret_cast<int4*>(anc + row * n_out + o) = make_int4(a0, a1, a2, a3);
+      }
       for (int k = 0; k < c; ++k) {
         const float* src = xs_row + static_cast<long long>(k) * n;
-        *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n + o) =
+        *reinterpret_cast<float4*>(out_row + static_cast<long long>(k) * n_out + o) =
             make_float4(src[a0], src[a1], src[a2], src[a3]);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (o + i >= end) break;
-        if (anc != nullptr) anc[row * n + o + i] = a[i];
+        if (o + i >= o_end) break;
+        if (anc != nullptr) anc[row * n_out + o + i] = a[i];
         for (int k = 0; k < c; ++k) {
-          out_row[static_cast<long long>(k) * n + o + i] =
+          out_row[static_cast<long long>(k) * n_out + o + i] =
               xs_row[static_cast<long long>(k) * n + a[i]];
         }
       }
@@ -193,9 +206,10 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <int kThreads>
 cudaError_t launch(const float* u, const float* w, const float* xs, float* out, int* anc, int m,
-                   int n, int c, cudaStream_t stream) {
+                   int n, int c, int n_out, cudaStream_t stream) {
   const int shift = smc::chunk_shift(n, kThreads / 32);
-  const bool vec = n % 4 == 0 && aligned16(u) && aligned16(w) && aligned16(xs) &&
+  const int out_shift = smc::chunk_shift(n_out, kThreads / 32);
+  const bool vec = n % 4 == 0 && n_out % 4 == 0 && aligned16(u) && aligned16(w) && aligned16(xs) &&
                    aligned16(out) && (anc == nullptr || aligned16(anc));
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   static bool carveout = false;  // once per instance: all of the SM's shared memory
@@ -213,20 +227,22 @@ cudaError_t launch(const float* u, const float* w, const float* xs, float* out, 
     if (err != cudaSuccess) return err;
   }
   resample_sorted_kernel<kThreads, false><<<m, kThreads, smem, stream>>>(
-      u, w, xs, out, anc, nullptr, n, c, shift, vec);
+      u, w, xs, out, anc, nullptr, n, c, shift, n_out, out_shift, vec);
   return cudaGetLastError();
 }
 
 // The large route: the cdf in `scratch`, no dynamic shared memory.
 cudaError_t launch_global(const float* u, const float* w, const float* xs, float* out,
-                          int* anc, float* scratch, int m, int n, int c,
+                          int* anc, float* scratch, int m, int n, int c, int n_out,
                           cudaStream_t stream) {
   constexpr int kThreads = 1024;
   const int shift = smc::chunk_shift(n, kThreads / 32);
-  const bool vec = n % 4 == 0 && aligned16(u) && aligned16(w) && aligned16(xs) &&
-                   aligned16(out) && aligned16(scratch) && (anc == nullptr || aligned16(anc));
-  resample_sorted_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(u, w, xs, out, anc,
-                                                                     scratch, n, c, shift, vec);
+  const int out_shift = smc::chunk_shift(n_out, kThreads / 32);
+  const bool vec = n % 4 == 0 && n_out % 4 == 0 && aligned16(u) && aligned16(w) &&
+                   aligned16(xs) && aligned16(out) && aligned16(scratch) &&
+                   (anc == nullptr || aligned16(anc));
+  resample_sorted_kernel<kThreads, true><<<m, kThreads, 0, stream>>>(
+      u, w, xs, out, anc, scratch, n, c, shift, n_out, out_shift, vec);
   return cudaGetLastError();
 }
 
@@ -241,19 +257,19 @@ int smc_resample_sorted_max_n() { return kMaxN; }
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
 // `anc` may be null. `scratch` (m, n floats) is read only above
 // smc_resample_sorted_max_n(), where it is required. Pointers are device
-// pointers to contiguous f32 / int32 arrays: u, w, anc and scratch (m, n), xs
-// and out (m, c, n).
+// pointers to contiguous f32 / int32 arrays: w and scratch (m, n), xs (m, c,
+// n), u and anc (m, n_out), out (m, c, n_out).
 int smc_resample_sorted(const float* u, const float* w, const float* xs,
-                        float* out, int* anc, float* scratch, int m, int n, int c,
+                        float* out, int* anc, float* scratch, int m, int n, int c, int n_out,
                         cudaStream_t stream) {
-  if (m <= 0 || n <= 0) return cudaSuccess;
+  if (m <= 0 || n <= 0 || n_out <= 0) return cudaSuccess;
   if (c <= 0) return cudaErrorInvalidValue;
   if (n > kMaxN) {
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    return launch_global(u, w, xs, out, anc, scratch, m, n, c, stream);
+    return launch_global(u, w, xs, out, anc, scratch, m, n, c, n_out, stream);
   }
-  if (n <= 2048) return launch<256>(u, w, xs, out, anc, m, n, c, stream);
-  return launch<512>(u, w, xs, out, anc, m, n, c, stream);
+  if (n <= 2048) return launch<256>(u, w, xs, out, anc, m, n, c, n_out, stream);
+  return launch<512>(u, w, xs, out, anc, m, n, c, n_out, stream);
 }
 
 }  // extern "C"

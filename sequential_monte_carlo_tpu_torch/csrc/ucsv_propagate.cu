@@ -17,12 +17,14 @@
 // the slots past the row's end.
 //
 // Draws: Philox-4x32-10 keyed by the two halves of the int64 seed, counter
-// (particle i, row_offset + row, 0, 0), turned into uniforms and normals as
+// (particle_offset + i, row_offset + row, 0, 0), turned into uniforms and normals as
 // Triton's tl.philox, uint_to_uniform_float and pair_uniform_to_normal do
 // (triton/language/random.py, Triton 3.6): z0, z1 from (r0, r1), z2 from
 // (r2, r3). So this kernel draws the normals that the fused propagate kernel
 // (kernels/propagate.py, UC-SV instance) draws at the same seed, and a call on
-// rows r..M with row_offset = r draws what rows r..M of the full call draw.
+// rows r..M with row_offset = r draws what rows r..M of the full call draw,
+// and a call on particles p..N with particle_offset = p what particles p..N
+// of it draw (particle-axis sharding: a rank's slice of every row).
 // The arithmetic is that of the fused propagate kernel's compiled UC-SV
 // update, read from its PTX: exp is ex2.approx of x·log2 e and sqrt is
 // sqrt.approx (one MUFU operation each), while log, sin and cos are the CUDA
@@ -214,7 +216,7 @@ struct Row {  // one θ-row's pointers and scalars
   const float *x, *se, *sn;
   float *x_out, *se_out, *sn_out, *lw;
   float ge, gn, y;
-  uint32_t grow;
+  uint32_t grow, pofs;  // the counter's row word, and the first particle's index
   Keys keys;
 };
 
@@ -222,7 +224,8 @@ __device__ __forceinline__ Row row_of(const long long* seed_ptr, const float* y_
                                       const float* ge, long long ge_stride, const float* gn,
                                       long long gn_stride, const float* cloud,
                                       long long row_stride, long long plane_stride, float* out,
-                                      float* logw, int n, int row_offset, long long row) {
+                                      float* logw, int n, int row_offset, int particle_offset,
+                                      long long row) {
   Row r;
   r.x = cloud + row * row_stride;
   r.se = r.x + plane_stride;
@@ -235,6 +238,7 @@ __device__ __forceinline__ Row row_of(const long long* seed_ptr, const float* y_
   r.gn = gn[row * gn_stride];
   r.y = *y_ptr;
   r.grow = static_cast<uint32_t>(row + row_offset);
+  r.pofs = static_cast<uint32_t>(particle_offset);
   r.keys = key_schedule(static_cast<unsigned long long>(*seed_ptr));
   return r;
 }
@@ -246,10 +250,11 @@ __device__ __forceinline__ float4 step4(const Row& r, int i, int n) {
   const float4 x = kKind == 1 ? load4_stream(r.x, i, n, vec) : load4(r.x, i, n, vec);
   const float4 se = kKind == 1 ? load4_stream(r.se, i, n, vec) : load4(r.se, i, n, vec);
   const float4 sn = kKind == 1 ? load4_stream(r.sn, i, n, vec) : load4(r.sn, i, n, vec);
-  const Particle p0 = step(i, r.grow, r.keys, x.x, se.x, sn.x, r.ge, r.gn, r.y);
-  const Particle p1 = step(i + 1, r.grow, r.keys, x.y, se.y, sn.y, r.ge, r.gn, r.y);
-  const Particle p2 = step(i + 2, r.grow, r.keys, x.z, se.z, sn.z, r.ge, r.gn, r.y);
-  const Particle p3 = step(i + 3, r.grow, r.keys, x.w, se.w, sn.w, r.ge, r.gn, r.y);
+  const uint32_t ci = r.pofs + static_cast<uint32_t>(i);  // the counter's particle word
+  const Particle p0 = step(ci, r.grow, r.keys, x.x, se.x, sn.x, r.ge, r.gn, r.y);
+  const Particle p1 = step(ci + 1, r.grow, r.keys, x.y, se.y, sn.y, r.ge, r.gn, r.y);
+  const Particle p2 = step(ci + 2, r.grow, r.keys, x.z, se.z, sn.z, r.ge, r.gn, r.y);
+  const Particle p3 = step(ci + 3, r.grow, r.keys, x.w, se.w, sn.w, r.ge, r.gn, r.y);
   store4<kKind>(r.x_out, i, n, vec, make_float4(p0.x, p1.x, p2.x, p3.x));
   store4<kKind>(r.se_out, i, n, vec, make_float4(p0.se, p1.se, p2.se, p3.se));
   store4<kKind>(r.sn_out, i, n, vec, make_float4(p0.sn, p1.sn, p2.sn, p3.sn));
@@ -261,10 +266,10 @@ __device__ __forceinline__ float4 step4(const Row& r, int i, int n) {
       const float *__restrict__ ge, long long ge_stride, const float *__restrict__ gn,     \
       long long gn_stride, const float *__restrict__ cloud, long long row_stride,          \
       long long plane_stride, float *__restrict__ out, float *__restrict__ logw, int n,    \
-      int row_offset
+      int row_offset, int particle_offset
 #define UCSV_ROW                                                                            \
   row_of(seed, y, ge, ge_stride, gn, gn_stride, cloud, row_stride, plane_stride, out, logw, \
-         n, row_offset, blockIdx.x)
+         n, row_offset, particle_offset, blockIdx.x)
 
 // Raw log-weights: grid (M, ⌈N / kTile⌉), 4 particles a thread.
 template <bool vec>
@@ -427,21 +432,24 @@ template <bool vec>
 void launch(const long long* seed, const float* y, const float* ge, long long ge_stride,
             const float* gn, long long gn_stride, const float* cloud, long long row_stride,
             long long plane_stride, float* out, float* logw, float* lse, float* ess, int m, int n,
-            int row_offset, cudaStream_t stream) {
+            int row_offset, int particle_offset, cudaStream_t stream) {
   if (lse == nullptr) {
     const dim3 grid(m, (n + kTile - 1) / kTile);
     ucsv_raw_kernel<vec><<<grid, kThreads, 0, stream>>>(seed, y, ge, ge_stride, gn, gn_stride,
                                                         cloud, row_stride, plane_stride, out,
-                                                        logw, n, row_offset);
+                                                        logw, n, row_offset,
+                                                        particle_offset);
   } else if (n <= kTile) {
     ucsv_norm_kernel<vec><<<m, kThreads, 0, stream>>>(seed, y, ge, ge_stride, gn, gn_stride,
                                                       cloud, row_stride, plane_stride, out, logw,
-                                                      n, row_offset, lse, ess);
+                                                      n, row_offset, particle_offset, lse,
+                                                      ess);
   } else {
     ucsv_norm_loop_kernel<vec><<<m, kThreads, 0, stream>>>(seed, y, ge, ge_stride, gn,
                                                            gn_stride, cloud, row_stride,
                                                            plane_stride, out, logw, n,
-                                                           row_offset, lse, ess);
+                                                           row_offset, particle_offset, lse,
+                                                           ess);
   }
 }
 
@@ -453,19 +461,21 @@ extern "C" {
 // seed: one int64; y: one f32; ge, gn: m f32 with the given element strides;
 // cloud: (m, 3, n) f32 read through row_stride and plane_stride (elements),
 // unit stride along n; out: contiguous (m, 3, n); logw: contiguous (m, n);
-// lse and ess: (m) f32, both null for the raw log-weights (no normalize).
+// lse and ess: (m) f32, both null for the raw log-weights (no normalize);
+// row_offset and particle_offset: the global index of row 0 and of particle 0
+// in the draws' counters.
 int smc_ucsv_propagate(const long long* seed, const float* y, const float* ge,
                        long long ge_stride, const float* gn, long long gn_stride,
                        const float* cloud, long long row_stride, long long plane_stride,
                        float* out, float* logw, float* lse, float* ess, int m, int n,
-                       int row_offset, cudaStream_t stream) {
+                       int row_offset, int particle_offset, cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
   // 16-byte accesses where every row and plane starts on 16 bytes
   const bool vec = n % 4 == 0 && row_stride % 4 == 0 && plane_stride % 4 == 0 &&
                    aligned16(cloud) && aligned16(out) && aligned16(logw);
   (vec ? launch<true> : launch<false>)(seed, y, ge, ge_stride, gn, gn_stride, cloud, row_stride,
                                        plane_stride, out, logw, lse, ess, m, n, row_offset,
-                                       stream);
+                                       particle_offset, stream);
   return cudaGetLastError();
 }
 

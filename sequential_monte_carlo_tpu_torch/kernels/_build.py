@@ -79,12 +79,12 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_resample_count.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.smc_resample_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.smc_resample_count.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.smc_resample_sorted.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     for name in ("smc_resample_count", "smc_resample_sorted"):
         getattr(lib, name).restype = i32
     lib.smc_ucsv_propagate.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i64,
-                                       ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+                                       ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.smc_ucsv_propagate.restype = i32
     for name in ("smc_resample_count_max_n", "smc_resample_sorted_max_n"):
         getattr(lib, name).argtypes = []

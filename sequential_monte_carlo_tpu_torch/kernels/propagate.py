@@ -45,10 +45,12 @@ What holds it back now (PERF.md): at N=8192 the normalized route's pass 2
 and its one program per row; the UC-SV update's Philox, Box–Muller and
 exps are about as much issue time as its bytes take at the memory rate.
 
-Draws are keyed by (seed, row_offset + row, particle index) — Philox
-counters (i, row) — so they do not depend on the block size, and a
-θ-sharded run (``row_offset`` = the shard's first global row) draws what an
-unsharded run draws (the property of ``propagate_pallas.py:25-27``).
+Draws are keyed by (seed, row_offset + row, particle_offset + particle
+index) — Philox counters (i, row) — so they do not depend on the block size,
+and a θ-sharded run (``row_offset`` = the shard's first global row) or a
+particle-sharded one (``particle_offset`` = the first global particle of the
+rank's slice of every row) draws what an unsharded run draws (the property
+of ``propagate_pallas.py:25-27``).
 
 The model's update is a ``@triton.jit`` function passed to the kernel as a
 ``tl.constexpr``, as the JAX builder takes ``update_fn``: further models
@@ -64,10 +66,11 @@ log-weights:
 with ``par`` the row's P parameters, ``st``/``new`` the row's (S, N) planes,
 and z0..z3 the particle's independent N(0, 1) draws (the update's
 ``n_normals`` of them; with two or fewer, z2 and z3 are 0). An update that
-takes more than four normals also gets ``seed, grow`` and draws the rest
-itself, four a Philox call at the further counters (particle, row, k, 0),
-k = 1, 2, ...: normal 4k + i is word pair i // 2's Box–Muller draw i % 2 at
-counter k, the order in which the plain version takes them.
+takes more than four normals also gets ``seed, grow, ctr`` (``ctr`` the
+particles' global indices) and draws the rest itself, four a Philox call at
+the further counters (particle, row, k, 0), k = 1, 2, ...: normal 4k + i is
+word pair i // 2's Box–Muller draw i % 2 at counter k, the order in which
+the plain version takes them.
 
 :func:`fused_elementwise_step_plain` is the same function in plain PyTorch
 with the normals injected. :func:`fused_elementwise_step` takes it for CPU
@@ -118,12 +121,18 @@ def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
         logw = logw + carry_logw
     if not normalize:
         return torch.stack(new, dim=1), logw
+    return (torch.stack(new, dim=1),) + normalize_rows(logw)
+
+
+def normalize_rows(logw):
+    """The plain version's per-row normalize of (M, N) log-weights:
+    (log_norm (M, N), lse (M, 1), ess (M, 1))."""
     mx = torch.amax(logw, dim=-1, keepdim=True)
     e = torch.exp(logw - mx)
     s = torch.sum(e, dim=-1, keepdim=True)
     lse = mx + torch.log(s)
     ess = (s * s) / torch.sum(e * e, dim=-1, keepdim=True)
-    return torch.stack(new, dim=1), logw - lse, lse, ess
+    return logw - lse, lse, ess
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,10 +216,10 @@ def _triton_kernels() -> types.SimpleNamespace:
         return logw
 
     @triton.jit
-    def draw_normals(seed, offs, grow, N_NORMALS: tl.constexpr):
+    def draw_normals(seed, ctr, grow, N_NORMALS: tl.constexpr):
         # Philox-4x32-10 at counter (particle, row, 0, 0); Box–Muller pairs,
         # the second only for models that take more than two normals
-        c0 = offs.to(tl.uint32)
+        c0 = ctr.to(tl.uint32)
         zero = c0 * 0
         r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero, zero)
         z0, z1 = tl.pair_uniform_to_normal(tl.uint_to_uniform_float(r0),
@@ -225,7 +234,7 @@ def _triton_kernels() -> types.SimpleNamespace:
 
     @triton.jit
     def step_kernel(par_ptr, st_ptr, new_ptr, carry_ptr, lognorm_ptr, lse_ptr,
-                    ess_ptr, y_ptr, seed_ptr, row_offset, n, st_row_stride,
+                    ess_ptr, y_ptr, seed_ptr, row_offset, particle_offset, n, st_row_stride,
                     P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
                     N_NORMALS: tl.constexpr, HAS_CARRY: tl.constexpr,
                     NORMALIZE: tl.constexpr, LOOP: tl.constexpr, BLOCK: tl.constexpr,
@@ -245,9 +254,10 @@ def _triton_kernels() -> types.SimpleNamespace:
             # of it (no normalize, grid (M, cdiv(N, BLOCK)))
             offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
             mask = offs < n
-            z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
+            z0, z1, z2, z3 = draw_normals(seed, offs + particle_offset, grow, N_NORMALS)
             if N_NORMALS > 4:
-                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow)
+                logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow,
+                              offs + particle_offset)
             else:
                 logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
             if HAS_CARRY:
@@ -276,9 +286,10 @@ def _triton_kernels() -> types.SimpleNamespace:
             for start in tl.range(0, n, BLOCK, num_stages=STAGES):
                 offs = start + tl.arange(0, BLOCK)
                 mask = offs < n
-                z0, z1, z2, z3 = draw_normals(seed, offs, grow, N_NORMALS)
+                z0, z1, z2, z3 = draw_normals(seed, offs + particle_offset, grow, N_NORMALS)
                 if N_NORMALS > 4:
-                    logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow)
+                    logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3, seed, grow,
+                                  offs + particle_offset)
                 else:
                     logw = UPDATE(par, st, new, n, offs, mask, y, z0, z1, z2, z3)
                 if HAS_CARRY:
@@ -318,10 +329,10 @@ def _lg_source(dx: int) -> str:
     lines = ["import triton", "import triton.language as tl", "", "",
              "@triton.jit",
              f"def lg{dx}_update(par, st, new, n, offs, mask, y, z0, z1, z2, z3"
-             + (", seed, grow):" if extra else "):")]
+             + (", seed, grow, ctr):" if extra else "):")]
     body = [f"x{j} = tl.load(st + {j} * n + offs, {ev})" for j in range(dx)]
     if extra:  # normals 4.. from the further counters (particle, row, k, 0)
-        body += ["c0 = offs.to(tl.uint32)", "zero = c0 * 0"]
+        body += ["c0 = ctr.to(tl.uint32)", "zero = c0 * 0"]
         for k in range(1, (dx + 3) // 4):
             body.append(f"r0, r1, r2, r3 = tl.philox(seed, c0, zero + grow, zero + {k}, zero)")
             for pair in range(2):
@@ -417,7 +428,8 @@ def _launch_config(n: int, normalize: bool):
 
 def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
                            seed=None, normals=None, row_offset: int = 0,
-                           carry_logw=None, normalize: bool = True):
+                           carry_logw=None, normalize: bool = True,
+                           particle_offset: int = 0):
     """One fused propagate + reweight (+ normalize) step for all (M, N)
     particles.
 
@@ -431,6 +443,8 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
       seed: (1,) int64 Philox seed on the device (CUDA tensors).
       normals: (n_normals, M, N) f32 draws (CPU tensors: the plain version).
       row_offset: global index of row 0 (θ-sharding), for the draws.
+      particle_offset: global index of particle 0 (particle-axis
+        sharding: the rank's slice of every row), for the draws.
       carry_logw: optional (M, N) f32 carried log-weights, added to the
         observation log-weights before the normalize; the returned lse is
         then log Σ exp(carry + logw). Requires ``normalize``.
@@ -457,6 +471,8 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     if seed is None:
         raise ValueError("the kernel draws its own normals: pass seed=")
     _check(params, state, y, seed, "seed", torch.int64, carry_logw)
+    if particle_offset < 0:
+        raise ValueError(f"particle_offset must be ≥ 0, got {particle_offset}")
     m, s, n = state.shape
     k = _triton_kernels()
     new = torch.empty_like(state)
@@ -468,7 +484,8 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     has_carry = carry_logw is not None
     with torch.cuda.device(state.device):
         k.step[(m, tiles)](params, state, new, carry_logw if has_carry else log_norm,
-                           log_norm, lse, ess, y, seed, row_offset, n, state.stride(0),
+                           log_norm, lse, ess, y, seed, row_offset, particle_offset, n,
+                           state.stride(0),
                            P=params.shape[1], S=s, UPDATE=_update_fn(update.triton),
                            N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
                            NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2,

@@ -12,7 +12,10 @@ gathered by the ancestors. The kernel is CUDA C++ for Hopper
 (``csrc/resample_sorted.cu``, built by ``_build.py``); its design note is in
 that source. :func:`resample_gather_sorted_plain` is the same function in
 plain PyTorch; :func:`resample_gather_sorted` takes it for CPU tensors and
-launches the kernel for CUDA tensors.
+launches the kernel for CUDA tensors. The grid may be shorter than the row,
+u (M, n_out): a rank that holds a slice of every row's particles
+(particle-axis sharding) passes its window of the whole grid and gets the
+whole output's slots of that window, bit for bit.
 
 The cumsum is accumulated in f64 and rounded to an f32 cdf, in the kernel and
 in the plain version alike, so that the two agree on the ancestors; against
@@ -59,9 +62,10 @@ def sorted_ancestors(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 def resample_gather_sorted_plain(u, weights, xs):
-    """Plain version: (xs gathered along N by the ancestors, ancestors)."""
+    """Plain version: (xs gathered along N by the ancestors, ancestors),
+    (M, C, n_out) and (M, n_out) for the grid u (M, n_out)."""
     anc = sorted_ancestors(u, weights)
-    idx = anc.to(torch.int64)[:, None, :].expand(xs.shape)
+    idx = anc.to(torch.int64)[:, None, :].expand(xs.shape[0], xs.shape[1], anc.shape[1])
     return torch.gather(xs, 2, idx), anc
 
 
@@ -69,7 +73,9 @@ def _check(u, weights, xs):
     if xs.dim() != 3:
         raise ValueError(f"xs must be (M, C, N), got shape {tuple(xs.shape)}")
     m, c, n = xs.shape
-    for name, t, shape in (("u", u, (m, n)), ("weights", weights, (m, n)),
+    if u.dim() != 2 or not 1 <= u.shape[-1] <= n:
+        raise ValueError(f"u must be (M, n_out) with 1 ≤ n_out ≤ {n}, got {tuple(u.shape)}")
+    for name, t, shape in (("u", u, (m, u.shape[-1])), ("weights", weights, (m, n)),
                            ("xs", xs, (m, c, n))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
@@ -85,12 +91,13 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     """Resample every row of the cloud by the sorted grid ``u`` and gather.
 
     Args:
-      u: (M, N) f32 sorted uniforms in [0, 1) per row.
+      u: (M, n_out) f32 sorted uniforms in [0, 1) per row, n_out ≤ N (N:
+        a whole grid; fewer: a window of one).
       weights: (M, N) f32 non-negative weights, need not be normalized.
       xs: (M, C, N) f32 cloud, components on the middle axis (any C).
-      return_ancestors: also return the (M, N) int32 ancestors.
+      return_ancestors: also return the (M, n_out) int32 ancestors.
 
-    Returns (M, C, N) f32 ``xs`` gathered along N (and the ancestors).
+    Returns (M, C, n_out) f32 ``xs`` gathered along N (and the ancestors).
     CPU tensors take :func:`resample_gather_sorted_plain`; CUDA tensors
     launch the kernel and count the launch in
     ``resample_gather_sorted.launches``. The kernel takes any N: up to
@@ -104,9 +111,11 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
+    n_out = u.shape[1]
     lib = _build.library()
-    out = torch.empty_like(xs)
-    anc = (torch.empty((m, n), device=xs.device, dtype=torch.int32)
+    out = (torch.empty_like(xs) if n_out == n
+           else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
+    anc = (torch.empty((m, n_out), device=xs.device, dtype=torch.int32)
            if return_ancestors else None)
     scratch = (torch.empty((m, n), device=xs.device, dtype=torch.float32)
                if n > lib.smc_resample_sorted_max_n() else None)
@@ -114,7 +123,7 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
         err = lib.smc_resample_sorted(
             u.data_ptr(), weights.data_ptr(), xs.data_ptr(), out.data_ptr(),
             None if anc is None else anc.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), m, n, c,
+            None if scratch is None else scratch.data_ptr(), m, n, c, n_out,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, err, "resample_sorted")

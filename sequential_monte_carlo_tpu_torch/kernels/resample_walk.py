@@ -6,7 +6,10 @@ CUDA C++ for Hopper (``csrc/resample_count.cu``, built by ``_build.py``);
 its design note is in that source. :func:`resample_gather_plain` is the same
 function in plain PyTorch, with :func:`count_ancestors` as its oracle.
 :func:`resample_gather` takes the plain version for CPU tensors and launches
-the kernel for CUDA tensors.
+the kernel for CUDA tensors. Either may write one window of the output's
+slots (``slot_lo``, ``n_out``): a rank that holds a slice of every row's
+particles (particle-axis sharding) resamples its own slots from the row's
+whole cloud, bit for bit the whole output's.
 """
 from __future__ import annotations
 
@@ -32,17 +35,21 @@ def count_ancestors(u0: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.clamp(anc, max=n - 1).to(torch.int32)
 
 
-def resample_gather_plain(u0, weights, xs):
-    """Plain version: (xs gathered along N by the ancestors, ancestors)."""
-    anc = count_ancestors(u0, weights)
-    idx = anc.to(torch.int64)[:, None, :].expand(xs.shape)
+def resample_gather_plain(u0, weights, xs, slot_lo: int = 0, n_out: int | None = None):
+    """Plain version: (xs gathered along N by the ancestors, ancestors), of
+    the output slots [slot_lo, slot_lo + n_out) (all N by default)."""
+    n = xs.shape[2]
+    anc = count_ancestors(u0, weights)[:, slot_lo:slot_lo + (n if n_out is None else n_out)]
+    idx = anc.to(torch.int64)[:, None, :].expand(xs.shape[0], xs.shape[1], anc.shape[1])
     return torch.gather(xs, 2, idx), anc
 
 
-def _check(u0, weights, xs):
+def _check(u0, weights, xs, slot_lo: int, n_out: int):
     if xs.dim() != 3:
         raise ValueError(f"xs must be (M, C, N), got shape {tuple(xs.shape)}")
     m, c, n = xs.shape
+    if not (0 <= slot_lo and 1 <= n_out <= n - slot_lo):
+        raise ValueError(f"slots [{slot_lo}, {slot_lo + n_out}) are not a window of N = {n}")
     for name, t, shape in (("u0", u0, (m, 1)), ("weights", weights, (m, n)),
                            ("xs", xs, (m, c, n))):
         if tuple(t.shape) != shape:
@@ -55,42 +62,51 @@ def _check(u0, weights, xs):
             raise ValueError(f"{name} must be contiguous")
 
 
-def resample_gather(u0, weights, xs, return_ancestors: bool = False):
+def resample_gather(u0, weights, xs, return_ancestors: bool = False, slot_lo: int = 0,
+                    n_out: int | None = None):
     """Resample every row of the cloud by systematic ancestors and gather.
 
     Args:
       u0: (M, 1) f32 systematic offsets in [0, 1).
       weights: (M, N) f32 non-negative weights, need not be normalized.
       xs: (M, C, N) f32 cloud, components on the middle axis (any C).
-      return_ancestors: also return the (M, N) int32 ancestors.
+      return_ancestors: also return the (M, n_out) int32 ancestors.
+      slot_lo, n_out: the window of output slots [slot_lo, slot_lo + n_out)
+        to write (default: all N); the cdf is the whole row's.
 
-    Returns (M, C, N) f32 ``xs`` gathered along N (and the ancestors).
+    Returns (M, C, n_out) f32 ``xs`` gathered along N (and the ancestors),
+    equal bit for bit to the whole output's slots of the window.
     CPU tensors take :func:`resample_gather_plain`; CUDA tensors launch the
     kernel and count the launch in ``resample_gather.launches``. The kernel
     takes any N: up to 56,832 (``smc_resample_count_max_n``) it keeps a
     row's marks in shared memory; above, in the ancestors' (M, N) buffer,
     which is then allocated whether or not it is returned.
     """
-    _check(u0, weights, xs)
+    n_out = xs.shape[-1] if n_out is None else n_out
+    _check(u0, weights, xs, slot_lo, n_out)
     if xs.device.type == "cpu":
-        out, anc = resample_gather_plain(u0, weights, xs)
+        out, anc = resample_gather_plain(u0, weights, xs, slot_lo, n_out)
         return (out, anc) if return_ancestors else out
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
     lib = _build.library()
-    out = torch.empty_like(xs)
-    anc = (torch.empty((m, n), device=xs.device, dtype=torch.int32)
-           if return_ancestors or n > lib.smc_resample_count_max_n() else None)
+    out = (torch.empty_like(xs) if n_out == n
+           else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
+    large = n > lib.smc_resample_count_max_n()  # the marks, then every slot's ancestor
+    anc = (torch.empty((m, n if large else n_out), device=xs.device, dtype=torch.int32)
+           if return_ancestors or large else None)
     with torch.cuda.device(xs.device):
         err = lib.smc_resample_count(
             u0.data_ptr(), weights.data_ptr(), xs.data_ptr(), out.data_ptr(),
-            None if anc is None else anc.data_ptr(), m, n, c,
+            None if anc is None else anc.data_ptr(), m, n, c, slot_lo, n_out,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, err, "resample_count")
     resample_gather.launches += 1
-    return (out, anc) if return_ancestors else out
+    if not return_ancestors:
+        return out
+    return out, (anc[:, slot_lo:slot_lo + n_out] if large else anc)
 
 
 resample_gather.launches = 0

@@ -11,7 +11,10 @@ C++ for Hopper (``csrc/ucsv_propagate.cu``, built by ``_build.py``); its
 design note is in that source. It is written independently of the fused
 propagate kernel's UC-SV instance (``kernels/propagate.py``, Triton) and
 draws the same normals at the same seed — Philox keyed by (seed,
-row_offset + row, particle) — so each checks the other.
+row_offset + row, particle_offset + particle) — so each checks the other.
+A slice of every row's particles (particle-axis sharding) is launched with
+its first particle's index, ``particle_offset``, and draws what the whole
+launch draws at those particles.
 
 :func:`ucsv_propagate_reweight_plain` is the same function in plain PyTorch
 with the normals injected; :func:`ucsv_propagate_reweight` takes it for CPU
@@ -72,7 +75,7 @@ def _check(y, gamma_eps, gamma_eta, cloud, draws, draws_name, draws_dtype):
 
 
 def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: int = 0,
-                            normalize: bool = False, normals=None):
+                            normalize: bool = False, normals=None, particle_offset: int = 0):
     """One fused UC-SV propagate + reweight step for all (M, N) particles.
 
     Args:
@@ -84,6 +87,10 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
       row_offset: global index of row 0 (θ-sharding), for the draws.
       normalize: also normalize each row.
       normals: (3, M, N) f32 draws (CPU tensors: the plain version).
+      particle_offset: global index of particle 0 (particle-axis sharding),
+        for the draws. Where it is not 0 it and N must be multiples of 16,
+        the rows on which this kernel equals the fused kernel's UC-SV
+        instance bit for bit (a ValueError otherwise).
 
     Returns (new cloud (M, 3, N), logw (M, N)), or with ``normalize``
     (new cloud, log_norm (M, N), lse (M, 1), ess (M, 1)). CUDA launches are
@@ -102,6 +109,9 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
         raise ValueError("the kernel draws its own normals: pass seed=")
     _check(y, gamma_eps, gamma_eta, cloud, seed, "seed", torch.int64)
     m, _, n = cloud.shape
+    if particle_offset < 0 or (particle_offset and (particle_offset % 16 or n % 16)):
+        raise ValueError(f"a particle slice at {particle_offset} of {n} particles: the offset "
+                         "and N must be multiples of 16")
     new = torch.empty((m, 3, n), device=cloud.device, dtype=torch.float32)
     logw = torch.empty((m, n), device=cloud.device, dtype=torch.float32)
     lse = torch.empty((m, 1), device=cloud.device, dtype=torch.float32) if normalize else None
@@ -113,7 +123,8 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
             gamma_eta.data_ptr(), gamma_eta.stride(0), cloud.data_ptr(), cloud.stride(0),
             cloud.stride(1), new.data_ptr(), logw.data_ptr(),
             None if lse is None else lse.data_ptr(), None if ess is None else ess.data_ptr(),
-            m, n, row_offset, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            m, n, row_offset, particle_offset,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     _build.check(lib, err, "ucsv_propagate")
     ucsv_propagate_reweight.launches += 1

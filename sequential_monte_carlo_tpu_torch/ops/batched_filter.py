@@ -71,6 +71,36 @@ draw through a distribution runs on the whole tiled bank, so those routes
 cost every rank R times its rows' work and sharding saves none of it. Only
 the kernel routes (K1/K3 and K2/K6 on the card) do a rank's rows alone.
 
+Particle-axis sharding (a mesh with ``particle`` = Rp > 1, ≡ the JAX
+package's ``parallel/collective.py::distributed_pf_step``, batched over the
+rows): the particles and log-weights are this rank's slice [b·N/Rp,
+(b+1)·N/Rp) of each of its rows (``ops/sharding.py``). The draws stay at
+the whole bank's shape, and the rank keeps its rows and, where a draw is
+per particle, its particles. A step:
+
+- resample: one all_gather inside the particle group assembles each row's
+  whole cloud and log-weights (the log-weights packed as one more plane,
+  :func:`~.sharding.gather_row_cloud`); K1, or K3 on the window of a sorted
+  grid, then writes only this rank's slots from the whole row, and the plain
+  schemes take their ancestors over the whole row and keep the window;
+- propagate: the model's kernel route without the normalize (K2's raw
+  route, or K6 on UC-SV) on the rank's (m, C, N/Rp) slice, with
+  ``particle_offset`` = b·N/Rp beside ``row_offset`` (the Philox counter is
+  the global particle index); a draw through a distribution (a model
+  without a kernel, a guided proposal) at the whole bank's shape, tiled along
+  rows and particles, kept at the window;
+- normalize: one all_gather inside the particle group assembles the rows'
+  whole raw log-weights, and every rank normalizes whole rows as the
+  unsharded step does (the kernel's normalize in its plain form,
+  ``kernels/propagate.py::normalize_rows``, on the kernel route; else
+  ``log_normalize``) and keeps its window. No sum over a row is split, so
+  every rank of the group holds the same log-mean and ESS bit for bit, and
+  on the CPU the run equals the unsharded one bit for bit. On the card the
+  unsharded step normalizes inside K2, in another summation order, so there
+  the two runs are close, not equal. The price: one plane of M·N
+  log-weights more through the collective a step than a combine of per-rank
+  partials would move, and each rank of the group normalizes the whole rows.
+
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
 the CPU the normals themselves, from an explicit ``torch.Generator``; the
@@ -85,11 +115,24 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.propagate import normalize_rows
 from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniforms
 from ..kernels.resample_walk import resample_gather
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf, _residual_from_uniforms, get_resampler, metropolis
-from .sharding import local_model, local_rows, theta_rows, theta_shards, tile_rows
+from .sharding import (
+    all_gather_cols,
+    gather_row_cloud,
+    local_cols,
+    local_model,
+    local_rows,
+    particle_cols,
+    particle_shards,
+    theta_rows,
+    theta_shards,
+    tile_cols,
+    tile_rows,
+)
 from .weights import log_normalize
 
 __all__ = [
@@ -141,7 +184,17 @@ def kernel_params(models, config: PFConfig = PFConfig()):
     return None
 
 
-def propagate_reweight(models, y, cloud, draws, params=None, rows=None):
+def _whole_bank(states, rows, cols):
+    """The (N, M, dx) states of this rank tiled to the whole bank's shape."""
+    return tile_cols(states if rows is None else tile_rows(states, rows, 1), cols, 0)
+
+
+def _mine(x, rows, cols):
+    """This rank's rows (dim 1) and particles (dim 0) of an (N, M, ...) draw."""
+    return local_cols(local_rows(x, rows, 1), cols, 0)
+
+
+def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=None):
     """Propagate + reweight the (M, dx, N) cloud without the normalize:
     (new cloud (M, dx, N), log g(y | x′) (M, N)). Through the model's kernel
     (``draws`` its Philox seed or normals, :func:`_draws`), or, for a model
@@ -149,17 +202,18 @@ def propagate_reweight(models, y, cloud, draws, params=None, rows=None):
     layout of the models' distributions, and the observation density of the
     draw (``draws`` the generator) — the JAX package's unfused route. With
     ``rows`` (θ-sharding), ``models`` is the whole bank, the cloud and
-    ``params`` this rank's rows."""
+    ``params`` this rank's rows; with ``cols`` (particle sharding), the cloud
+    is this rank's particles of them."""
     local = local_model(models, rows)
     if _has_kernel(models):
         return local.fused_propagate_reweight(y, cloud, params=params, normalize=False,
-                                              **_propagate_draws(draws, rows))
+                                              **_propagate_draws(draws, rows, cols))
     states = cloud.permute(2, 0, 1)
-    if rows is None:
+    if rows is None and cols is None:
         x_new = models.transition_distribution(states).sample(draws)
-    else:  # drawn at the whole bank's shape, kept at this rank's rows
-        x_new = local_rows(models.transition_distribution(tile_rows(states, rows, 1))
-                           .sample(draws), rows, 1)
+    else:  # drawn at the whole bank's shape, kept at this rank's rows and particles
+        x_new = _mine(models.transition_distribution(_whole_bank(states, rows, cols))
+                      .sample(draws), rows, cols)
     incr = local.observation_distribution(x_new).log_prob(y)
     return x_new.permute(1, 2, 0).contiguous(), incr.T.contiguous()
 
@@ -173,8 +227,9 @@ def _elastic_sorted_u(offsets: torch.Tensor, n: int, active_n: int) -> torch.Ten
     return torch.clamp((i + offsets) / active_n, max=1.0 - 1e-7)
 
 
-def _live(n: int, active_n: int, device) -> torch.Tensor:
-    return (torch.arange(n, device=device) < active_n)[None, :]
+def _live(n: int, active_n: int, device, cols=None) -> torch.Tensor:
+    """The live slots (1, N) of a row, or of this rank's particles of it."""
+    return local_cols(torch.arange(n, device=device) < active_n, cols)[None, :]
 
 
 def _log_f32(v: int) -> float:
@@ -222,6 +277,23 @@ def _rows(config: PFConfig, m_local: int):
     return None if mesh is None else theta_rows(mesh, m_local * theta_shards(mesh))
 
 
+def _cols(config: PFConfig, n_local: int):
+    """This rank's particles of the rows whose n_local particles it holds
+    (None without particle sharding)."""
+    return particle_cols(config.mesh, n_local * particle_shards(config.mesh))
+
+
+def _log_normalize(log_w, cols, log_n: float | None = None):
+    """``log_normalize`` along the particles; under particle sharding, of
+    the whole rows gathered from the particle group, with this rank's window
+    of the normalized log-weights (``log_n`` replaces log N, N the whole
+    row's)."""
+    if cols is None:
+        return log_normalize(log_w, log_n=log_n)
+    log_mean, log_norm, ess = log_normalize(all_gather_cols(log_w, cols), log_n=log_n)
+    return log_mean, local_cols(log_norm, cols).contiguous(), ess
+
+
 def _active(active_n):
     """The live count as a host int (it sets the step's shapes of work)."""
     return None if active_n is None else int(active_n)
@@ -235,16 +307,17 @@ def batched_pf_init(generator, models, n: int, m: int, y0,
     distribution q0, weighted by the observation density times p(x)/q0(x).
     With ``active_n``, slots ≥ active_n get log-weight −inf and the
     evidence normalizes by active_n. With ``config.mesh``, ``models`` is
-    the whole M-row bank and the outputs are this rank's rows."""
+    the whole M-row bank and the outputs are this rank's rows (and, on a
+    mesh that shards particles, its particles of each)."""
     active_n = _active(active_n)
     _check_config(config, n, active_n)
-    rows = theta_rows(config.mesh, m)
+    rows, cols = theta_rows(config.mesh, m), particle_cols(config.mesh, n)
     proposal = config.proposal
     q0 = models.initial_distribution() if proposal is None else proposal.initial(models)
     x = q0.sample(generator, (n,))  # (N, M, dx)
     if tuple(x.shape[:2]) != (n, m):
         raise ValueError(f"models must carry {m} θ, drew shape {tuple(x.shape)}")
-    x, local = local_rows(x, rows, 1), local_model(models, rows)
+    x, local = _mine(x, rows, cols), local_model(models, rows)
     logw = local.observation_distribution(x).log_prob(y0)
     if proposal is not None:
         logw = (logw + local.initial_distribution().log_prob(x)
@@ -252,15 +325,15 @@ def batched_pf_init(generator, models, n: int, m: int, y0,
     logw = logw.T.contiguous()
     particles = from_cloud(x.permute(1, 2, 0).contiguous())
     if active_n is None:
-        log_mean, log_norm, ess = log_normalize(logw)
+        log_mean, log_norm, ess = _log_normalize(logw, cols)
         return BatchedPFOut(particles, log_norm, log_mean, ess)
-    logw = torch.where(_live(n, active_n, logw.device), logw, -torch.inf)
-    log_mean, log_norm, ess = log_normalize(logw, log_n=_log_f32(active_n))
+    logw = torch.where(_live(n, active_n, logw.device, cols), logw, -torch.inf)
+    log_mean, log_norm, ess = _log_normalize(logw, cols, log_n=_log_f32(active_n))
     return BatchedPFOut(particles, log_norm, log_mean, ess)
 
 
 def _draws(generator, models, m: int, n: int, device,
-           config: PFConfig = PFConfig(), active_n=None, rows=None):
+           config: PFConfig = PFConfig(), active_n=None, rows=None, cols=None):
     """The step's randomness, drawn in this order:
 
     - the resample's: u0 (M, 1) (systematic, ``residual_systematic``), a
@@ -274,7 +347,10 @@ def _draws(generator, models, m: int, n: int, device,
       guided proposal or a model without a kernel, which sample in the step.
 
     With ``rows`` (θ-sharding), m is the whole bank's and this rank keeps
-    its rows of u and of the normals.
+    its rows of u and of the normals; with ``cols`` (particle sharding), n is
+    the whole row's, u stays whole along it (the resample draws over the
+    whole row and keeps its window) and the rank keeps its particles of the
+    normals.
     """
     scheme = config.resampling
     if scheme == "metropolis" and active_n is None:
@@ -297,36 +373,49 @@ def _draws(generator, models, m: int, n: int, device,
             u = local_rows(u, rows).contiguous()
         if isinstance(rest, torch.Tensor) and rest.dtype != torch.int64:
             rest = local_rows(rest, rows, 1).contiguous()
+    if cols is not None and isinstance(rest, torch.Tensor) and rest.dtype != torch.int64:
+        rest = local_cols(rest, cols).contiguous()
     return u, rest
 
 
-def _propagate_draws(seed_or_normals, rows=None) -> dict:
+def _propagate_draws(seed_or_normals, rows=None, cols=None) -> dict:
     """The propagate kernel's draws: its Philox seed (an int64 tensor) with
-    the global index of the rank's first row, or its injected normals (a
-    float tensor, already the rank's rows)."""
-    if seed_or_normals.dtype == torch.int64:
-        return {"seed": seed_or_normals, "row_offset": 0 if rows is None else rows.lo}
-    return {"normals": seed_or_normals}
+    the global index of the rank's first row and, under particle sharding,
+    of its first particle, or its injected normals (a float tensor, already
+    the rank's rows and particles)."""
+    if seed_or_normals.dtype != torch.int64:
+        return {"normals": seed_or_normals}
+    draws = {"seed": seed_or_normals, "row_offset": 0 if rows is None else rows.lo}
+    if cols is not None:
+        draws["particle_offset"] = cols.lo
+    return draws
 
 
 def _gather(cloud: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
-    return torch.gather(cloud, 2, anc.long()[:, None, :].expand(cloud.shape))
+    """The (M, C, N) cloud gathered by (M, K) ancestors: (M, C, K)."""
+    idx = anc.long()[:, None, :].expand(cloud.shape[0], cloud.shape[1], anc.shape[1])
+    return torch.gather(cloud, 2, idx)
 
 
-def _resample_gather(u, config: PFConfig, cloud, w, active_n=None, rows=None):
+def _resample_gather(u, config: PFConfig, cloud, w, active_n=None, rows=None, cols=None):
     """The resample + gather of :func:`_pf_step_from_draws`: the (M, C, N)
     cloud gathered by each row's ancestors under the weights w, from the
     scheme's draws u (see :func:`_draws`; the metropolis resampler draws
-    at the whole bank's shape under θ-sharding, ``rows``)."""
+    at the whole bank's shape under θ-sharding, ``rows``). With ``cols``
+    (particle sharding), the cloud and w are the rank's rows whole along N,
+    and only the rank's slots [lo, hi) of the output are resampled."""
     scheme, n = config.resampling, cloud.shape[2]
     if active_n is not None:
         if scheme == "multinomial":  # unsorted uniforms: the inverse cdf
-            return _gather(cloud, _inverse_cdf(u, w))
-        return resample_gather_sorted(_elastic_sorted_u(u, n, active_n), w, cloud)
+            return _gather(cloud, local_cols(_inverse_cdf(u, w), cols))
+        u_live = local_cols(_elastic_sorted_u(u, n, active_n), cols)
+        return resample_gather_sorted(u_live.contiguous(), w, cloud)
     if scheme in _OFFSET_SCHEMES:
-        return resample_gather(u, w, cloud)
+        if cols is None:
+            return resample_gather(u, w, cloud)
+        return resample_gather(u, w, cloud, slot_lo=cols.lo, n_out=cols.hi - cols.lo)
     if scheme == "stratified":
-        return resample_gather_sorted(u, w, cloud)
+        return resample_gather_sorted(local_cols(u, cols).contiguous(), w, cloud)
     if scheme == "multinomial":
         anc = _inverse_cdf(u, w)
     elif scheme == "residual":
@@ -335,7 +424,7 @@ def _resample_gather(u, config: PFConfig, cloud, w, active_n=None, rows=None):
         anc = metropolis(u, w)
     else:
         anc = local_rows(metropolis(u, tile_rows(w, rows)), rows)
-    return _gather(cloud, anc)
+    return _gather(cloud, local_cols(anc, cols))
 
 
 def _guided_increment(models, q, xp, x_new, y) -> torch.Tensor:
@@ -357,16 +446,23 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     or the transition of a model without a kernel. ``params`` are the
     model's step-invariant kernel parameters (:func:`kernel_params`), the
     rank's rows of them under θ-sharding, where ``models`` is the whole
-    bank; ``active_n`` the elastic live count."""
-    n = particles.shape[1]
+    bank; ``active_n`` the elastic live count. Under particle sharding the
+    particles and log-weights are the rank's slice of its rows, and u and
+    the normals as :func:`_draws` keeps them."""
     rows = _rows(config, particles.shape[0])
+    cols = _cols(config, particles.shape[1])
+    n = particles.shape[1] if cols is None else cols.n
     cloud = as_cloud(particles)
-    w = torch.exp(log_w)
-    xp = _resample_gather(u, config, cloud, w, active_n, rows)
+    if cols is None:
+        whole, w = cloud, torch.exp(log_w)
+    else:  # the rows' whole clouds and log-weights, from the particle group
+        whole, w = gather_row_cloud(cloud, log_w, cols)
+        w = torch.exp(w)
+    xp = _resample_gather(u, config, whole, w, active_n, rows, cols)
     if active_n is None:
         reset, n_live = torch.full_like(log_w, -math.log(n)), n
     else:
-        live = _live(n, active_n, log_w.device)
+        live = _live(n, active_n, log_w.device, cols)
         reset = torch.where(live, -_log_f32(active_n), -torch.inf)
         n_live = active_n
     lw = reset
@@ -379,23 +475,32 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         # carry + logw is the evidence increment; else the log-mean of the
         # unnormalized weights (the weights after resampling are all 1/N)
         carry = lw if config.ess_threshold < 1.0 else None
-        new, log_norm, lse, ess = local_model(models, rows).fused_propagate_reweight(
-            y, xp, carry_logw=carry, params=params, **_propagate_draws(seed_or_normals, rows))
+        local, draws = local_model(models, rows), _propagate_draws(seed_or_normals, rows, cols)
+        if cols is None:
+            new, log_norm, lse, ess = local.fused_propagate_reweight(
+                y, xp, carry_logw=carry, params=params, **draws)
+        else:  # the slice's raw log-weights, normalized as whole rows
+            new, logw = local.fused_propagate_reweight(y, xp, params=params, normalize=False,
+                                                       **draws)
+            if carry is not None:
+                logw = logw + carry
+            log_norm, lse, ess = normalize_rows(all_gather_cols(logw, cols))
+            log_norm = local_cols(log_norm, cols).contiguous()
         log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
         return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
     if config.proposal is None:
-        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params, rows)
+        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params, rows, cols)
     else:
-        states = xp.permute(2, 0, 1)  # (N, M, dx): the models' distributions' layout
-        if rows is not None:  # the whole bank's draw, kept at this rank's rows
-            states = tile_rows(states, rows, 1)
+        # (N, M, dx): the models' distributions' layout, the whole bank's
+        # draw kept at this rank's rows and particles
+        states = _whole_bank(xp.permute(2, 0, 1), rows, cols)
         q = config.proposal.step(models, states)
         x_new = q.sample(seed_or_normals)
-        incr = local_rows(_guided_increment(models, q, states, x_new, y).T, rows)
-        new = local_rows(x_new, rows, 1).permute(1, 2, 0).contiguous()
+        incr = _mine(_guided_increment(models, q, states, x_new, y), rows, cols).T
+        new = _mine(x_new, rows, cols).permute(1, 2, 0).contiguous()
     if active_n is not None:
         incr = torch.where(live, incr, 0.0)  # the dead tail stays exactly −inf
-    log_mean, log_norm, ess = log_normalize(lw + incr, log_n=0.0)
+    log_mean, log_norm, ess = _log_normalize(lw + incr, cols, log_n=0.0)
     return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess)
 
 
@@ -414,16 +519,23 @@ def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     draws as in :func:`_pf_step_from_draws`): the lookahead, one resample
     launch on the (M, dx + 1, N) cloud with the lookahead plane, the model's
     step without the normalize on the split-off planes (a strided view, not
-    copied), then the correction and the normalize."""
-    n, dx = particles.shape[1], particles.shape[2]
-    log_n = math.log(n)
+    copied), then the correction and the normalize. Under particle sharding
+    the rows' whole clouds, with the lookahead plane, and their λ come in one
+    gather, and λ is normalized over whole rows."""
+    dx = particles.shape[2]
     rows = _rows(config, particles.shape[0])
+    cols = _cols(config, particles.shape[1])
+    log_n = math.log(particles.shape[1] if cols is None else cols.n)
     log_g_mu = apf_lookahead(local_model(models, rows), particles, y)
-    lam_mean, lam_norm, _ = log_normalize(log_w + log_g_mu)
+    lam = log_w + log_g_mu
     aug = torch.cat([as_cloud(particles), log_g_mu[:, None, :]], dim=1)
-    gathered = _resample_gather(u, config, aug, torch.exp(lam_norm), rows=rows)
-    new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params, rows)
-    corr_mean, log_norm, ess = log_normalize(incr - gathered[:, dx])
+    if cols is not None:
+        aug, lam = gather_row_cloud(aug, lam, cols)
+    lam_mean, lam_norm, _ = log_normalize(lam)
+    gathered = _resample_gather(u, config, aug, torch.exp(lam_norm), rows=rows, cols=cols)
+    new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params, rows,
+                                   cols)
+    corr_mean, log_norm, ess = _log_normalize(incr - gathered[:, dx], cols)
     return BatchedPFOut(from_cloud(new), log_norm, lam_mean + log_n + corr_mean, ess)
 
 
@@ -437,15 +549,18 @@ def batched_pf_step(generator, models, particles, log_w, y,
     once by callers that step the same models many times. ``active_n``: the
     elastic live count (slots past it are dead, at log-weight −inf). With
     ``config.mesh``, ``models`` and ``params`` are the whole M-row bank's
-    and the particles and log-weights this rank's rows."""
+    and the particles and log-weights this rank's rows (and, on a mesh that
+    shards particles, its slice of each)."""
     m, n, _ = particles.shape
     active_n = _active(active_n)
-    _check_config(config, n, active_n)
-    rows = _rows(config, m)
+    rows, cols = _rows(config, m), _cols(config, n)
     if rows is not None:
         m = rows.m
         params = None if params is None else local_rows(params, rows)
-    u, rest = _draws(generator, models, m, n, particles.device, config, active_n, rows)
+    if cols is not None:
+        n = cols.n
+    _check_config(config, n, active_n)
+    u, rest = _draws(generator, models, m, n, particles.device, config, active_n, rows, cols)
     if config.algorithm == "apf":
         return _apf_step_from_draws(u, rest, models, particles, log_w, y, config, params)
     return _pf_step_from_draws(u, rest, models, particles, log_w, y, config, params, active_n)
@@ -460,7 +575,7 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     kernel parameters are packed once, outside the loop.
 
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,)), this rank's
-    rows of them under ``config.mesh``."""
+    rows of them (and its particles of each) under ``config.mesh``."""
     init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
     params = kernel_params(models, config)

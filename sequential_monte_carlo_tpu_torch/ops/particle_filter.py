@@ -57,14 +57,15 @@ class PFConfig(NamedTuple):
     """Static filter configuration. The JAX package's TPU routing field
     ``fused_resample`` has no counterpart: the port has one route per
     device. ``mesh`` (JAX's field) is the (theta, particle) mesh of a
-    θ-sharded run (``parallel.make_mesh``): the batched filter then holds
-    this rank's rows of the bank (``ops/batched_filter.py``)."""
+    sharded run (``parallel.make_mesh``): the batched filter then holds
+    this rank's rows of the bank and, where the mesh shards particles, its
+    particles of each row (``ops/batched_filter.py``)."""
 
     resampling: str = "systematic"
     ess_threshold: float = 1.0  # resample when ESS < τ·N; 1.0 ≡ every step
     proposal: object = None  # a Proposal for the guided filter; None = bootstrap
     algorithm: str = "bootstrap"  # or "apf"
-    mesh: object = None  # a DeviceMesh: θ-sharded over its theta axis
+    mesh: object = None  # a DeviceMesh: θ over its theta axis, particles over the other
 
 
 class ParticleState(NamedTuple):

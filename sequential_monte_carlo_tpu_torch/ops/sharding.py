@@ -1,12 +1,16 @@
-"""θ-row sharding (L2): which rows of an M-row θ-bank a rank holds on a
-(theta, particle) mesh, and the two collectives the sharded filter, SMC²
-and IBIS use — an all_gather of rows and an all_reduce.
+"""θ-row and particle sharding (L2): which rows of an M-row θ-bank, and
+which particles of each row's cloud, a rank holds on a (theta, particle)
+mesh, and the collectives the sharded filter, SMC² and IBIS use — an
+all_gather (of rows, of a row's particle slices) and an all_reduce.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the dims
-("theta", "particle") (``parallel.make_mesh``). Rank r of R along the θ
-axis holds the contiguous rows [r·M/R, (r+1)·M/R) of every row-sharded
-tensor; M must divide by R. A mesh with ``particle`` > 1 shards each θ's
-cloud, which the port does not do yet (ROADMAP Queue 1 item 19): it raises.
+("theta", "particle") (``parallel.make_mesh``). Rank (a, b) of an
+(Rθ, Rp) mesh holds the contiguous rows [a·M/Rθ, (a+1)·M/Rθ) of every
+row-sharded tensor (:class:`ThetaRows`, over the θ axis's group: the ranks
+of its particle column) and, where ``particle`` > 1, the contiguous
+particles [b·N/Rp, (b+1)·N/Rp) of each of those rows (:class:`ParticleCols`,
+over the particle axis's group: the Rp ranks that share its rows). M must
+divide by Rθ and N by Rp.
 
 Both collectives go through :func:`_collective`, which hands the tensor
 to the process group as it is, on its own device: NCCL keeps it on the
@@ -27,8 +31,6 @@ import torch.distributed as dist
 
 from ..models.base import model_rows
 
-PARTICLE_SHARDING_ITEM = "ROADMAP Queue 1 item 19 (particle-axis sharding)"
-
 collective_stats = collections.Counter()
 
 
@@ -43,13 +45,25 @@ class ThetaRows(NamedTuple):
     group: object
 
 
+class ParticleCols(NamedTuple):
+    """This rank's particles [lo, hi) of each row's n-particle cloud, split
+    over ``shards`` ranks of the particle axis's process ``group``."""
+
+    lo: int
+    hi: int
+    n: int
+    shards: int
+    group: object
+
+
 def theta_shards(mesh) -> int:
-    """R, the number of θ-shards of ``mesh``; ValueError for a mesh that
-    shards the particle axis."""
-    if mesh.size(1) > 1:
-        raise ValueError(f"a mesh with particle = {mesh.size(1)} > 1 shards each θ's cloud, "
-                         f"which the port does not do yet: {PARTICLE_SHARDING_ITEM}")
+    """Rθ, the number of θ-shards of ``mesh``."""
     return mesh.size(0)
+
+
+def particle_shards(mesh) -> int:
+    """Rp, the number of particle shards of ``mesh`` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(1)
 
 
 def theta_rows(mesh, m: int) -> ThetaRows | None:
@@ -61,6 +75,18 @@ def theta_rows(mesh, m: int) -> ThetaRows | None:
         raise ValueError(f"M = {m} θ-particles do not split over {shards} θ-shards")
     k, r = m // shards, mesh.get_local_rank(0)
     return ThetaRows(r * k, (r + 1) * k, m, shards, mesh.get_group(0))
+
+
+def particle_cols(mesh, n: int) -> ParticleCols | None:
+    """This rank's particles of each row's n-particle cloud on ``mesh``;
+    None without a mesh or where the mesh does not shard particles."""
+    shards = particle_shards(mesh)
+    if shards == 1:
+        return None
+    if n % shards:
+        raise ValueError(f"N = {n} particles do not split over {shards} particle shards")
+    k, b = n // shards, mesh.get_local_rank(1)
+    return ParticleCols(b * k, (b + 1) * k, n, shards, mesh.get_group(1))
 
 
 def local_rows(x: torch.Tensor, rows: ThetaRows | None, dim: int = 0) -> torch.Tensor:
@@ -76,6 +102,24 @@ def tile_rows(x: torch.Tensor, rows: ThetaRows, dim: int = 0) -> torch.Tensor:
     equals the unsharded draw's rows."""
     reps = [1] * x.dim()
     reps[dim] = rows.shards
+    return x.repeat(reps)
+
+
+def local_cols(x: torch.Tensor, cols: ParticleCols | None, dim: int = -1) -> torch.Tensor:
+    """The rank's particles of a whole tensor along ``dim`` (a view); ``x``
+    itself without particle sharding."""
+    return x if cols is None else x.narrow(dim, cols.lo, cols.hi - cols.lo)
+
+
+def tile_cols(x: torch.Tensor, cols: ParticleCols | None, dim: int) -> torch.Tensor:
+    """The rank's particles tiled to whole rows along ``dim`` (as
+    :func:`tile_rows` tiles rows): a draw at the whole shape, kept at
+    [lo, hi), equals the unsharded draw's particles there. ``x`` itself
+    without particle sharding."""
+    if cols is None:
+        return x
+    reps = [1] * x.dim()
+    reps[dim] = cols.shards
     return x.repeat(reps)
 
 
@@ -110,6 +154,26 @@ def all_gather_rows(x: torch.Tensor, rows: ThetaRows | None) -> torch.Tensor:
     """The whole bank (M, ...) from every rank's rows (M/R, ...); ``x``
     itself without sharding."""
     return x if rows is None else all_gather(x, rows.group)
+
+
+def all_gather_cols(x: torch.Tensor, cols: ParticleCols | None, dim: int = -1) -> torch.Tensor:
+    """Whole rows (..., N, ...) from every rank's particle slices along
+    ``dim``, in rank order; ``x`` itself without particle sharding."""
+    if cols is None:
+        return x
+    return torch.cat(tuple(all_gather(x.unsqueeze(0), cols.group)), dim=dim)
+
+
+def gather_row_cloud(cloud: torch.Tensor, log_w: torch.Tensor, cols: ParticleCols):
+    """The whole rows of the (m, C, N/Rp) cloud and its (m, N/Rp) log-weights
+    from the particle group's slices: one all_gather of the cloud with the
+    log-weights packed as one more plane, unpacked into the contiguous
+    (m, C, N) cloud and (m, N) log-weights."""
+    m, c, k = cloud.shape
+    parts = all_gather(torch.cat([cloud, log_w[:, None, :]], dim=1).unsqueeze(0), cols.group)
+    whole = parts.permute(1, 2, 0, 3)  # (m, C + 1, Rp, k)
+    return (whole[:, :c].reshape(m, c, cols.n).contiguous(),
+            whole[:, c].reshape(m, cols.n).contiguous())
 
 
 def all_reduce(x: torch.Tensor, op: str, group=None) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""θ-sharded samplers over ``torch.distributed`` (L4) — counterpart of
-``sequential_monte_carlo_tpu/parallel``: the launcher, the (theta,
-particle) mesh, the sharded SMC² and IBIS, and the particle-axis building
-blocks."""
+"""Samplers sharded over θ and particles with ``torch.distributed`` (L4) —
+counterpart of ``sequential_monte_carlo_tpu/parallel``: the launcher, the
+(theta, particle) mesh, the sharded SMC² and IBIS, and the particle-axis
+building blocks."""
 from .collective import (
     distributed_pf_step,
     distributed_systematic_resample,

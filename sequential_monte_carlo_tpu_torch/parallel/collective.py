@@ -10,9 +10,11 @@ N = n_local · R particles.
 
 Each function is a deterministic core from its draws and a wrapper that
 draws them from a ``torch.Generator`` that every rank holds alike (so that
-a test can feed the JAX package's draws to the core). The samplers shard
-the θ axis only; these blocks are what sharding the particle axis inside
-SMC²'s filter would be built from (ROADMAP Queue 1 item 19).
+a test can feed the JAX package's draws to the core). The batched filter
+(``ops/batched_filter.py``) shards the particle axis inside SMC²'s filter
+with the same semantics, batched over the θ-rows: the ancestors of a row
+from its whole cloud, gathered in the particle group, and the normalize's
+sums combined over it (``ops/weights.py``).
 """
 from __future__ import annotations
 

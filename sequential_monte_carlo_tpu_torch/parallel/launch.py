@@ -6,7 +6,8 @@ Every process runs the same program. ``torch.distributed`` wires the
 processes into one group, and the (theta, particle) mesh spans them
 (``parallel/mesh.py``). θ-shards exchange O(M) numbers a step (the
 evidence increments, a rejuvenation's log-likelihoods) and the clouds at a
-θ-resample.
+θ-resample; particle shards a row's whole cloud and log-weights each inner
+step.
 
 Launch with torchrun (the environment gives every argument)::
 

@@ -55,7 +55,8 @@ class SMC2State:
 
     theta: torch.Tensor  # (M, dθ)
     log_omega: torch.Tensor  # (M,) unnormalized θ log-weights
-    # the clouds: under θ-sharding this rank's M/R rows
+    # the clouds: under θ-sharding this rank's M/R rows, and under particle
+    # sharding its N/Rp particles of each
     particles: torch.Tensor  # (M, N, dx), planar storage
     log_w: torch.Tensor  # (M, N) normalized per-θ particle log-weights
     log_z: torch.Tensor  # (M,) running per-θ marginal-likelihood estimate

@@ -13,7 +13,10 @@ few (M, dx, dx) products. Like the port's SMC², a host loop with an explicit
 log ω, log Z, the ESS and t are whole on every rank and the Kalman bank's
 ``mean`` and ``cov`` hold the rank's rows; the per-row log-likelihoods of a
 step and of a rejuvenation's proposals are gathered whole, and a θ-resample
-gathers the bank and keeps the ancestors' rows of this rank.
+gathers the bank and keeps the ancestors' rows of this rank. On a mesh that
+also shards particles the θ axis's group is the rank's particle column, and
+the ranks of a particle group hold the same rows and compute the same bits:
+the state is copied across them.
 """
 from __future__ import annotations
 

@@ -42,6 +42,18 @@ rank. Every draw is made at the whole bank's shape from the generator all
 ranks hold alike, and the gathers are exact, so the host's decisions (the
 θ-ESS, the exchange test) read the same values on every rank and a sharded
 run equals the unsharded one bit for bit.
+
+Particle-axis sharding (a mesh with ``particle`` = Rp > 1): the clouds hold
+the rank's particles [b·N/Rp, (b+1)·N/Rp) of its rows, and the filters
+make every per-row number (log-mean, ESS) whole and the same bits on every
+rank of the particle group (``ops/batched_filter.py``), so θ, log ω, log Z,
+the ESS and the MH decisions are too. ``_whole`` gathers over the θ group
+only (the ranks of this rank's particle column): a θ-resample gives each
+rank all M rows of its particle slice and keeps its ancestors' rows of it.
+N (and, in "full" padding, the doubling cap) is split over the particle
+ranks; the live prefix may lie wholly inside the first ranks' slices. The
+split sums round otherwise than one rank's, so such a run is close to the
+unsharded one, not bitwise equal to it.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ from ..ops.batched_filter import (
     from_cloud,
 )
 from ..ops.resampling import get_resampler
-from ..ops.sharding import all_gather_rows, local_rows, theta_rows
+from ..ops.sharding import all_gather_rows, local_rows, particle_shards, theta_rows
 from ..ops.weights import ess_from_log_weights
 from ..utils.struct import replace
 from .base import SMC2State, SMCConfig, StepInfo
@@ -133,8 +145,13 @@ class SMC2:
             while n_pad <= config.exchange_max_n:
                 n_pad *= 2
         self._n_pad = n_pad
-        # this rank's rows of the θ-bank under config.inner.mesh
+        # this rank's rows of the θ-bank under config.inner.mesh, and the
+        # number of ranks that split each row's particles
         self._rows = theta_rows(config.inner.mesh, config.n_theta)
+        self._particle_shards = particle_shards(config.inner.mesh)
+        if n_pad % self._particle_shards:
+            raise ValueError(f"N = {n_pad} particles do not split over "
+                             f"{self._particle_shards} particle shards")
 
     def _whole(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of a per-row quantity, gathered whole."""
@@ -146,6 +163,10 @@ class SMC2:
 
     def _active(self, state: SMC2State):
         return state.active_n if self._use_active else None
+
+    def _n(self, state: SMC2State) -> int:
+        """The whole rows' particle count of the state's clouds."""
+        return state.particles.shape[1] * self._particle_shards
 
     def init(self, generator, y) -> SMC2State:
         """Draw the θ-cloud from the prior and assimilate y[0] for every θ
@@ -190,7 +211,7 @@ class SMC2:
         """``chain`` PMMH moves with annealed RW proposals; each re-runs the
         inner filter over the masked history for all M proposals at once."""
         cfg = self.config
-        m, n = cfg.n_theta, state.particles.shape[1]
+        m, n = cfg.n_theta, self._n(state)
         theta, log_z = state.theta, state.log_z
         cloud, log_w = as_cloud(state.particles), state.log_w
         accepted = torch.zeros(m, dtype=torch.bool, device=theta.device)
@@ -308,7 +329,7 @@ class SMC2:
         """A pending doubling ("grow"): refilter the consumed history at 2N
         (fresh filters, so the old arrays need no re-padding) and correct
         the θ-weights."""
-        n2 = 2 * state.particles.shape[1]
+        n2 = 2 * self._n(state)
         mask = torch.arange(y.shape[0]) < state.t
         return replace(self._refilter(generator, state, y, mask, n2),
                        active_n=n2, exchange_pending=False)

@@ -855,3 +855,77 @@ def test_debug_nans_on_the_card(cuda):
     x = torch.tensor([1.0, -1.0], device=cuda)
     with debug_nans(), pytest.raises(FloatingPointError, match="sqrt"):
         torch.sqrt(x)
+
+
+def _weights(rng, m, n, cuda):
+    a = 2.0 * rng.standard_normal((m, n))
+    w = np.exp(a - a.max(-1, keepdims=True))
+    return torch.tensor(w / w.sum(-1, keepdims=True), dtype=torch.float32, device=cuda)
+
+
+@pytest.mark.parametrize("m, n, shards", [(512, 8192, 2), (512, 8192, 4), (64, 65536, 2),
+                                          (64, 1000, 4), (64, 1002, 2)])
+def test_resample_windows_equal_the_whole_outputs_slots(cuda, m, n, shards):
+    """Particle-axis sharding: K1 with a slot window and K3 on a window of
+    the grid give the whole launch's slots of the window bit for bit, and
+    their ancestors, on both routes of each (the large route above the
+    shared-memory cap) and on windows that 16-byte stores do not take."""
+    rng = np.random.default_rng(21)
+    w = _weights(rng, m, n, cuda)
+    xs = torch.tensor(rng.standard_normal((m, 3, n)), dtype=torch.float32, device=cuda)
+    u0 = torch.tensor(rng.random((m, 1)), dtype=torch.float32, device=cuda)
+    u = stratified_uniforms(torch.Generator(device=cuda).manual_seed(3), m, n)
+    whole1, anc1 = resample_gather(u0, w, xs, return_ancestors=True)
+    whole3, anc3 = resample_gather_sorted(u, w, xs, return_ancestors=True)
+    k = n // shards
+    for lo in range(0, n, k):
+        out, anc = resample_gather(u0, w, xs, return_ancestors=True, slot_lo=lo, n_out=k)
+        assert torch.equal(out, whole1[:, :, lo:lo + k]) and torch.equal(anc, anc1[:, lo:lo + k])
+        out, anc = resample_gather_sorted(u[:, lo:lo + k].contiguous(), w, xs,
+                                          return_ancestors=True)
+        assert torch.equal(out, whole3[:, :, lo:lo + k]) and torch.equal(anc, anc3[:, lo:lo + k])
+    out = resample_gather(u0, w, xs, slot_lo=3, n_out=5)
+    assert torch.equal(out, whole1[:, :, 3:8])
+
+
+@pytest.mark.parametrize("name", ["ucsv", "lg1", "ucsv_k6"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_propagate_particle_offset_draws_the_whole_launchs_columns(cuda, name, normalize):
+    """K2 (UC-SV, LG dx=1) and K6 on particles 4096.. of 512×8192 rows at
+    particle_offset 4096 draw what the whole launch draws there: the new
+    cloud, and the raw log-weights, are its columns bit for bit (the
+    normalize is the slice's own)."""
+    rng = np.random.default_rng(22)
+    m, n, k = 512, 8192, 4096
+    if name == "lg1":
+        update, p = _instance("lg1", rng, m)
+    else:
+        update, p = UCSV_UPDATE, rng.uniform(0.05, 0.5, (m, 2))
+    params = torch.tensor(p, dtype=torch.float32, device=cuda)
+    s = 3 if update is UCSV_UPDATE else 1
+    state = torch.tensor(0.5 * rng.standard_normal((m, s, n)), dtype=torch.float32, device=cuda)
+    y, seed = torch.tensor(0.6, device=cuda), torch.tensor([(1 << 33) + 99], device=cuda)
+    if name == "ucsv_k6":
+        def step(st, **kw):
+            return ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], st,
+                                           normalize=normalize, **kw)
+    else:
+        def step(st, **kw):
+            return fused_elementwise_step(update, params, st, y, seed=seed, normalize=normalize,
+                                          **kw)
+    whole = step(state)
+    part = step(state[:, :, k:].contiguous(), particle_offset=k)
+    assert torch.equal(part[0], whole[0][:, :, k:])
+    if not normalize:
+        assert torch.equal(part[1], whole[1][:, k:])
+
+
+def test_ucsv_kernel_refuses_a_particle_slice_off_16(cuda):
+    """K6 equals K2-UC-SV bit for bit only on rows of a multiple of 16
+    particles: a particle slice that starts or spans otherwise is refused."""
+    cloud, gam = _ucsv_cloud(np.random.default_rng(23), 8, 1024, cuda, "contiguous")
+    seed, y = torch.tensor([1], device=cuda), torch.tensor(0.1, device=cuda)
+    for offset, width in ((8, 1024), (16, 1000)):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], cloud[:, :, :width].contiguous(),
+                                    particle_offset=offset)

@@ -1,10 +1,16 @@
-"""The port's θ-sharded SMC² and IBIS over torch.distributed (gloo on the
+"""The port's sharded SMC² and IBIS over torch.distributed (gloo on the
 CPU) — the twin of tests/test_parallel.py. Each world runs in worker
 processes (tests/torch_dist_worker.py: one thread each, a ``file://``
 store in tmp_path); the one-process references run in a worker too, so
-that both sides compute with the same thread count. A sharded run must
+that both sides compute with the same thread count. A θ-sharded run must
 equal the unsharded one bit for bit: every draw is made at the whole bank's
-shape and the gathers are exact."""
+shape and the gathers are exact. Runs on (θ, particle) meshes that shard
+particles — (1, 2), (2, 2) and (1, 4) — are held as the JAX package holds its
+(4, 2) mesh (θ within rtol 1e-3 and atol 1e-4 of the one-process run, the
+θ-ESS within 1, the live count equal), every rank alike bit for bit, and,
+since no sum over a row is split (the filter normalizes whole rows gathered
+from the particle group), equal to the one-process run bit for bit on the
+CPU."""
 import json
 import subprocess
 import sys
@@ -15,14 +21,20 @@ import pytest
 from torch_dist_worker import ROUTES, run_world, start_world, wait_world
 
 WORLDS = (2, 4)
+# (θ, particle) meshes that shard particles, and their world sizes
+PMESHES = {"1x2": 2, "2x2": 4, "1x4": 4}
+ENTRIES = ("run", "segmented", "reshard")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The one-process references and the 2- and 4-rank worlds, started
-    together."""
+    """The one-process references, the 2- and 4-rank θ-sharded worlds and
+    the particle-sharded meshes, started together."""
     handles = {w: start_world("parallel", w, tmp_path_factory.mktemp(f"world{w}"))
                for w in WORLDS}
+    handles.update({shape: start_world(f"particle:{shape}", w,
+                                       tmp_path_factory.mktemp(f"particle{shape}"))
+                    for shape, w in PMESHES.items()})
     handles[1] = start_world("plain", 1, tmp_path_factory.mktemp("plain"))
     return {w: wait_world(h)[0] for w, h in handles.items()}
 
@@ -35,6 +47,11 @@ def plain(runs):
 @pytest.fixture(scope="module")
 def worlds(runs):
     return {w: runs[w] for w in WORLDS}
+
+
+@pytest.fixture(scope="module")
+def pworlds(runs):
+    return {shape: runs[shape] for shape in PMESHES}
 
 
 def _equal_on_every_rank(plain, ranks, prefix):
@@ -102,29 +119,144 @@ def test_make_mesh_shapes(worlds, world):
         assert res["pmesh_shape"].tolist() == [2, 2]
 
 
+SPECS = {"theta": "replicated", "particles": "rows×particles", "log_w": "rows×particles",
+         "log_z": "replicated", "t": "replicated"}
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_state_fields(worlds, world):
-    """The clouds hold the rank's M/R rows; θ is whole; the specs say so."""
+    """The clouds hold the rank's M/R rows; θ is whole; the specs say so
+    (rows and particles, JAX's P(THETA, PARTICLE, None), on every mesh)."""
     res = worlds[world][0]
     assert res["local_particles_shape"].tolist() == [64 // world, 128, 1]
     assert res["local_theta_shape"].tolist() == [64, 3]
-    assert json.loads(str(res["specs"])) == {
-        "theta": "replicated", "particles": "rows", "log_w": "rows",
-        "log_z": "replicated", "t": "replicated"}
+    assert json.loads(str(res["specs"])) == SPECS
 
 
-def test_particle_sharded_mesh_raises(worlds):
-    """A mesh with particle > 1 raises a ValueError naming the ROADMAP item,
-    from the sampler and from the wrapper; it neither runs unsharded nor
-    takes another route."""
-    res = worlds[4][0]
-    for key in ("particle_error", "particle_error_sharded"):
-        assert "ROADMAP Queue 1 item 19" in str(res[key]), key
+@pytest.mark.parametrize("shape", PMESHES)
+def test_particle_sharded_state_fields(pworlds, shape):
+    """On an (Rθ, Rp) mesh each rank holds M/Rθ rows and N/Rp particles of
+    each; the mesh is the one asked for; N that does not split over the
+    particle shards raises a ValueError."""
+    n_theta, n_particle = map(int, shape.split("x"))
+    for rank, res in enumerate(pworlds[shape]):
+        assert res["mesh_shape"].tolist() == [n_theta, n_particle]
+        assert res["mesh_coords"].tolist() == [rank // n_particle, rank % n_particle]
+        assert res["local_particles_shape"].tolist() == [64 // n_theta, 128 // n_particle, 1]
+        assert res["local_log_w_shape"].tolist() == [64 // n_theta, 128 // n_particle]
+        assert json.loads(str(res["specs"])) == SPECS
+        assert "do not split over" in str(res["n_error"])
 
 
-def test_density_tempered_refuses_a_mesh(worlds):
-    """Density-tempered SMC runs unsharded: a sampler with a mesh raises."""
+def _theta_close(plain, ranks, prefix):
+    """JAX's holding of its (4, 2) mesh (tests/test_parallel.py:59-77,
+    :265-285): θ within rtol 1e-3 and atol 1e-4, the θ-ESS within 1, the
+    live count and t equal, on every rank."""
+    for r, res in enumerate(ranks):
+        np.testing.assert_allclose(res[f"{prefix}/theta"], plain[f"{prefix}/theta"],
+                                   rtol=1e-3, atol=1e-4, err_msg=f"rank {r}")
+        assert abs(float(res[f"{prefix}/ess"]) - float(plain[f"{prefix}/ess"])) < 1.0
+        for key in ("active_n", "t"):
+            if f"{prefix}/{key}" in plain:
+                assert int(res[f"{prefix}/{key}"]) == int(plain[f"{prefix}/{key}"]), key
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_particle_sharded_smc2_within_jax_tolerance(plain, pworlds, shape, route):
+    """Every inner route — LG and UC-SV systematic, stratified at ESS < N/2
+    with carry, the APF, a guided proposal, the metropolis resampler, the
+    exchange in grow and full padding, the DSL's plain propagate route —
+    on a mesh that shards particles, against the one-process run."""
+    _theta_close(plain, pworlds[shape], route)
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_particle_sharded_smc2_equals_unsharded_on_the_cpu(plain, pworlds, shape, route):
+    """No sum over a row is split, and the plain kernels' windows and
+    slices are the whole launch's: on the CPU the particle-sharded run
+    equals the one-process run bit for bit, its gathered clouds too."""
+    _equal_on_every_rank(plain, pworlds[shape], route)
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+@pytest.mark.parametrize("prefix", sorted(ROUTES) + list(ENTRIES) + ["ibis", "dead"])
+def test_particle_group_ranks_agree_bitwise(pworlds, shape, prefix):
+    """Every rank of a particle group holds the same θ, log ω, log Z, ESS
+    and MH decisions, and so, after the θ-level gathers, every rank the same
+    state: the ranks of a group normalize one gathered row in one order.
+    ("dead": a filter's own rows, the same across a particle group.)"""
+    ranks = pworlds[shape]
+    keys = [k for k in ranks[0] if k.startswith(prefix + "/") and k != "dead/log_w"]
+    assert keys
+    for r, res in enumerate(ranks):
+        first = next(x for x in ranks if prefix != "dead"
+                     or x["mesh_coords"][0] == res["mesh_coords"][0])
+        for k in keys:
+            np.testing.assert_array_equal(res[k], first[k], err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_particle_sharded_entries(plain, pworlds, shape, entry):
+    """``run`` with a collect_fn, ``run_segmented`` split after 15 steps and
+    resumed, and an unsharded state placed with ``reshard`` then stepped
+    (t + 1), through ShardedSMC2 on a mesh that shards particles: within
+    JAX's tolerance of the one-process run, and bit for bit on the CPU."""
+    _theta_close(plain, pworlds[shape], entry)
+    _equal_on_every_rank(plain, pworlds[shape], entry)
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+def test_particle_sharded_reshard_gather_roundtrip(pworlds, shape):
+    """``gather(reshard(state))`` gives every rank the whole state back bit
+    for bit (JAX's test_reshard_roundtrip, on (2, 4) there)."""
+    n_theta, n_particle = map(int, shape.split("x"))
+    for res in pworlds[shape]:
+        assert bool(res["reshard/roundtrip"])
+        assert res["reshard/local_particles_shape"].tolist() == [64 // n_theta,
+                                                                 128 // n_particle, 1]
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+def test_particle_mesh_ibis_equals_theta_mesh(plain, worlds, pworlds, shape):
+    """IBIS has no particles: on a mesh that shards them its state is copied
+    across the particle ranks, and the run equals the θ-only mesh's with as
+    many θ-shards ((2, 2) against (2, 1)) and the one-process run."""
+    n_theta = int(shape.split("x")[0])
+    ref = worlds[n_theta][0] if n_theta > 1 else plain
+    _equal_on_every_rank(ref, pworlds[shape], "ibis")
+    _equal_on_every_rank(plain, pworlds[shape], "ibis")
+
+
+@pytest.mark.parametrize("shape", PMESHES)
+def test_dead_slice_normalizes_finite(plain, pworlds, shape):
+    """The elastic init at 64 live of 256 slots: where a rank's slice is
+    all dead (ranks 1–3 on (1, 4)) its log-weights stay −inf, and the rows'
+    log-mean and ESS are finite and the one-process run's; the live slots'
+    weights are the unsharded window's bit for bit."""
+    n_theta, n_particle = map(int, shape.split("x"))
+    m, k = 8 // n_theta, 256 // n_particle
+    for res in pworlds[shape]:
+        a, b = map(int, res["mesh_coords"])
+        rows = slice(a * m, (a + 1) * m)
+        np.testing.assert_array_equal(res["dead/log_w"],
+                                      plain["dead/log_w"][rows, b * k:(b + 1) * k])
+        assert not np.isnan(res["dead/log_w"]).any()
+        if b * k >= 64:
+            assert (res["dead/log_w"] == -np.inf).all()
+        assert np.isfinite(res["dead/log_mean"]).all() and np.isfinite(res["dead/ess"]).all()
+        np.testing.assert_array_equal(res["dead/log_mean"], plain["dead/log_mean"][rows])
+        np.testing.assert_array_equal(res["dead/ess"], plain["dead/ess"][rows])
+
+
+def test_density_tempered_refuses_a_mesh(worlds, pworlds):
+    """Density-tempered SMC runs unsharded: a sampler with a mesh raises,
+    a mesh that shards particles too."""
     assert "runs unsharded" in str(worlds[2][0]["dt_error"])
+    for shape in PMESHES:
+        assert "runs unsharded" in str(pworlds[shape][0]["dt_error"])
 
 
 def test_diverged_ranks_end_in_an_error(tmp_path):

@@ -99,7 +99,9 @@ def test_edges_of_the_contract():
 
 def test_wrapper_checks_and_cpu_route():
     """The wrapper checks its inputs, and on CPU tensors runs the plain
-    version without counting a kernel launch."""
+    version without counting a kernel launch. A grid shorter than the row is
+    a window of slots (particle-axis sharding); one longer than the row, or
+    of other rows, is refused."""
     u, w, xs = (torch.from_numpy(a) for a in _inputs(2, 8, 256, 3, 1.0))
     before = resample_gather_sorted.launches
     got, anc = resample_gather_sorted(u, w, xs, return_ancestors=True)
@@ -108,8 +110,11 @@ def test_wrapper_checks_and_cpu_route():
     assert torch.equal(got, ref) and torch.equal(anc, anc_ref) and anc.dtype == torch.int32
     with pytest.raises(TypeError):
         resample_gather_sorted(u.double(), w, xs)
+    assert torch.equal(resample_gather_sorted(u[:, 128:].contiguous(), w, xs), got[:, :, 128:])
     with pytest.raises(ValueError):
-        resample_gather_sorted(u[:, :128].contiguous(), w, xs)
+        resample_gather_sorted(torch.cat([u, u], 1), w, xs)
+    with pytest.raises(ValueError):
+        resample_gather_sorted(u[:1].contiguous(), w, xs)
     with pytest.raises(ValueError):
         resample_gather_sorted(u.T.contiguous().T, w, xs)
 

@@ -7,7 +7,9 @@ world on the CPU, joined through a ``file://`` store, one thread.
 Runs SUITE's cases (every rank alike) and writes ``OUT_DIR/RANK.npz``; the
 parent process compares them. Imports the port only, never JAX: the JAX
 numbers a suite needs come in as ``OUT_DIR/inputs.npz``. Suite "plain"
-runs the one-process references without a process group.
+runs the one-process references without a process group; suite
+"particle:RθxRp" the sampler cases on an (Rθ, Rp) mesh that shards
+particles.
 """
 from __future__ import annotations
 
@@ -133,7 +135,8 @@ def run_entry(kind: str, mesh=None) -> dict:
 def reshard_step(mesh=None) -> dict:
     """An unsharded run's state after 5 steps, placed on this rank's rows
     (``reshard``), then one sharded step: t + 1, and the unsharded step's
-    numbers."""
+    numbers. With a mesh, also whether ``gather`` of the placed state gives
+    the whole state back bit for bit (``roundtrip``)."""
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     base = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
     gen = torch.Generator().manual_seed(2)
@@ -147,8 +150,12 @@ def reshard_step(mesh=None) -> dict:
     placed = sh.reshard(state)
     if not torch.equal(placed.theta, state.theta):
         raise AssertionError("reshard changed θ")
+    back = sh.gather(placed)
+    roundtrip = all(torch.equal(getattr(back, k), getattr(state, k))
+                    for k in ("particles", "log_w", "theta", "log_z"))
     stepped, _ = sh.step(gen, placed, y)
-    return _theta_fields(stepped)
+    return {**_theta_fields(stepped), "roundtrip": torch.tensor(roundtrip),
+            "local_particles_shape": torch.tensor(placed.particles.shape)}
 
 
 def run_ibis(mesh=None) -> dict:
@@ -163,6 +170,17 @@ def run_ibis(mesh=None) -> dict:
             "t": torch.tensor(whole.t), "rejuvenations": infos.rejuvenated.sum()}
 
 
+def dead_slice_init(mesh=None) -> dict:
+    """The elastic filter's init at N = 256 with 64 live slots (8 LG rows):
+    on a mesh of 4 particle shards the live prefix is rank 0's whole slice
+    and the other ranks' slices are dead. This rank's log-weights, and the
+    rows' log-mean and ESS."""
+    theta = torch.tensor([[0.5, 0.9, 0.8]]).repeat(8, 1) * torch.linspace(0.8, 1.2, 8)[:, None]
+    out = smc.batched_pf_init(torch.Generator().manual_seed(4), smc.lg_model(theta), 256, 8,
+                              lg_data()[0], smc.PFConfig(mesh=mesh), active_n=64)
+    return {"log_w": out.log_weights, "log_mean": out.log_mean, "ess": out.ess}
+
+
 def _flat(prefix: str, d: dict) -> dict:
     return {f"{prefix}/{k}": torch.as_tensor(v).numpy() for k, v in d.items()}
 
@@ -175,6 +193,7 @@ def suite_plain(out: dict) -> None:
     out.update(_flat("reshard", reshard_step()))
     out.update(_flat("ibis", run_ibis()))
     out.update(_flat("multihost", multihost_run()))
+    out.update(_flat("dead", dead_slice_init()))
 
 
 def _raises(fn) -> str:
@@ -208,14 +227,38 @@ def suite_parallel(out: dict, world: int) -> None:
     out["local_particles_shape"] = np.asarray(st.particles.shape)
     out["local_theta_shape"] = np.asarray(st.theta.shape)
     if world == 4:  # a mesh that shards particles
-        pmesh = parallel.make_mesh(2, 2)
-        out["pmesh_shape"] = np.asarray(pmesh.shape)
-        cfg_p = cfg._replace(inner=cfg.inner._replace(mesh=pmesh))
-        out["particle_error"] = np.asarray(_raises(
-            lambda: smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg_p)))
-        out["particle_error_sharded"] = np.asarray(_raises(
-            lambda: parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(
-                prior_spec, device="cpu"), cfg), pmesh)))
+        out["pmesh_shape"] = np.asarray(parallel.make_mesh(2, 2).shape)
+
+
+def suite_particle(out: dict, world: int, shape: str) -> None:
+    """The sampler cases on an (Rθ, Rp) mesh that shards particles: every
+    SMC² route, ``run``/``run_segmented``, reshard + step, IBIS, and the
+    rank's part of a sharded state."""
+    n_theta, n_particle = map(int, shape.split("x"))
+    mesh = parallel.make_mesh(n_theta, n_particle)
+    out["mesh_shape"] = np.asarray(mesh.shape)
+    out["mesh_coords"] = np.asarray([mesh.get_local_rank(0), mesh.get_local_rank(1)])
+    for name in ROUTES:
+        out.update(_flat(name, run_route(name, mesh)))
+    for kind in ("run", "segmented"):
+        out.update(_flat(kind, run_entry(kind, mesh)))
+    out.update(_flat("reshard", reshard_step(mesh)))
+    out.update(_flat("ibis", run_ibis(mesh)))
+    out.update(_flat("dead", dead_slice_init(mesh)))
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
+                                       cfg), mesh)
+    specs = sh.shardings
+    out["specs"] = np.asarray(json.dumps({k: getattr(specs, k) for k in
+                                          ("theta", "particles", "log_w", "log_z", "t")}))
+    st = sh.init(torch.Generator().manual_seed(0), y)
+    out["local_particles_shape"] = np.asarray(st.particles.shape)
+    out["local_log_w_shape"] = np.asarray(st.log_w.shape)
+    out["dt_error"] = np.asarray(_raises(lambda: smc.density_tempered(
+        sh.sampler, torch.Generator().manual_seed(0), y)))
+    out["n_error"] = np.asarray(_raises(lambda: parallel.ShardedSMC2(smc.SMC2(
+        model_fn, prior_from_spec(prior_spec, device="cpu"),
+        cfg._replace(n_particles=129)), mesh)))
 
 
 def multihost_run(mesh=None) -> dict:
@@ -358,7 +401,8 @@ def main() -> None:
         parallel.initialize_distributed(
             init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu",
             timeout_s=DIVERGE_TIMEOUT_S if suite == "diverge" else 120.0)
-        globals()[f"suite_{suite}"](out, world)
+        name, _, arg = suite.partition(":")
+        globals()[f"suite_{name}"](out, world, *([arg] if arg else []))
         if suite != "diverge":
             torch.distributed.destroy_process_group()
     out["seconds"] = np.asarray(time.perf_counter() - t0)
