@@ -184,6 +184,23 @@ Phases, one line each or more; any failure raises and exits non-zero:
      P_STEPS observations (K1 on the cloud with the lookahead plane, K6 raw
      with particle_offset), bit for bit the one-process run (both normalize
      in torch).
+ 29. dt_mesh — (a) K6 on particle slices of 512×1000 rows off a multiple
+     of 16 (particles 0.. and 500.. of 500, 8.. of 992) at their
+     particle_offset, on a contiguous slice, the sharded APF's split-off
+     planes and a view into the whole rows: bit for bit the whole-row
+     call's columns, within 1e-5 of K2-UC-SV raw's, against the plain
+     version, the recovered normals' moments; the slice at 500 timed. Then
+     worker processes of this script on cuda:0 (gloo): (b) the dt phase's
+     runs (a) and (b) through ``density_tempered(ShardedSMC2(sampler,
+     mesh).sampler, ...)`` on (2, 1), bit for bit phase 8's one-process
+     runs, and on (1, 2) and (2, 2) (K1 slot windows or K3 grid windows +
+     K2-LG raw with particle_offset) within TOL_Z of DT_JAX_MEAN; launch
+     counts equal to each schedule, the ranks alike, stage counts and walls
+     per inner step beside phase 8's; (c) the slice's SMC² at 512×1000 on
+     (1, 2), the whole T (K6 at 512×500, particle_offset 0 and 500),
+     posterior against JAX_MEAN; (d) phase 13's UC-SV APF SMC² at 512×1000
+     on (1, 2) over its first P_STEPS observations, bit for bit the
+     one-process run.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -219,6 +236,8 @@ PRIOR_SPEC = [("uniform", 0.0, 1.0), ("normal", 3.0, 2.0),
 # Density-tempered SMC on the univariate LG model at BASELINE config 4
 # (benchmarks/run_benchmarks.py:128-153): M=512, N=1024, T=100, chain=3.
 DT_T, DT_CHAIN, DT_M, DT_N = 100, 3, 512, 1024
+# (a) a systematic inner filter at every step, (b) stratified at ESS < N/2
+DT_INNER = {"dta": ("systematic", 1.0), "dtb": ("stratified", 0.5)}
 LG_THETA = (0.5, 0.9, 0.8)  # θ* = (A, Q, R), the reference README's
 LG_PRIOR_SPEC = [("truncated_normal", 0.0, 1.0, -1.0, 1.0), ("lognormal", 0.0, 1.0),
                  ("lognormal", 0.0, 1.0)]  # run_benchmarks.py:42-50
@@ -287,6 +306,11 @@ PARALLEL_WORKER = "--parallel-worker"
 # stratified inner filter at ESS < N/2.
 P_STEPS, P_SEEDS, P_LG_N = 60, 8, 256
 P_SLICE_B, P_SLICE_C = (512, 8192), (512, 1024)  # (M, N) of (b) and (c)
+# The dt_mesh phase: N of its UC-SV runs on (1, 2), which splits into two
+# slices of 500 particles (no multiple of 16), and K6's slices, (first
+# particle, width), of a 512×MESH_N row bank
+MESH_N = 1000
+K6_SLICES = ((0, 500), (500, 500), (8, 992))
 # K2's LG instances generated for dx ≥ 3 (the lg_dx phase), and the rows and
 # particles of the large_n phase (the reference ran SMC² at M=64, N=65,536,
 # BASELINE.md:72)
@@ -908,17 +932,32 @@ def expect_counts(phase: str, counts, expected):
         raise AssertionError(f"{phase}: launches {counts}, expected {want}")
 
 
+def dt_sampler(inner, device="cuda", model_fn=None):
+    """The density-tempered runs' sampler: LG at config 4 (``model_fn``,
+    lg_model unless given) with the inner filter ``PFConfig(*inner)``."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5,
+                        inner=smc.PFConfig(*inner))
+    return smc.SMC2(model_fn or smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device), cfg)
+
+
+def dt_fields(state, trace) -> dict:
+    """A density-tempered run's θ-level fields and every stage's (ξ, ess,
+    acc_ratio), as numpy arrays."""
+    return {**_theta_fields(state),
+            **{f"stage_{k}": np.asarray([getattr(s, k) for s in trace])
+               for k in ("xi", "ess", "acc_ratio")}}
+
+
 def run_dt(torch, inner, seed: int, model_fn=None):
     """Density-tempered SMC on LG at config 4 (``model_fn``, lg_model unless
     given), through the public entry points. Returns (state, trace,
     wall-clock s, launch counts)."""
     import sequential_monte_carlo_tpu_torch as smc
-    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 
-    prior = prior_from_spec(LG_PRIOR_SPEC, device="cuda")
-    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5,
-                        inner=smc.PFConfig(*inner))
-    sampler = smc.SMC2(model_fn or smc.lg_model, prior, cfg)
+    sampler = dt_sampler(inner, model_fn=model_fn)
     y = torch.tensor(lg_series(), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
@@ -931,7 +970,9 @@ def run_dt(torch, inner, seed: int, model_fn=None):
 
 
 def check_dt(torch, label, inner, k_resample, k_propagate, model_fn=None, phase="dt"):
-    """One checked run (seed 0), then a warm run of seed 1, timed."""
+    """One checked run (seed 0), then a warm run of seed 1, timed. Returns
+    the checked run's launch counts and its fields (:func:`dt_fields`) with
+    its stage count and wall per inner step."""
     import sequential_monte_carlo_tpu_torch as smc
 
     state, trace, wall, counts = run_dt(torch, inner, SEED, model_fn)
@@ -947,9 +988,12 @@ def check_dt(torch, label, inner, k_resample, k_propagate, model_fn=None, phase=
         wall_s=round(wall, 4), schedule=[round(s.xi, 5) for s in trace], rejuvenations=moves,
         launches=expected, posterior_mean=np.round(mean, 5).tolist(), jax_mean=DT_JAX_MEAN,
         tolerance=np.round(tol, 5).tolist())
-    _, trace, wall2, _ = run_dt(torch, inner, SEED + 1, model_fn)
-    say(phase, run=label, seed=SEED + 1, warm_wall_s=round(wall2, 4), stages=len(trace))
-    return counts
+    _, trace2, wall2, _ = run_dt(torch, inner, SEED + 1, model_fn)
+    steps2 = (DT_T - 1) * (1 + DT_CHAIN * sum(stage.xi < 1.0 for stage in trace2))
+    say(phase, run=label, seed=SEED + 1, warm_wall_s=round(wall2, 4), stages=len(trace2),
+        warm_ms_per_inner_step=round(1e3 * wall2 / steps2, 4))
+    return counts, {"fields": dt_fields(state, trace), "stages": len(trace),
+                    "warm_ms_per_inner_step": 1e3 * wall2 / steps2}
 
 
 def kalman_is_oracle(torch):
@@ -2351,7 +2395,8 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
 
     # (c) the AR(1) declared by linear_ssm_model in density-tempered SMC
     total = _add(total, check_dt(torch, "linear_ssm_model", ("systematic", 1.0),
-                                 "resample_count", "fused_propagate_lg1", ar1_linear(smc), "dsl"))
+                                 "resample_count", "fused_propagate_lg1", ar1_linear(smc),
+                                 "dsl")[0])
 
     # (d) 512 filters of the AR(1) written with ssm_model
     y = torch.tensor(lg_series(), device="cuda")
@@ -2633,8 +2678,9 @@ def parallel_worker(argv) -> int:
             rec["t"] = state.t
             meta[job] = rec
             arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
-        elif job == "papf":  # the APF's SMC² on UC-SV at 512×1024, cut at P_STEPS
-            sh = parallel.ShardedSMC2(particle_apf_sampler(torch, device), mesh)
+        elif job.startswith("papf"):  # papf[<N>]: the APF's SMC² on UC-SV, cut at P_STEPS
+            sh = parallel.ShardedSMC2(particle_apf_sampler(
+                torch, device, int(job[len("papf"):] or DT_N)), mesh)
             (state, infos), rec = timed(lambda: sh.run_segmented(
                 torch.Generator(device=device).manual_seed(SEED), y, max_steps=P_STEPS - 1))
             rec["inner_steps"] = _schedule(infos, CHAIN, [])
@@ -2700,6 +2746,19 @@ def parallel_worker(argv) -> int:
             rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
             meta[job] = rec
             arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+        elif job in DT_INNER:  # density-tempered LG at config 4, the JAX idiom's sampler
+            sampler = parallel.ShardedSMC2(dt_sampler(DT_INNER[job], device), mesh).sampler
+            y_lg = torch.tensor(lg_series(), device=device)
+            # a short run first: the kernels load at this mesh's shapes
+            smc.density_tempered(sampler, torch.Generator(device=device).manual_seed(SEED + 1),
+                                 y_lg[:8])
+            (state, trace), rec = timed(lambda: smc.density_tempered(
+                sampler, torch.Generator(device=device).manual_seed(SEED), y_lg))
+            rec["moves"] = sum(stage.xi < 1.0 for stage in trace)
+            rec["coords"] = [mesh.get_local_rank(0), mesh.get_local_rank(1)]
+            key = f"{job}@{mesh.shape[0]}x{mesh.shape[1]}"
+            meta[key] = rec
+            arrays.update({f"{key}/{k}": v for k, v in dt_fields(state, trace).items()})
         elif job == "ibis":
             ibis = parallel.ShardedIBIS(smc.IBIS(
                 smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device),
@@ -2861,15 +2920,15 @@ def particle_lg_sampler(torch, device):
     return smc.SMC2(smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device), cfg)
 
 
-def particle_apf_sampler(torch, device):
+def particle_apf_sampler(torch, device, n: int = DT_N):
     """Phase 28 (f)'s sampler: phase 13's SMC² on UC-SV with the APF inside
-    (M=512, N=1024, chain=5): K1 on the cloud with the lookahead plane and
-    K6 raw, the first-stage weights and the correction normalized in torch
-    (by one process and by a particle group alike)."""
+    (M=512, N=n, 1024 unless given, chain=5): K1 on the cloud with the
+    lookahead plane and K6 raw, the first-stage weights and the correction
+    normalized in torch (by one process and by a particle group alike)."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 
-    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
+    cfg = smc.SMCConfig(n_particles=n, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
                         inner=smc.PFConfig(*APF))
     return smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device=device), cfg)
 
@@ -3014,29 +3073,36 @@ def _mean(theta, log_omega):
     return (w / w.sum()) @ theta
 
 
-def check_particle(torch, ibis_ref: dict):
-    """Phase 28 (b)–(e), see the module docstring. ``ibis_ref``: phase
-    17's state. Returns the ranks' launch counts summed over their runs."""
-    import sequential_monte_carlo_tpu_torch as smc
-
-    total = {}
-
-    def add(meta):
+def _ranks_counts(ranks, total: dict) -> dict:
+    """``total`` plus the launch counts of every run of every rank."""
+    for _, meta in ranks:
         for rec in meta.values():
             if isinstance(rec, dict) and "counts" in rec:
                 for k, v in rec["counts"].items():
                     total[k] = total.get(k, 0) + v
+    return total
 
-    def ranks_agree(label, ranks, prefix):
-        for r, (arrays, _) in enumerate(ranks[1:], 1):
-            for k, v in arrays.items():
-                if k.startswith(prefix + "/") and not np.array_equal(v, ranks[0][0][k]):
-                    raise AssertionError(f"particle {label}: rank {r}'s {k} differs from rank 0's")
 
-    def expect_seen(label, rec, want):
-        if {tuple(x) for x in rec["seen"]} != want:
-            raise AssertionError(f"particle {label}: launches at {rec['seen']}, expected "
-                                 f"{sorted(want, key=str)}")
+def _ranks_agree(label: str, ranks, prefix: str) -> None:
+    """Fail unless every rank's arrays under ``prefix`` equal rank 0's."""
+    for r, (arrays, _) in enumerate(ranks[1:], 1):
+        for k, v in arrays.items():
+            if k.startswith(prefix + "/") and not np.array_equal(v, ranks[0][0][k]):
+                raise AssertionError(f"{label}: rank {r}'s {k} differs from rank 0's")
+
+
+def _expect_seen(label: str, rec: dict, want: set) -> None:
+    """Fail unless a run's kernel launches were at exactly ``want``
+    (:func:`_record_shards`'s tuples)."""
+    if {tuple(x) for x in rec["seen"]} != want:
+        raise AssertionError(f"{label}: launches at {rec['seen']}, expected "
+                             f"{sorted(want, key=str)}")
+
+
+def check_particle(torch, ibis_ref: dict):
+    """Phase 28 (b)–(e), see the module docstring. ``ibis_ref``: phase
+    17's state. Returns the ranks' launch counts summed over their runs."""
+    import sequential_monte_carlo_tpu_torch as smc
 
     # the one-process references: the slice at 512×8192 over the first
     # P_STEPS observations at P_SEEDS seeds; (d)'s run
@@ -3070,11 +3136,11 @@ def check_particle(torch, ibis_ref: dict):
     four = run_ranks(f"mesh2x2,{job_c}", 4, "gloo")
 
     # (b) the slice at 512×8192 on (1, 2), cut at P_STEPS
-    ranks_agree("(1, 2)", two, job)
+    _ranks_agree("particle (1, 2)", two, job)
     sd = means.std(axis=0, ddof=1)
     tol = TOL_Z * sd * math.sqrt(1.0 + 1.0 / P_SEEDS)
+    total = _ranks_counts(two + four, {})
     for r, (arrays, meta) in enumerate(two):
-        add(meta)
         rec = meta[job]
         if rec["t"] != P_STEPS or not rec["rejuv_t"]:
             raise AssertionError(f"particle (1, 2): t={rec['t']}, rejuvenations at "
@@ -3082,7 +3148,7 @@ def check_particle(torch, ibis_ref: dict):
         expect_counts(f"particle (1, 2) rank {r}", rec["counts"],
                       {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
         k = nb // 2
-        expect_seen("(1, 2)", rec, {("resample_count", mb, None, k * r, k),
+        _expect_seen("particle (1, 2)", rec, {("resample_count", mb, None, k * r, k),
                                     ("ucsv_propagate", mb, 0, k * r, k)})
     mean = _mean(two[0][0][f"{job}/theta"], two[0][0][f"{job}/log_omega"])
     if not np.all(np.abs(mean - means.mean(axis=0)) <= tol):
@@ -3105,16 +3171,15 @@ def check_particle(torch, ibis_ref: dict):
         one_process_seeds_sd=np.round(sd, 5).tolist(), tolerance=np.round(tol, 5).tolist())
 
     # (c) the slice at 512×1024 on (2, 2), the whole T
-    ranks_agree("(2, 2)", four, job_c)
+    _ranks_agree("particle (2, 2)", four, job_c)
     tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
     rows, k = mc // 2, nc // 2
     for r, (arrays, meta) in enumerate(four):
-        add(meta)
         rec = meta[job_c]
         a, b = meta["coords"]
         expect_counts(f"particle (2, 2) rank {r}", rec["counts"],
                       {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
-        expect_seen("(2, 2)", rec, {("resample_count", rows, None, k * b, k),
+        _expect_seen("particle (2, 2)", rec, {("resample_count", rows, None, k * b, k),
                                     ("ucsv_propagate", rows, rows * a, k * b, k)})
         say("particle", mesh="2x2", backend="gloo", rank=r, coords=[a, b], shape=f"{mc}x{nc}",
             T=T, chain=CHAIN, rows=f"{rows * a}..{rows * (a + 1)}",
@@ -3144,7 +3209,7 @@ def check_particle(torch, ibis_ref: dict):
                                  f"{rec['doubled_at']} (one process {lg_doubled})")
         expect_counts(f"particle plg rank {r}", rec["counts"],
                       {"resample_sorted": want_steps, "fused_propagate_lg1_raw": want_steps})
-        expect_seen("plg", rec, {("resample_sorted", DT_M, None, None, 2 * P_LG_N),
+        _expect_seen("particle plg", rec, {("resample_sorted", DT_M, None, None, 2 * P_LG_N),
                                  ("fused_propagate_lg", DT_M, 0, 2 * P_LG_N * r, 2 * P_LG_N)})
         say("particle", mesh="1x2", rank=r, run="lg exchange full, stratified ESS<N/2",
             shape=f"{DT_M}x{P_LG_N}..{4 * P_LG_N}", T=DT_T, chain=DT_CHAIN,
@@ -3161,7 +3226,7 @@ def check_particle(torch, ibis_ref: dict):
         _expect_equal(f"particle (1, 2) rank {r}", arrays, "papf", _theta_fields(apf_one))
         expect_counts(f"particle papf rank {r}", rec["counts"],
                       {"resample_count": want_steps, "ucsv_propagate": want_steps})
-        expect_seen("papf", rec, {("resample_count", DT_M, None, DT_N // 2 * r, DT_N // 2),
+        _expect_seen("particle papf", rec, {("resample_count", DT_M, None, DT_N // 2 * r, DT_N // 2),
                                   ("ucsv_propagate", DT_M, 0, DT_N // 2 * r, DT_N // 2)})
         say("particle", mesh="1x2", rank=r, run="ucsv apf", shape=f"{DT_M}x{DT_N}",
             T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True, inner_steps=want_steps,
@@ -3175,6 +3240,172 @@ def check_particle(torch, ibis_ref: dict):
         expect_counts(f"particle ibis rank {r}", meta["ibis"]["counts"], {})
         say("particle", mesh="1x2", rank=r, ibis=f"{DT_M} θ", bitwise_as_one_process=True,
             wall_s=round(meta["ibis"]["wall_s"], 4), collectives=meta["ibis"]["collectives"])
+    return total
+
+
+def check_k6_slices(torch, gen, k6):
+    """Phase 29 (a): K6 on particle slices of 512×MESH_N rows that start or
+    span off a multiple of 16 (K6_SLICES), at their ``particle_offset``, on
+    three layouts: a contiguous slice (a particle-sharded bootstrap step's),
+    the split-off planes of a contiguous 4-plane slice (the sharded APF's)
+    and a view into the whole rows' 4-plane cloud (the pointer off the
+    cloud's start). Each against the whole-row call's columns bit for bit,
+    against K2-UC-SV raw's columns within 1e-5 and against its plain version
+    fed the normals recovered from its state deltas; those normals' moments
+    over the whole row. The slice at 500 timed into ``k6``."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import fused_elementwise_step
+    from sequential_monte_carlo_tpu_torch.kernels.ucsv import (
+        ucsv_propagate_reweight,
+        ucsv_propagate_reweight_plain,
+    )
+    from sequential_monte_carlo_tpu_torch.models.ucsv import UCSV_UPDATE
+
+    m, n = DT_M, MESH_N
+    tol = dict(rtol=1e-5, atol=1e-5)
+    y = torch.tensor(1.3, device="cuda")
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+    wide = torch.randn((m, 4, n), generator=gen, device="cuda")
+    wide[:, 1:3] *= 0.5
+    gam = torch.tensor((0.3, 0.2), device="cuda").expand(m, 2).contiguous()
+    ge, gn = gam[:, 0], gam[:, 1]
+    whole = ucsv_propagate_reweight(seed, y, ge, gn, wide[:, :3])
+    k2 = fused_elementwise_step(UCSV_UPDATE, gam, wide[:, :3], y, seed=seed, normalize=False)
+    layouts = {"contiguous": lambda c: wide[:, :3, c].contiguous(),
+               "apf": lambda c: wide[:, :, c].contiguous()[:, :3],
+               "view": lambda c: wide[:, :3, c]}
+    err, k2_diff, z = 0.0, 0.0, {}
+    for lo, width in K6_SLICES:
+        cols = slice(lo, lo + width)
+        for layout, part_of in layouts.items():
+            part = part_of(cols)
+            new, logw = ucsv_propagate_reweight(seed, y, ge, gn, part, particle_offset=lo)
+            if not (torch.equal(new, whole[0][:, :, cols]) and torch.equal(logw, whole[1][:, cols])):
+                raise AssertionError(f"K6 slice {lo}..{lo + width} ({layout}): not the "
+                                     f"{m}x{n} call's columns")
+            for a, b in zip((new, logw), (k2[0][:, :, cols], k2[1][:, cols])):
+                torch.testing.assert_close(a, b, **tol)
+                k2_diff = max(k2_diff, (a - b).abs().max().item())
+        z[lo] = _recover_normals(torch, "ucsv", gam, part, new)
+        for a, b in zip((new, logw), ucsv_propagate_reweight_plain(y, ge, gn, part, z[lo])):
+            torch.testing.assert_close(a, b, **tol)
+            err = max(err, (a - b).abs().max().item())
+    moments = check_normals(torch, f"K6 slices of {m}x{n}", torch.cat([z[0], z[500]], dim=-1))
+    check_normals(torch, f"K6 slice 8.. of {m}x{n}", z[8])
+    k6["max_abs_err"] = max(k6["max_abs_err"], err)
+    lo, width = K6_SLICES[1]
+    part = wide[:, :3, lo:lo + width].contiguous()
+    key = f"slice_{lo}_{m}x{width}"
+    k6[key] = (time_ms(torch, lambda: ucsv_propagate_reweight(seed, y, ge, gn, part,
+                                                              particle_offset=lo)),
+               time_ms(torch, lambda: ucsv_propagate_reweight_plain(
+                   y, ge, gn, part, torch.randn((3, m, width), generator=gen, device="cuda"))),
+               *bound_ms(**propagate_cost(m, width, 3, 2, False, "ucsv", False)))
+    say("dt_mesh", check="k6 slices", shape=f"{m}x{n}", slices=[list(c) for c in K6_SLICES],
+        layouts=list(layouts), bitwise_as_whole_columns=True, max_abs_err=err,
+        k2_raw_max_abs_diff=k2_diff, ms=k6[key][0], plain_ms=k6[key][1], bound_ms=k6[key][2],
+        **moments)
+
+
+def check_dt_mesh(torch, dt_refs: dict):
+    """Phase 29 (b)–(d), see the module docstring. ``dt_refs``: phase 8's
+    one-process runs (:func:`check_dt`'s) per job. Returns the launch counts
+    of the one-process APF run and of every rank's runs, summed."""
+    # the one-process reference of (d): the UC-SV APF at 512×MESH_N, P_STEPS
+    y = series(torch, "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    apf_one, apf_infos = particle_apf_sampler(torch, "cuda", MESH_N).run_segmented(
+        torch.Generator(device="cuda").manual_seed(SEED), y, max_steps=P_STEPS - 1)
+    torch.cuda.synchronize()
+    apf_counts = launch_counts()
+
+    job_c = f"pslice{DT_M}x{MESH_N}"
+    two = run_ranks(f"mesh2x1,dta,dtb,mesh1x2,dta,dtb,{job_c},papf{MESH_N}", 2, "gloo")
+    four = run_ranks("mesh2x2,dta,dtb", 4, "gloo")
+    total = _ranks_counts(two + four, apf_counts)
+
+    # (b) density-tempered SMC on (2, 1), (1, 2) and (2, 2)
+    tol = TOL_Z * np.asarray(DT_JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    for shape, ranks in (("2x1", two), ("1x2", two), ("2x2", four)):
+        n_theta, n_particle = map(int, shape.split("x"))
+        rows, k = DT_M // n_theta, DT_N // n_particle
+        for job, (scheme, _) in DT_INNER.items():
+            key, ref = f"{job}@{shape}", dt_refs[job]
+            _ranks_agree(f"dt_mesh {key}", ranks, key)
+            resample = "resample_count" if scheme == "systematic" else "resample_sorted"
+            propagate = ("fused_propagate_lg1_raw" if n_particle > 1 else
+                         "fused_propagate_lg1" if scheme == "systematic" else
+                         "fused_propagate_lg1_carry")
+            for r, (arrays, meta) in enumerate(ranks):
+                rec = meta[key]
+                a, b = rec["coords"]
+                steps = (DT_T - 1) * (1 + DT_CHAIN * rec["moves"])
+                expect_counts(f"dt_mesh {key} rank {r}", rec["counts"],
+                              {resample: steps, propagate: steps})
+                _expect_seen(f"dt_mesh {key} rank {r}", rec, {
+                    (resample, rows, None, *((k * b, k) if resample == "resample_count"
+                                             else (None, k))),
+                    ("fused_propagate_lg", rows, rows * a, k * b, k)})
+                mean = _mean(arrays[f"{key}/theta"], arrays[f"{key}/log_omega"])
+                if n_particle == 1:  # θ-sharded: bitwise the one-process run
+                    _expect_equal(f"dt_mesh {key} rank {r}", arrays, key, ref["fields"])
+                elif not np.all(np.abs(mean - np.asarray(DT_JAX_MEAN)) <= tol):
+                    raise AssertionError(f"dt_mesh {key}: posterior mean {mean} vs JAX "
+                                         f"{DT_JAX_MEAN} beyond {tol}")
+                say("dt_mesh", run=job[-1], inner=list(DT_INNER[job]), mesh=shape, rank=r,
+                    coords=[a, b], shape=f"{DT_M}x{DT_N}", rows=f"{rows * a}..{rows * (a + 1)}",
+                    slots=f"{k * b}..{k * (b + 1)}", bitwise_as_one_process=n_particle == 1,
+                    stages=len(arrays[f"{key}/stage_xi"]), one_process_stages=ref["stages"],
+                    schedule=np.round(arrays[f"{key}/stage_xi"], 5).tolist(),
+                    inner_steps=steps, wall_s=round(rec["wall_s"], 4),
+                    wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / steps, 4),
+                    one_process_warm_ms_per_inner_step=round(ref["warm_ms_per_inner_step"], 4),
+                    posterior_mean=np.round(mean, 5).tolist(), jax_mean=DT_JAX_MEAN,
+                    tolerance=np.round(tol, 5).tolist(), collectives=rec["collectives"])
+
+    # (c) UC-SV SMC² at 512×MESH_N on (1, 2), the whole T: K6 at 500-particle
+    # slices, offsets 0 and 500
+    _ranks_agree("dt_mesh (1, 2) ucsv", two, job_c)
+    k = MESH_N // 2
+    for r, (arrays, meta) in enumerate(two):
+        rec = meta[job_c]
+        if rec["t"] != T:
+            raise AssertionError(f"dt_mesh {job_c} rank {r}: t = {rec['t']}")
+        expect_counts(f"dt_mesh {job_c} rank {r}", rec["counts"],
+                      {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
+        _expect_seen(f"dt_mesh {job_c} rank {r}", rec, {("resample_count", DT_M, None, k * r, k),
+                                               ("ucsv_propagate", DT_M, 0, k * r, k)})
+        say("dt_mesh", run="ucsv smc2", mesh="1x2", rank=r, shape=f"{DT_M}x{MESH_N}", T=T,
+            chain=CHAIN, slots=f"{k * r}..{k * (r + 1)}", inner_steps=rec["inner_steps"],
+            rejuvenations=len(rec["rejuv_t"]), wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            collectives=rec["collectives"])
+    mean = _mean(two[0][0][f"{job_c}/theta"], two[0][0][f"{job_c}/log_omega"])
+    tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
+    if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
+        raise AssertionError(f"dt_mesh (1, 2) ucsv {DT_M}x{MESH_N}: posterior mean {mean} vs "
+                             f"JAX {JAX_MEAN} beyond {tol}")
+    say("dt_mesh", run="ucsv smc2", mesh="1x2", check="posterior", ranks_bitwise_equal=True,
+        posterior_mean=np.round(mean, 5).tolist(), jax_mean=JAX_MEAN,
+        tolerance=np.round(tol, 5).tolist())
+
+    # (d) the UC-SV APF at 512×MESH_N on (1, 2), P_STEPS: bitwise the
+    # one-process run (K6 at every slice draws the whole row's columns, and
+    # both normalize in torch)
+    want_steps = _schedule(apf_infos, CHAIN, [])
+    job = f"papf{MESH_N}"
+    for r, (arrays, meta) in enumerate(two):
+        rec = meta[job]
+        _expect_equal(f"dt_mesh (1, 2) rank {r}", arrays, job, _theta_fields(apf_one))
+        expect_counts(f"dt_mesh {job} rank {r}", rec["counts"],
+                      {"resample_count": want_steps, "ucsv_propagate": want_steps})
+        _expect_seen(f"dt_mesh {job} rank {r}", rec, {("resample_count", DT_M, None, k * r, k),
+                                             ("ucsv_propagate", DT_M, 0, k * r, k)})
+        say("dt_mesh", run="ucsv apf", mesh="1x2", rank=r, shape=f"{DT_M}x{MESH_N}",
+            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True, inner_steps=want_steps,
+            wall_s=round(rec["wall_s"], 4),
+            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / want_steps, 4),
+            collectives=rec["collectives"])
     return total
 
 
@@ -3315,9 +3546,10 @@ def main() -> int:
     mark("slice")
 
     # -- 8. density-tempered SMC on LG, two inner filters
-    dt_counts = check_dt(torch, "a", ("systematic", 1.0), "resample_count", "fused_propagate_lg1")
-    counts_b = check_dt(torch, "b", ("stratified", 0.5), "resample_sorted",
-                        "fused_propagate_lg1_carry")
+    dt_counts, dt_ref_a = check_dt(torch, "a", DT_INNER["dta"], "resample_count",
+                                   "fused_propagate_lg1")
+    counts_b, dt_ref_b = check_dt(torch, "b", DT_INNER["dtb"], "resample_sorted",
+                                  "fused_propagate_lg1_carry")
     dt_counts = {k: v + counts_b[k] for k, v in dt_counts.items()}
     oracle, oracle_ess = kalman_is_oracle(torch)
     say("dt", kalman_prior_is_mean=np.round(oracle, 5).tolist(), is_ess=round(oracle_ess, 1))
@@ -3388,14 +3620,22 @@ def main() -> int:
 
     mark("particle")
 
+    # -- 29. density-tempered SMC on θ, particle and (θ, particle) meshes,
+    # and K6 on particle slices off a multiple of 16
+    check_k6_slices(torch, gen, k6)
+    dt_mesh_counts = check_dt_mesh(torch, {"dta": dt_ref_a, "dtb": dt_ref_b})
+
+    mark("dt_mesh")
+
     # launches of each kernel over the main paths (slice at 512×1024 and
     # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
-    # per_theta, smoothing, pg, dsl, inflation, utils, parallel and
-    # particle (every rank's runs), animations), each read just after its run
+    # per_theta, smoothing, pg, dsl, inflation, utils, parallel, particle
+    # and dt_mesh (every rank's runs), animations), each read just after its
+    # run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
             lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts,
             dsl_counts, inflation_counts, utils_counts, parallel_counts, animation_counts,
-            particle_counts)
+            particle_counts, dt_mesh_counts)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",

@@ -24,7 +24,11 @@
 // (kernels/propagate.py, UC-SV instance) draws at the same seed, and a call on
 // rows r..M with row_offset = r draws what rows r..M of the full call draw,
 // and a call on particles p..N with particle_offset = p what particles p..N
-// of it draw (particle-axis sharding: a rank's slice of every row).
+// of it draw (particle-axis sharding: a rank's slice of every row). A
+// particle's result depends only on its inputs and its counter, not on where
+// it lies in the launch nor on the access route (16- or 4-byte) that took it,
+// so a slice at any offset and of any width returns the whole call's columns
+// bit for bit.
 // The arithmetic is that of the fused propagate kernel's compiled UC-SV
 // update, read from its PTX: exp is ex2.approx of x·log2 e and sqrt is
 // sqrt.approx (one MUFU operation each), while log, sin and cos are the CUDA

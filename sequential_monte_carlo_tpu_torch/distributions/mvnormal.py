@@ -8,7 +8,9 @@ sampling works for any PSD covariance, and ``log_prob`` is the Gaussian
 density on the support subspace (pseudo-inverse, pseudo-determinant), equal
 to the usual density at full rank. Both paths form the Mahalanobis term in
 the factor's basis, as the JAX package does, so f32 results agree with it to
-rounding.
+rounding. ``allow_singular=False`` declares the covariance full rank: the
+Cholesky path alone, no eigendecomposition (NaN where the factor fails, as
+the JAX package's Cholesky gives).
 """
 from __future__ import annotations
 
@@ -37,12 +39,14 @@ def _matvec(a, x):
 
 @struct
 class MvNormal:
-    """N(mean, cov) over R^k: ``mean_`` (..., k), ``cov`` (..., k, k) PSD;
-    the Cholesky and eigh paths are both computed and one is selected per
-    matrix."""
+    """N(mean, cov) over R^k: ``mean_`` (..., k), ``cov`` (..., k, k) PSD.
+    With ``allow_singular`` (the default) the Cholesky and eigh paths are
+    both computed and one is selected per matrix; without, the Cholesky
+    path alone, for covariances known to be full rank."""
 
     mean_: torch.Tensor
     cov: torch.Tensor
+    allow_singular: bool = True
 
     @property
     def event_dim(self) -> int:
@@ -57,9 +61,16 @@ class MvNormal:
         L, info = torch.linalg.cholesky_ex(self.cov)
         return L, (info == 0) & torch.all(torch.isfinite(L), dim=(-2, -1))
 
+    def _cholesky_only(self):
+        """The Cholesky factor, NaN where it does not exist."""
+        L, ok = self._cholesky()
+        return torch.where(ok[..., None, None], L, torch.nan)
+
     def _factor(self):
         """F with F Fᵀ = cov: Cholesky where it exists, else the eigen
         square root (columns v_i √w_i)."""
+        if not self.allow_singular:
+            return self._cholesky_only()
         L, ok = self._cholesky()
         v, w, _ = _eig_parts(self.cov)
         eig_sqrt = v * torch.sqrt(w)[..., None, :]
@@ -74,8 +85,14 @@ class MvNormal:
     def log_prob(self, x):
         d = x - self.mean_
         k = self.event_dim
-        L, ok = self._cholesky()
         eye = torch.eye(k, dtype=self.cov.dtype, device=self.cov.device)
+        if not self.allow_singular:
+            L = self._cholesky_only()
+            L_inv = torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+            z = _matvec(L_inv, d)
+            logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+            return -0.5 * (k * _LOG_2PI + logdet + torch.sum(z * z, dim=-1))
+        L, ok = self._cholesky()
         L_safe = torch.where(ok[..., None, None], torch.nan_to_num(L, nan=1.0), eye)
         L_inv = torch.linalg.solve_triangular(L_safe, eye.expand(L_safe.shape), upper=False)
         z = _matvec(L_inv, d)

@@ -88,9 +88,10 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
       normalize: also normalize each row.
       normals: (3, M, N) f32 draws (CPU tensors: the plain version).
       particle_offset: global index of particle 0 (particle-axis sharding),
-        for the draws. Where it is not 0 it and N must be multiples of 16,
-        the rows on which this kernel equals the fused kernel's UC-SV
-        instance bit for bit (a ValueError otherwise).
+        for the draws: any offset ≥ 0 and any N. A call on particles
+        p..p+N of every row draws what those columns of the whole-row call
+        draw, and its new cloud and raw log-weights are those columns' bit
+        for bit.
 
     Returns (new cloud (M, 3, N), logw (M, N)), or with ``normalize``
     (new cloud, log_norm (M, N), lse (M, 1), ess (M, 1)). CUDA launches are
@@ -109,9 +110,8 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
         raise ValueError("the kernel draws its own normals: pass seed=")
     _check(y, gamma_eps, gamma_eta, cloud, seed, "seed", torch.int64)
     m, _, n = cloud.shape
-    if particle_offset < 0 or (particle_offset and (particle_offset % 16 or n % 16)):
-        raise ValueError(f"a particle slice at {particle_offset} of {n} particles: the offset "
-                         "and N must be multiples of 16")
+    if particle_offset < 0:
+        raise ValueError(f"particle_offset must be ≥ 0, got {particle_offset}")
     new = torch.empty((m, 3, n), device=cloud.device, dtype=torch.float32)
     logw = torch.empty((m, n), device=cloud.device, dtype=torch.float32)
     lse = torch.empty((m, 1), device=cloud.device, dtype=torch.float32) if normalize else None

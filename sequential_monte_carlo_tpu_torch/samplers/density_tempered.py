@@ -12,6 +12,13 @@ counterpart of ``sequential_monte_carlo_tpu/samplers/density_tempered.py``:
 The temper loop is on the host: a handful of stages, each reading the M log
 Ẑ once for the bisection, in numpy float64. The filters and rejuvenations
 run on the device.
+
+Sharded (the JAX idiom: ``density_tempered(ShardedSMC2(sampler, mesh).sampler,
+generator, y)``, a mesh in ``config.inner``): every rank runs this program in
+lockstep, as SMC² does. The init's filters return this rank's rows of log Ẑ
+(and its particles of each row); one all_gather makes log Ẑ whole before the
+θ-weights, the ESS and the bisection read it, so every rank bisects the same
+float64 numbers to the same ξ. The clouds stay the rank's part.
 """
 from __future__ import annotations
 
@@ -42,16 +49,15 @@ def _np_normalize(logw: np.ndarray):
 
 def density_tempered(sampler: SMC2, generator, y, verbose: bool = False):
     """Run density-tempered SMC to ξ = 1 on the observations y (T,), on
-    their device. Returns (state, [TemperStage, ...])."""
+    their device. Returns (state, [TemperStage, ...]); under a mesh the
+    state's clouds are this rank's part and the rest is whole."""
     cfg = sampler.config
-    if cfg.inner.mesh is not None:
-        raise ValueError("density_tempered runs unsharded: pass a sampler whose "
-                         "inner PFConfig carries no mesh")
     T = y.shape[0]
     theta = sampler.prior.sample(generator, (cfg.n_theta,))
     particles, log_w, log_z = batched_log_likelihood(
         generator, sampler.model_fn(theta), cfg.n_particles, cfg.n_theta, y,
         cfg.inner)
+    log_z = sampler._whole(log_z)
     state = SMC2State(
         theta=theta,
         log_omega=log_z,

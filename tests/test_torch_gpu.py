@@ -920,12 +920,28 @@ def test_propagate_particle_offset_draws_the_whole_launchs_columns(cuda, name, n
         assert torch.equal(part[1], whole[1][:, k:])
 
 
-def test_ucsv_kernel_refuses_a_particle_slice_off_16(cuda):
-    """K6 equals K2-UC-SV bit for bit only on rows of a multiple of 16
-    particles: a particle slice that starts or spans otherwise is refused."""
-    cloud, gam = _ucsv_cloud(np.random.default_rng(23), 8, 1024, cuda, "contiguous")
-    seed, y = torch.tensor([1], device=cuda), torch.tensor(0.1, device=cuda)
-    for offset, width in ((8, 1024), (16, 1000)):
-        with pytest.raises(ValueError, match="multiples of 16"):
-            ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], cloud[:, :, :width].contiguous(),
-                                    particle_offset=offset)
+@pytest.mark.parametrize("offset, width", [(8, 1016), (500, 500), (16, 1000), (0, 1000),
+                                           (3, 1001)])
+@pytest.mark.parametrize("layout", ["view", "contiguous"])
+def test_ucsv_kernel_takes_any_particle_slice(cuda, offset, width, layout):
+    """K6 on particles offset..offset+width of 64×1024 rows at that
+    particle_offset, on the APF's strided view and on a contiguous copy:
+    its new cloud and raw log-weights are the whole call's columns bit for
+    bit, and its normalized route's new cloud too, at offsets and widths
+    off a multiple of 16 (a particle-sharded UC-SV filter at N = 1000) and
+    off a multiple of 4 (the 4-byte access route)."""
+    cloud, gam = _ucsv_cloud(np.random.default_rng(23), 64, 1024, cuda, layout)
+    seed, y = torch.tensor([(1 << 33) + 5], device=cuda), torch.tensor(0.1, device=cuda)
+    cols = slice(offset, offset + width)
+    part = cloud[:, :, cols]
+    if layout == "contiguous":
+        part = part.contiguous()
+    whole = ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], cloud)
+    new, logw = ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], part,
+                                        particle_offset=offset)
+    assert torch.equal(new, whole[0][:, :, cols]) and torch.equal(logw, whole[1][:, cols])
+    norm = ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], part, normalize=True,
+                                   particle_offset=offset)
+    assert torch.equal(norm[0], new)
+    with pytest.raises(ValueError, match="particle_offset"):
+        ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], part, particle_offset=-1)

@@ -27,6 +27,7 @@ from sequential_monte_carlo_tpu_torch.models.linear_gaussian import LG_UPDATES, 
 from sequential_monte_carlo_tpu_torch.models.stochastic_volatility import SV_UPDATE, sv_update
 from sequential_monte_carlo_tpu_torch.models.ucsv import UCSV_UPDATE
 from sequential_monte_carlo_tpu_torch.ops import kalman as tkal
+from sequential_monte_carlo_tpu_torch.utils.struct import struct
 
 # One intra-op thread, as in the other port test files (ROADMAP Queue 3).
 torch.set_num_threads(1)
@@ -108,6 +109,75 @@ def test_samples_follow_the_distributions():
     z = tsmc.MvNormal(torch.tensor([1.0, 2.0]), q).sample(gen, (40000,))
     assert bool(torch.all(z[:, 1] == 2.0))
     np.testing.assert_allclose(torch.cov(z.T).numpy(), q.numpy(), atol=0.02)
+
+
+def _full_rank(kind):
+    """(mean, cov, x) on full-rank 2×2 covariances: the JAX test's
+    (tests/test_distributions.py:132), or a (4, 2, 2) batch at 6 points each."""
+    if kind == "jax_test":
+        return (np.array([1.0, -2.0], np.float32), np.array([[2.0, 0.5], [0.5, 1.0]], np.float32),
+                np.array([[0.0, 0.0], [1.0, -2.0], [3.0, 1.0]], np.float32))
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(4, 2, 2))
+    cov = (a @ a.transpose(0, 2, 1) + 0.3 * np.eye(2)).astype(np.float32)
+    return (rng.normal(size=(4, 2)).astype(np.float32), cov,
+            rng.normal(0.0, 2.0, (6, 4, 2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["jax_test", "batch"])
+def test_mvnormal_allow_singular_false_matches_jax(kind):
+    """``MvNormal(allow_singular=False)`` (Cholesky only, no eigh): log_prob
+    against the JAX package's at allow_singular=False and against the
+    port's default to 1e-6; its sample bitwise the default's at one
+    generator seed; a singular covariance gives NaN, as in JAX."""
+    mean, cov, x = _full_rank(kind)
+    fast = tsmc.MvNormal(torch.from_numpy(mean), torch.from_numpy(cov), allow_singular=False)
+    auto = tsmc.MvNormal(torch.from_numpy(mean), torch.from_numpy(cov))
+    ref = jsmc.MvNormal(jnp.asarray(mean), jnp.asarray(cov), allow_singular=False)
+    lp = fast.log_prob(torch.from_numpy(x))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(ref.log_prob(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lp.numpy(), auto.log_prob(torch.from_numpy(x)).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    draw = fast.sample(torch.Generator().manual_seed(7), (8,))
+    assert draw.shape == (8,) + mean.shape and torch.isfinite(draw).all()
+    assert torch.equal(draw, auto.sample(torch.Generator().manual_seed(7), (8,)))
+    q = np.array([[0.5, 0.0], [0.0, 0.0]], np.float32)
+    sing = tsmc.MvNormal(torch.zeros(2), torch.from_numpy(q), allow_singular=False)
+    assert np.isnan(float(jsmc.MvNormal(jnp.zeros(2), jnp.asarray(q),
+                                        allow_singular=False).log_prob(jnp.asarray([0.3, 0.0]))))
+    assert torch.isnan(sing.log_prob(torch.tensor([0.3, 0.0])))
+    assert torch.isnan(sing.sample(torch.Generator().manual_seed(7), (2,))).all()
+
+
+@struct
+class _FullRankLG:
+    """A user's 2-d linear-Gaussian model that declares its Q full rank."""
+
+    A: torch.Tensor
+    Q: torch.Tensor
+    allow_singular: bool = False
+
+    def transition_distribution(self, x):
+        return tsmc.MvNormal((self.A @ x[..., None])[..., 0], self.Q,
+                             allow_singular=self.allow_singular)
+
+
+def test_broadcast_model_keeps_allow_singular():
+    """``allow_singular`` is not a tensor: broadcast_model carries it, on
+    the distribution itself and on a model built with it, and the bank's
+    rows are the one model's."""
+    mean, cov, _ = _full_rank("jax_test")
+    d = tsmc.MvNormal(torch.from_numpy(mean), torch.from_numpy(cov), allow_singular=False)
+    bank = tsmc.broadcast_model(d, 3)
+    assert bank.allow_singular is False and bank.cov.shape == (3, 2, 2)
+    model = _FullRankLG(torch.tensor([[0.9, 0.1], [0.0, 0.8]]), torch.from_numpy(cov))
+    mbank = tsmc.broadcast_model(model, 3)
+    assert mbank.allow_singular is False and mbank.A.shape == (3, 2, 2)
+    x = torch.randn((5, 3, 2), generator=torch.Generator().manual_seed(1))
+    dist = mbank.transition_distribution(x)
+    assert dist.allow_singular is False
+    torch.testing.assert_close(dist.log_prob(x), model.transition_distribution(x).log_prob(x))
 
 
 def _models(kind, m=5):

@@ -10,7 +10,8 @@ particles — (1, 2), (2, 2) and (1, 4) — are held as the JAX package holds it
 θ-ESS within 1, the live count equal), every rank alike bit for bit, and,
 since no sum over a row is split (the filter normalizes whole rows gathered
 from the particle group), equal to the one-process run bit for bit on the
-CPU."""
+CPU. Density-tempered SMC on every one of these meshes equals its unsharded
+run bit for bit."""
 import json
 import subprocess
 import sys
@@ -18,7 +19,7 @@ import sys
 import numpy as np
 import pytest
 
-from torch_dist_worker import ROUTES, run_world, start_world, wait_world
+from torch_dist_worker import DT_ROUTES, ROUTES, run_world, start_world, wait_world
 
 WORLDS = (2, 4)
 # (θ, particle) meshes that shard particles, and their world sizes
@@ -251,12 +252,33 @@ def test_dead_slice_normalizes_finite(plain, pworlds, shape):
         np.testing.assert_array_equal(res["dead/ess"], plain["dead/ess"][rows])
 
 
-def test_density_tempered_refuses_a_mesh(worlds, pworlds):
-    """Density-tempered SMC runs unsharded: a sampler with a mesh raises,
-    a mesh that shards particles too."""
-    assert "runs unsharded" in str(worlds[2][0]["dt_error"])
-    for shape in PMESHES:
-        assert "runs unsharded" in str(pworlds[shape][0]["dt_error"])
+# every mesh a world above runs: θ-only (Rθ, 1) and the particle meshes
+DT_MESHES = [f"{w}x1" for w in WORLDS] + list(PMESHES)
+
+
+@pytest.mark.parametrize("mesh", DT_MESHES)
+@pytest.mark.parametrize("route", DT_ROUTES)
+def test_sharded_density_tempered_equals_unsharded(plain, worlds, pworlds, mesh, route):
+    """``density_tempered(ShardedSMC2(sampler, mesh).sampler, ...)``, the
+    JAX idiom, with a systematic inner filter and a stratified one at
+    ESS < N/2: θ, log ω, log Z, ESS and every stage's (ξ, ess, acc_ratio)
+    equal the unsharded run's bit for bit on every rank (the bisection reads
+    the same gathered log Ẑ), and each rank's clouds are its rows and
+    particles of the unsharded clouds."""
+    n_theta, n_particle = map(int, mesh.split("x"))
+    ranks = worlds[n_theta] if n_particle == 1 else pworlds[mesh]
+    assert len(plain[f"dt_{route}/xi"]) > 1 and plain[f"dt_{route}/xi"][-1] == 1.0
+    assert (plain[f"dt_{route}/acc_ratio"][:-1] > 0).all()  # the moves ran
+    _equal_on_every_rank(plain, ranks, f"dt_{route}")
+    m, k = 64 // n_theta, 128 // n_particle
+    for r, res in enumerate(ranks):
+        a, b = map(int, res[f"dtcloud_{route}/coords"])
+        assert [a, b] == [r // n_particle, r % n_particle]
+        for key in ("particles", "log_w"):
+            whole = plain[f"dtcloud_{route}/{key}"]
+            np.testing.assert_array_equal(res[f"dtcloud_{route}/{key}"],
+                                          whole[a * m:(a + 1) * m, b * k:(b + 1) * k],
+                                          err_msg=f"rank {r}: {key}")
 
 
 def test_diverged_ranks_end_in_an_error(tmp_path):

@@ -116,6 +116,38 @@ def run_route(name: str, mesh=None) -> dict:
     return out
 
 
+# the inner filters of the density-tempered runs (ROUTES' setup)
+DT_ROUTES = ("lg_systematic", "lg_stratified_carry")
+
+
+def run_dt(name: str, mesh=None) -> tuple[dict, dict]:
+    """Density-tempered SMC from seed 0 on ROUTES[name]'s setup, sharded
+    over ``mesh`` (the sampler of ``ShardedSMC2(sampler, mesh)``) or (None)
+    unsharded. Returns the θ-level fields with every stage's (ξ, ess,
+    acc_ratio), and this rank's clouds (the whole clouds unsharded) with
+    its mesh coordinates."""
+    model_fn, prior_spec, y, cfg = ROUTES[name]()
+    sampler = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
+    if mesh is not None:
+        sampler = parallel.ShardedSMC2(sampler, mesh).sampler
+    state, trace = smc.density_tempered(sampler, torch.Generator().manual_seed(0), y)
+    out = _theta_fields(state)
+    out.update({k: torch.tensor([getattr(s, k) for s in trace], dtype=torch.float64)
+                for k in ("xi", "ess", "acc_ratio")})
+    coords = [0, 0] if mesh is None else [mesh.get_local_rank(0), mesh.get_local_rank(1)]
+    return out, {"particles": state.particles, "log_w": state.log_w,
+                 "coords": torch.tensor(coords)}
+
+
+def _flat_dt(mesh=None) -> dict:
+    out = {}
+    for name in DT_ROUTES:
+        fields, cloud = run_dt(name, mesh)
+        out.update(_flat(f"dt_{name}", fields))
+        out.update(_flat(f"dtcloud_{name}", cloud))
+    return out
+
+
 def run_entry(kind: str, mesh=None) -> dict:
     """``run`` with a collect_fn, and ``run_segmented`` split after 15
     steps and resumed, through the wrapper (or the plain sampler)."""
@@ -194,6 +226,7 @@ def suite_plain(out: dict) -> None:
     out.update(_flat("ibis", run_ibis()))
     out.update(_flat("multihost", multihost_run()))
     out.update(_flat("dead", dead_slice_init()))
+    out.update(_flat_dt())
 
 
 def _raises(fn) -> str:
@@ -217,13 +250,12 @@ def suite_parallel(out: dict, world: int) -> None:
         out.update(_flat(kind, run_entry(kind, mesh)))
     out.update(_flat("reshard", reshard_step(mesh)))
     out.update(_flat("ibis", run_ibis(mesh)))
+    out.update(_flat_dt(mesh))
     # the rank's rows of a sharded state
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
                                        cfg), mesh)
     st = sh.init(torch.Generator().manual_seed(0), y)
-    out["dt_error"] = np.asarray(_raises(lambda: smc.density_tempered(
-        sh.sampler, torch.Generator().manual_seed(0), y)))
     out["local_particles_shape"] = np.asarray(st.particles.shape)
     out["local_theta_shape"] = np.asarray(st.theta.shape)
     if world == 4:  # a mesh that shards particles
@@ -232,8 +264,8 @@ def suite_parallel(out: dict, world: int) -> None:
 
 def suite_particle(out: dict, world: int, shape: str) -> None:
     """The sampler cases on an (Rθ, Rp) mesh that shards particles: every
-    SMC² route, ``run``/``run_segmented``, reshard + step, IBIS, and the
-    rank's part of a sharded state."""
+    SMC² route, ``run``/``run_segmented``, reshard + step, IBIS,
+    density-tempered SMC, and the rank's part of a sharded state."""
     n_theta, n_particle = map(int, shape.split("x"))
     mesh = parallel.make_mesh(n_theta, n_particle)
     out["mesh_shape"] = np.asarray(mesh.shape)
@@ -245,6 +277,7 @@ def suite_particle(out: dict, world: int, shape: str) -> None:
     out.update(_flat("reshard", reshard_step(mesh)))
     out.update(_flat("ibis", run_ibis(mesh)))
     out.update(_flat("dead", dead_slice_init(mesh)))
+    out.update(_flat_dt(mesh))
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
                                        cfg), mesh)
@@ -254,8 +287,6 @@ def suite_particle(out: dict, world: int, shape: str) -> None:
     st = sh.init(torch.Generator().manual_seed(0), y)
     out["local_particles_shape"] = np.asarray(st.particles.shape)
     out["local_log_w_shape"] = np.asarray(st.log_w.shape)
-    out["dt_error"] = np.asarray(_raises(lambda: smc.density_tempered(
-        sh.sampler, torch.Generator().manual_seed(0), y)))
     out["n_error"] = np.asarray(_raises(lambda: parallel.ShardedSMC2(smc.SMC2(
         model_fn, prior_from_spec(prior_spec, device="cpu"),
         cfg._replace(n_particles=129)), mesh)))
