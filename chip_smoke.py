@@ -201,12 +201,29 @@ Phases, one line each or more; any failure raises and exits non-zero:
      posterior against JAX_MEAN; (d) phase 13's UC-SV APF SMC² at 512×1000
      on (1, 2) over its first P_STEPS observations, bit for bit the
      one-process run.
+ 30. graphs — the masked filter's captured steps (``ops/graphs.py``; every
+     phase above replays them where its route is captured: no mesh, no
+     proposal, no active_n, a model with a kernel, systematic or stratified,
+     bootstrap or APF) against its eager loop under ``disable_graphs()``
+     from the same seeds: the slice's SMC² at 512×1024 and 512×8192 (θ,
+     log Z, log ω, particles, log-weights and every StepInfo bit for bit),
+     the dt phase's runs (a) and (b), phase 13's UC-SV APF SMC² over its
+     first GRAPH_APF_T observations, and the per-θ LG filter at 1×1024
+     (PER_THETA_SEEDS runs); launch counts equal between the two and to
+     each schedule; walls (the better of two warm runs each, taken in
+     turns), wall per inner step, the device's busy share (one profiled run
+     each of the SMC² cells, DT (b) and the APF, which between them run K1,
+     K3, K2 and K6: the profiler's events of each kernel must number as its
+     launch counter counts) and peak memory (allocated; the graphs' pool
+     beside it); and a replayed step's wall split into the host's issue and
+     the device's run.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -3456,6 +3473,231 @@ def check_animations(torch):
     return total
 
 
+GRAPH_APF_T = 60  # phase 30's APF SMC² cut, as phase 28's and 29's (phase 13 runs the whole T)
+REPLAY_T = 41  # 40 replays: under a thousand queued launches even counted a graph node each
+
+
+# The device kernels each launch counter's wrapper launches, by their names
+# in torch.profiler's events (the CUDA kernels are templates, K2 is Triton's
+# step_kernel); K2's counter is the sum of its instances'.
+KERNEL_EVENTS = {"resample_count": ("resample_count_kernel",),
+                 "resample_sorted": ("resample_sorted_kernel",),
+                 "ucsv_propagate": ("ucsv_raw_kernel", "ucsv_norm_kernel", "ucsv_norm_loop_kernel"),
+                 "fused_propagate": ("step_kernel",)}
+
+
+def _busy(torch, label: str, fn) -> dict:
+    """One run of ``fn`` (→ (result, wall, launch counts)) under
+    torch.profiler: its wall, the device time of its kernels and copies,
+    their count, and the busy share (device time / wall); the device's
+    activity only (the host's ops would slow the trace's parsing). Fails
+    unless the profiler saw each kernel (KERNEL_EVENTS) run as many times
+    as its counter counted: a count that no launch backs, or a launch that
+    no counter counts, whether eager or from a graph's replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        counts = fn()[2]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    seen = {k: sum(e.count for e in events
+                   if any(e.key == name or f"{name}<" in e.key for name in names))
+            for k, names in KERNEL_EVENTS.items()}
+    counted = {k: sum(v for c, v in counts.items() if c == k or c.startswith(k + "_"))
+               for k in KERNEL_EVENTS}
+    if seen != counted:
+        raise AssertionError(f"graphs ({label}): the profiler saw kernels {seen}, the counters"
+                             f" counted {counted}")
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    return {"profiled_wall_s": round(wall, 4), "device_s": round(device_s, 4),
+            "device_events": sum(e.count for e in events), "kernel_events": seen,
+            "busy": round(device_s / wall, 4)}
+
+
+def _graph_pool_mb(torch) -> float:
+    """MB that the memory pool the captured graphs share holds (the
+    private pools' segments; the port captures into one)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**20
+
+
+def check_graphs(torch):
+    """Phase 30 (see the module's docstring). Returns the runs' launch
+    counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    total = None
+    state_fields = ("theta", "log_z", "log_omega", "particles", "log_w")
+
+    def bitwise(a, b, names) -> dict:
+        return {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in names}
+
+    def paired(label, run, compare, expected, steps, profile=False):
+        """run() → (result, wall s, counts): graphed, then eager from the
+        same seed, held bit for bit and by their counts; then two runs each
+        in turns (eager, graphed, graphed, eager), the graphs freed before
+        each eager run, so that its peak memory holds no graph's buffers
+        and the first graphed run captures again: walls (the better of two),
+        the peak allocated memory of each mode's last run and the graphs'
+        pool after the graphed runs; with ``profile``, one profiled run
+        each, its kernels' events held against the launch counters
+        (_busy)."""
+        nonlocal total
+        smc.clear_graphs()
+        got, wall_g, counts_g = run()
+        with smc.disable_graphs():
+            ref, wall_e, counts_e = run()
+        same = compare(got, ref)
+        if not all(same.values()):
+            raise AssertionError(f"graphs ({label}): graphed and eager runs differ: {same}")
+        if counts_g != counts_e:
+            raise AssertionError(f"graphs ({label}): launches {counts_g} graphed, {counts_e}"
+                                 " eager")
+        expect_counts(f"graphs ({label})", counts_g, expected(got))
+        total = _add(_add(total, counts_g), counts_e)
+        walls, peak = {"graphed": [], "eager": []}, {}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            if mode == "eager":
+                smc.clear_graphs()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ctx = smc.disable_graphs() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                walls[mode].append(run()[1])
+            peak[mode] = round(torch.cuda.max_memory_allocated() / 2**20, 1)
+            if mode == "graphed":
+                pool_mb = round(_graph_pool_mb(torch), 1)
+        n = steps(got)
+        row = {"run": label, "inner_steps": n, "bitwise": True, "launches": counts_g,
+               "first_wall_s": {"graphed": round(wall_g, 4), "eager": round(wall_e, 4)}}
+        for mode in walls:
+            best = min(walls[mode])
+            row[mode] = {"wall_s": round(best, 4), "walls_s": [round(w, 4) for w in walls[mode]],
+                         "ms_per_inner_step": round(1e3 * best / n, 5),
+                         "peak_allocated_mb": peak[mode]}
+            if profile:
+                if mode == "graphed":
+                    run()  # the capture, outside the profiled run
+                ctx = smc.disable_graphs() if mode == "eager" else contextlib.nullcontext()
+                with ctx:
+                    row[mode].update(_busy(torch, f"{label}, {mode}", run))
+        row["speedup"] = round(row["eager"]["wall_s"] / row["graphed"]["wall_s"], 3)
+        row["graph_pool_mb"] = pool_mb
+        say("graphs", **row)
+        return row
+
+    def smc2_same(a, b):
+        (sa, ia), (sb, ib) = a, b
+        return {**bitwise(sa, sb, state_fields), **bitwise(ia, ib, ia._fields)}
+
+    def smc2_counts(kernel):
+        return lambda out: {"resample_count": _schedule(out[1], CHAIN, []),
+                            kernel: _schedule(out[1], CHAIN, [])}
+
+    rows = {}
+    for n in (1024, 8192):
+        def run(n=n):
+            return _counted(torch, lambda: run_slice(torch, n, SEED)[:2])
+
+        rows[f"smc2_{n}"] = paired(f"smc2 ucsv 512x{n}", run, smc2_same,
+                                   smc2_counts("fused_propagate_ucsv"),
+                                   lambda out: _schedule(out[1], CHAIN, []), profile=True)
+
+    for label, kernels in (("dta", ("resample_count", "fused_propagate_lg1")),
+                           ("dtb", ("resample_sorted", "fused_propagate_lg1_carry"))):
+        def run(label=label):
+            state, trace, wall, counts = run_dt(torch, DT_INNER[label], SEED)
+            return (state, trace), wall, counts
+
+        def dt_same(a, b):
+            same = bitwise(a[0], b[0], state_fields)
+            same["stages"] = a[1] == b[1]
+            return same
+
+        def dt_steps(out):
+            return (DT_T - 1) * (1 + DT_CHAIN * sum(stage.xi < 1.0 for stage in out[1]))
+
+        rows[label] = paired(f"dt ({label[-1]})", run, dt_same,
+                             lambda out, k=kernels: {k[0]: dt_steps(out), k[1]: dt_steps(out)},
+                             dt_steps, profile=label == "dtb")
+
+    y_apf = series(torch, "cuda")[:GRAPH_APF_T]
+
+    def run_apf():
+        state, infos, wall, counts = run_apf_smc2(torch, smc.ucsv_model, PRIOR_SPEC, y_apf, CHAIN,
+                                                  SEED)
+        return (state, infos), wall, counts
+
+    rows["apf"] = paired(f"smc2 ucsv apf 512x1024, T={GRAPH_APF_T}", run_apf, smc2_same,
+                         smc2_counts("ucsv_propagate"), lambda out: _schedule(out[1], CHAIN, []),
+                         profile=True)
+
+    y_lg = torch.tensor(lg_series(), device="cuda")
+    model = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+
+    def run_per_theta():
+        return _counted(torch, lambda: [smc.log_likelihood(
+            torch.Generator(device="cuda").manual_seed(600 + s), model, DT_N, y_lg)
+            for s in range(PER_THETA_SEEDS)])
+
+    def per_theta_same(a, b):
+        return {f"run{i}_{k}": bool(torch.equal(x, z)) for i, (ra, rb) in enumerate(zip(a, b))
+                for k, x, z in (("particles", ra[0].particles, rb[0].particles),
+                                ("log_w", ra[0].log_weights, rb[0].log_weights),
+                                ("log_z", ra[1], rb[1]))}
+
+    steps = (DT_T - 1) * PER_THETA_SEEDS
+    rows["per_theta"] = paired("per_theta lg 1x1024", run_per_theta, per_theta_same,
+                               lambda out: {"resample_count": steps, "fused_propagate_lg1": steps},
+                               lambda out: steps)
+    rows["replay_split"] = replay_split(torch, smc)
+    return total, rows
+
+
+def replay_split(torch, smc) -> dict:
+    """Where a replayed step's wall goes: 512 UC-SV filters at JAX_MEAN,
+    N=1024, over the series' first REPLAY_T observations (K1 + K2-UC-SV,
+    captured): the wall of one filter, the host's time to issue it while
+    the device waits behind a sleep kernel, and the device's time to run it
+    once issued (CUDA events), each per inner step."""
+    models = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
+    y = series(torch, "cuda")[:REPLAY_T]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run():
+        return smc.batched_log_likelihood(gen, models, DT_N, DT_M, y)
+
+    run()  # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(max(SLEEP_CYCLES, int(3 * wall * sm_clock_hz())))
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    issue = time.perf_counter() - t0
+    started = start.query()  # the sleep must still be running
+    end.synchronize()
+    if started:
+        raise AssertionError(f"graphs: issuing the replays took {issue:.4f} s, past the sleep")
+    n = REPLAY_T - 1
+    row = {"run": "replay split, ucsv 512x1024", "inner_steps": n,
+           "wall_ms_per_step": round(1e3 * wall / n, 5),
+           "host_issue_ms_per_step": round(1e3 * issue / n, 5),
+           "device_ms_per_step": round(start.elapsed_time(end) / n, 5)}
+    say("graphs", **row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3627,15 +3869,20 @@ def main() -> int:
 
     mark("dt_mesh")
 
+    # -- 30. the masked filter's captured steps against its eager loop
+    graph_counts, _ = check_graphs(torch)
+
+    mark("graphs")
+
     # launches of each kernel over the main paths (slice at 512×1024 and
     # 512×8192, dt, filters, apf, exchange, large_n, lg_dx, routes,
     # per_theta, smoothing, pg, dsl, inflation, utils, parallel, particle
-    # and dt_mesh (every rank's runs), animations), each read just after its
-    # run
+    # and dt_mesh (every rank's runs), animations, graphs), each read just
+    # after its run
     runs = (slice_counts, dt_counts, filter_counts, apf_counts, exchange_counts, large_counts,
             lg_dx_counts, routes_counts, per_theta_counts, smoothing_counts, pg_counts,
             dsl_counts, inflation_counts, utils_counts, parallel_counts, animation_counts,
-            particle_counts, dt_mesh_counts)
+            particle_counts, dt_mesh_counts, graph_counts)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in slice_counts}
     for name, n in launches.items():
         if name not in ("fused_propagate_lg2_carry", "fused_propagate_sv_carry",

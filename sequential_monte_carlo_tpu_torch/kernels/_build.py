@@ -9,9 +9,16 @@ first kernel launch and later processes load it. Nothing is downloaded: the
 sources in the package are the only input. (PyTorch's
 ``cpp_extension.load`` is not used: a source that includes PyTorch's headers
 takes minutes to compile; this library takes seconds.)
+
+It also keeps the registry of the wrappers' launch counters
+(:func:`launch_counter`): each wrapper registers its counter once, where it
+defines it, and whoever moves the counts as a whole (a captured CUDA graph's
+replay, ``ops/graphs.py``) reads and adds the registry.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import ctypes
 import functools
 import hashlib
@@ -99,3 +106,43 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.smc_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# -- launch counters ---------------------------------------------------------
+
+#: (wrapper, attribute) of every kernel wrapper's launch counter: an int, or a
+#: ``collections.Counter`` by kernel instance
+LAUNCH_COUNTERS: list = []
+
+
+def launch_counter(wrapper, attr: str = "launches", start=0) -> None:
+    """Give ``wrapper`` its launch counter ``wrapper.<attr> = start`` and
+    register it. The wrapper adds one where it launches its kernel, and
+    nowhere else."""
+    setattr(wrapper, attr, start)
+    LAUNCH_COUNTERS.append((wrapper, attr))
+
+
+def launch_counts() -> list:
+    """A copy of every registered counter, in the registry's order."""
+    return [copy.copy(getattr(w, a)) for w, a in LAUNCH_COUNTERS]
+
+
+def set_launch_counts(counts: list) -> None:
+    """Set every registered counter to ``counts`` (:func:`launch_counts`'s)."""
+    for (w, a), c in zip(LAUNCH_COUNTERS, counts, strict=True):
+        if isinstance(c, collections.Counter):  # in place: callers hold it
+            getattr(w, a).clear()
+            getattr(w, a).update(c)
+        else:
+            setattr(w, a, c)
+
+
+def add_launch_counts(delta: list) -> None:
+    """Add ``delta``, a difference of two :func:`launch_counts`, to the
+    registered counters."""
+    for (w, a), d in zip(LAUNCH_COUNTERS, delta, strict=True):
+        if isinstance(d, collections.Counter):
+            getattr(w, a).update(d)
+        else:
+            setattr(w, a, getattr(w, a) + d)

@@ -100,7 +100,7 @@ class ElementwiseUpdate(NamedTuple):
 
 
 def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
-                                 normals, carry_logw=None, normalize: bool = True):
+                                 normals, carry_logw=None, normalize: bool = True, out=None):
     """Plain version with injected normals.
 
     Args:
@@ -110,6 +110,7 @@ def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
       normals: (n_normals, M, N) standard-normal draws.
       carry_logw: optional (M, N) log-weights added before the normalize.
       normalize: False returns the raw log-weights.
+      out: optional (new state, log_norm or logw) tensors written in place.
 
     Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)),
     or (new state, logw (M, N)) with ``normalize=False``.
@@ -119,9 +120,11 @@ def fused_elementwise_step_plain(update: ElementwiseUpdate, params, state, y,
     new, logw = update.plain(par, y, planes, tuple(normals))
     if carry_logw is not None:
         logw = logw + carry_logw
+    new = torch.stack(new, dim=1, out=None if out is None else out[0])
     if not normalize:
-        return torch.stack(new, dim=1), logw
-    return (torch.stack(new, dim=1),) + normalize_rows(logw)
+        return new, (logw if out is None else out[1].copy_(logw))
+    log_norm, lse, ess = normalize_rows(logw)
+    return new, (log_norm if out is None else out[1].copy_(log_norm)), lse, ess
 
 
 def normalize_rows(logw):
@@ -380,6 +383,22 @@ def _update_fn(name: str):
     return getattr(module, f"lg{dx}_update")
 
 
+def check_out(out, state) -> None:
+    """Raise unless ``out`` is None or the (new state (M, S, N), log-weights
+    (M, N)) pair a propagate kernel writes: contiguous f32 on the state's
+    device."""
+    if out is None:
+        return
+    if len(out) != 2:
+        raise ValueError(f"out must be (new state, log-weights), got {len(out)} tensors")
+    for name, t, shape in (("out[0]", out[0], tuple(state.shape)),
+                           ("out[1]", out[1], tuple(state.shape[::2]))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32 or t.device != state.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {state.device}")
+
+
 def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
     if state.dim() != 3:
         raise ValueError(f"state must be (M, S, N), got {tuple(state.shape)}")
@@ -429,7 +448,7 @@ def _launch_config(n: int, normalize: bool):
 def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
                            seed=None, normals=None, row_offset: int = 0,
                            carry_logw=None, normalize: bool = True,
-                           particle_offset: int = 0):
+                           particle_offset: int = 0, out=None):
     """One fused propagate + reweight (+ normalize) step for all (M, N)
     particles.
 
@@ -449,6 +468,9 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
         observation log-weights before the normalize; the returned lse is
         then log Σ exp(carry + logw). Requires ``normalize``.
       normalize: False skips the normalize and returns the raw log-weights.
+      out: optional (new state (M, S, N), log_norm or logw (M, N)),
+        contiguous f32, written in place with the bits the call would
+        return (the buffers a CUDA graph reads and writes).
 
     Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)),
     or (new state, logw (M, N)) with ``normalize=False``. CUDA launches are
@@ -458,6 +480,7 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     """
     if carry_logw is not None and not normalize:
         raise ValueError("carry_logw requires normalize=True")
+    check_out(out, state)
     if state.device.type == "cpu":
         if normals is None:
             raise ValueError("on the CPU the plain version takes injected normals")
@@ -465,7 +488,7 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
         if tuple(normals.shape) != (update.n_normals,) + tuple(state.shape[::2]):
             raise ValueError(f"normals must be (n_normals, M, N), got {tuple(normals.shape)}")
         return fused_elementwise_step_plain(update, params, state, y, normals,
-                                            carry_logw, normalize)
+                                            carry_logw, normalize, out)
     if state.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.device}")
     if seed is None:
@@ -475,8 +498,11 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
         raise ValueError(f"particle_offset must be ≥ 0, got {particle_offset}")
     m, s, n = state.shape
     k = _triton_kernels()
-    new = torch.empty_like(state)
-    log_norm = torch.empty((m, n), device=state.device, dtype=torch.float32)
+    if out is None:
+        new = torch.empty_like(state)
+        log_norm = torch.empty((m, n), device=state.device, dtype=torch.float32)
+    else:
+        new, log_norm = out
     # lse and ess: (M, 1) outputs of the normalize; unused pointers without it
     lse = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
     ess = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
@@ -497,4 +523,4 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     return new, log_norm, lse, ess
 
 
-fused_elementwise_step.instance_launches = collections.Counter()
+_build.launch_counter(fused_elementwise_step, "instance_launches", collections.Counter())

@@ -61,22 +61,25 @@ def sorted_ancestors(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.clamp(anc, max=weights.shape[-1] - 1).to(torch.int32)
 
 
-def resample_gather_sorted_plain(u, weights, xs):
+def resample_gather_sorted_plain(u, weights, xs, out=None):
     """Plain version: (xs gathered along N by the ancestors, ancestors),
-    (M, C, n_out) and (M, n_out) for the grid u (M, n_out)."""
+    (M, C, n_out) and (M, n_out) for the grid u (M, n_out); the gathered
+    cloud is written into ``out`` when it is given."""
     anc = sorted_ancestors(u, weights)
     idx = anc.to(torch.int64)[:, None, :].expand(xs.shape[0], xs.shape[1], anc.shape[1])
-    return torch.gather(xs, 2, idx), anc
+    return torch.gather(xs, 2, idx, out=out), anc
 
 
-def _check(u, weights, xs):
+def _check(u, weights, xs, out):
     if xs.dim() != 3:
         raise ValueError(f"xs must be (M, C, N), got shape {tuple(xs.shape)}")
     m, c, n = xs.shape
     if u.dim() != 2 or not 1 <= u.shape[-1] <= n:
         raise ValueError(f"u must be (M, n_out) with 1 ≤ n_out ≤ {n}, got {tuple(u.shape)}")
-    for name, t, shape in (("u", u, (m, u.shape[-1])), ("weights", weights, (m, n)),
-                           ("xs", xs, (m, c, n))):
+    checks = [("u", u, (m, u.shape[-1])), ("weights", weights, (m, n)), ("xs", xs, (m, c, n))]
+    if out is not None:
+        checks.append(("out", out, (m, c, u.shape[-1])))
+    for name, t, shape in checks:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -87,7 +90,7 @@ def _check(u, weights, xs):
             raise ValueError(f"{name} must be contiguous")
 
 
-def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
+def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False, out=None):
     """Resample every row of the cloud by the sorted grid ``u`` and gather.
 
     Args:
@@ -96,6 +99,8 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
       weights: (M, N) f32 non-negative weights, need not be normalized.
       xs: (M, C, N) f32 cloud, components on the middle axis (any C).
       return_ancestors: also return the (M, n_out) int32 ancestors.
+      out: optional contiguous (M, C, n_out) f32 tensor that the gathered
+        cloud is written into (a buffer a CUDA graph reads and writes).
 
     Returns (M, C, n_out) f32 ``xs`` gathered along N (and the ancestors).
     CPU tensors take :func:`resample_gather_sorted_plain`; CUDA tensors
@@ -104,17 +109,18 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     57,344 (``smc_resample_sorted_max_n``) it keeps a row's cdf in shared
     memory; above, in an (M, N) scratch in device memory.
     """
-    _check(u, weights, xs)
+    _check(u, weights, xs, out)
     if xs.device.type == "cpu":
-        out, anc = resample_gather_sorted_plain(u, weights, xs)
+        out, anc = resample_gather_sorted_plain(u, weights, xs, out)
         return (out, anc) if return_ancestors else out
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
     n_out = u.shape[1]
     lib = _build.library()
-    out = (torch.empty_like(xs) if n_out == n
-           else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
+    if out is None:
+        out = (torch.empty_like(xs) if n_out == n
+               else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
     anc = (torch.empty((m, n_out), device=xs.device, dtype=torch.int32)
            if return_ancestors else None)
     scratch = (torch.empty((m, n), device=xs.device, dtype=torch.float32)
@@ -131,4 +137,4 @@ def resample_gather_sorted(u, weights, xs, return_ancestors: bool = False):
     return (out, anc) if return_ancestors else out
 
 
-resample_gather_sorted.launches = 0
+_build.launch_counter(resample_gather_sorted)

@@ -35,23 +35,27 @@ def count_ancestors(u0: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.clamp(anc, max=n - 1).to(torch.int32)
 
 
-def resample_gather_plain(u0, weights, xs, slot_lo: int = 0, n_out: int | None = None):
+def resample_gather_plain(u0, weights, xs, slot_lo: int = 0, n_out: int | None = None,
+                          out=None):
     """Plain version: (xs gathered along N by the ancestors, ancestors), of
-    the output slots [slot_lo, slot_lo + n_out) (all N by default)."""
+    the output slots [slot_lo, slot_lo + n_out) (all N by default); the
+    gathered cloud is written into ``out`` when it is given."""
     n = xs.shape[2]
     anc = count_ancestors(u0, weights)[:, slot_lo:slot_lo + (n if n_out is None else n_out)]
     idx = anc.to(torch.int64)[:, None, :].expand(xs.shape[0], xs.shape[1], anc.shape[1])
-    return torch.gather(xs, 2, idx), anc
+    return torch.gather(xs, 2, idx, out=out), anc
 
 
-def _check(u0, weights, xs, slot_lo: int, n_out: int):
+def _check(u0, weights, xs, slot_lo: int, n_out: int, out):
     if xs.dim() != 3:
         raise ValueError(f"xs must be (M, C, N), got shape {tuple(xs.shape)}")
     m, c, n = xs.shape
     if not (0 <= slot_lo and 1 <= n_out <= n - slot_lo):
         raise ValueError(f"slots [{slot_lo}, {slot_lo + n_out}) are not a window of N = {n}")
-    for name, t, shape in (("u0", u0, (m, 1)), ("weights", weights, (m, n)),
-                           ("xs", xs, (m, c, n))):
+    checks = [("u0", u0, (m, 1)), ("weights", weights, (m, n)), ("xs", xs, (m, c, n))]
+    if out is not None:
+        checks.append(("out", out, (m, c, n_out)))
+    for name, t, shape in checks:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -63,7 +67,7 @@ def _check(u0, weights, xs, slot_lo: int, n_out: int):
 
 
 def resample_gather(u0, weights, xs, return_ancestors: bool = False, slot_lo: int = 0,
-                    n_out: int | None = None):
+                    n_out: int | None = None, out=None):
     """Resample every row of the cloud by systematic ancestors and gather.
 
     Args:
@@ -73,6 +77,8 @@ def resample_gather(u0, weights, xs, return_ancestors: bool = False, slot_lo: in
       return_ancestors: also return the (M, n_out) int32 ancestors.
       slot_lo, n_out: the window of output slots [slot_lo, slot_lo + n_out)
         to write (default: all N); the cdf is the whole row's.
+      out: optional contiguous (M, C, n_out) f32 tensor that the gathered
+        cloud is written into (a buffer a CUDA graph reads and writes).
 
     Returns (M, C, n_out) f32 ``xs`` gathered along N (and the ancestors),
     equal bit for bit to the whole output's slots of the window.
@@ -83,16 +89,17 @@ def resample_gather(u0, weights, xs, return_ancestors: bool = False, slot_lo: in
     which is then allocated whether or not it is returned.
     """
     n_out = xs.shape[-1] if n_out is None else n_out
-    _check(u0, weights, xs, slot_lo, n_out)
+    _check(u0, weights, xs, slot_lo, n_out, out)
     if xs.device.type == "cpu":
-        out, anc = resample_gather_plain(u0, weights, xs, slot_lo, n_out)
+        out, anc = resample_gather_plain(u0, weights, xs, slot_lo, n_out, out)
         return (out, anc) if return_ancestors else out
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
     m, c, n = xs.shape
     lib = _build.library()
-    out = (torch.empty_like(xs) if n_out == n
-           else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
+    if out is None:
+        out = (torch.empty_like(xs) if n_out == n
+               else torch.empty((m, c, n_out), device=xs.device, dtype=xs.dtype))
     large = n > lib.smc_resample_count_max_n()  # the marks, then every slot's ancestor
     anc = (torch.empty((m, n if large else n_out), device=xs.device, dtype=torch.int32)
            if return_ancestors or large else None)
@@ -109,4 +116,4 @@ def resample_gather(u0, weights, xs, return_ancestors: bool = False, slot_lo: in
     return out, (anc[:, slot_lo:slot_lo + n_out] if large else anc)
 
 
-resample_gather.launches = 0
+_build.launch_counter(resample_gather)

@@ -28,12 +28,13 @@ import math
 import torch
 
 from . import _build
+from .propagate import check_out
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def ucsv_propagate_reweight_plain(y, gamma_eps, gamma_eta, cloud, normals,
-                                  normalize: bool = False):
+                                  normalize: bool = False, out=None):
     """Plain version with injected normals (3, M, N); the arguments and
     results are :func:`ucsv_propagate_reweight`'s."""
     ge, gn = gamma_eps[:, None], gamma_eta[:, None]
@@ -44,14 +45,15 @@ def ucsv_propagate_reweight_plain(y, gamma_eps, gamma_eta, cloud, normals,
     lsn_new = lsn + gn * z2
     zz = (y - x_new) * torch.exp(-0.5 * lsn_new)
     logw = -0.5 * zz * zz - 0.5 * lsn_new - _HALF_LOG_2PI
-    new = torch.stack((x_new, lse_new, lsn_new), dim=1)
+    new = torch.stack((x_new, lse_new, lsn_new), dim=1, out=None if out is None else out[0])
     if not normalize:
-        return new, logw
+        return new, (logw if out is None else out[1].copy_(logw))
     mx = torch.amax(logw, dim=-1, keepdim=True)
     e = torch.exp(logw - mx)
     s = torch.sum(e, dim=-1, keepdim=True)
     row_lse = mx + torch.log(s)
-    return new, logw - row_lse, row_lse, (s * s) / torch.sum(e * e, dim=-1, keepdim=True)
+    log_norm = torch.sub(logw, row_lse, out=None if out is None else out[1])
+    return new, log_norm, row_lse, (s * s) / torch.sum(e * e, dim=-1, keepdim=True)
 
 
 def _check(y, gamma_eps, gamma_eta, cloud, draws, draws_name, draws_dtype):
@@ -75,7 +77,8 @@ def _check(y, gamma_eps, gamma_eta, cloud, draws, draws_name, draws_dtype):
 
 
 def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: int = 0,
-                            normalize: bool = False, normals=None, particle_offset: int = 0):
+                            normalize: bool = False, normals=None, particle_offset: int = 0,
+                            out=None):
     """One fused UC-SV propagate + reweight step for all (M, N) particles.
 
     Args:
@@ -92,18 +95,23 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
         p..p+N of every row draws what those columns of the whole-row call
         draw, and its new cloud and raw log-weights are those columns' bit
         for bit.
+      out: optional (new cloud (M, 3, N), logw or log_norm (M, N)),
+        contiguous f32, written in place with the bits the call would
+        return (the buffers a CUDA graph reads and writes).
 
     Returns (new cloud (M, 3, N), logw (M, N)), or with ``normalize``
     (new cloud, log_norm (M, N), lse (M, 1), ess (M, 1)). CUDA launches are
     counted in ``ucsv_propagate_reweight.launches``.
     """
+    check_out(out, cloud)
     if cloud.device.type == "cpu":
         if normals is None:
             raise ValueError("on the CPU the plain version takes injected normals")
         _check(y, gamma_eps, gamma_eta, cloud, normals, "normals", torch.float32)
         if tuple(normals.shape) != (3,) + tuple(cloud.shape[::2]):
             raise ValueError(f"normals must be (3, M, N), got {tuple(normals.shape)}")
-        return ucsv_propagate_reweight_plain(y, gamma_eps, gamma_eta, cloud, normals, normalize)
+        return ucsv_propagate_reweight_plain(y, gamma_eps, gamma_eta, cloud, normals, normalize,
+                                             out)
     if cloud.device.type != "cuda":
         raise ValueError(f"no kernel for device {cloud.device}")
     if seed is None:
@@ -112,8 +120,11 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
     m, _, n = cloud.shape
     if particle_offset < 0:
         raise ValueError(f"particle_offset must be ≥ 0, got {particle_offset}")
-    new = torch.empty((m, 3, n), device=cloud.device, dtype=torch.float32)
-    logw = torch.empty((m, n), device=cloud.device, dtype=torch.float32)
+    if out is None:
+        new = torch.empty((m, 3, n), device=cloud.device, dtype=torch.float32)
+        logw = torch.empty((m, n), device=cloud.device, dtype=torch.float32)
+    else:
+        new, logw = out
     lse = torch.empty((m, 1), device=cloud.device, dtype=torch.float32) if normalize else None
     ess = torch.empty((m, 1), device=cloud.device, dtype=torch.float32) if normalize else None
     lib = _build.library()
@@ -131,4 +142,4 @@ def ucsv_propagate_reweight(seed, y, gamma_eps, gamma_eta, cloud, row_offset: in
     return (new, logw, lse, ess) if normalize else (new, logw)
 
 
-ucsv_propagate_reweight.launches = 0
+_build.launch_counter(ucsv_propagate_reweight)

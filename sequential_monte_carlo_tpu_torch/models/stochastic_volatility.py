@@ -70,19 +70,20 @@ class StochasticVolatilityModel:
 
     def fused_propagate_reweight(self, y, cloud, seed=None, normals=None,
                                  carry_logw=None, params=None, normalize=True,
-                                 row_offset: int = 0, particle_offset: int = 0):
+                                 row_offset: int = 0, particle_offset: int = 0, out=None):
         """Propagate + reweight (+ normalize) the θ-cloud's (M, 1, N) planar
         cloud through kernel 2. Returns (new cloud, log_norm (M, N),
         lse (M, 1), ess (M, 1)), or with ``normalize=False`` (new cloud,
         logw (M, N)). ``row_offset``, ``particle_offset``: the global index
         of row 0 and of particle 0 in the kernel's draws (θ- and
-        particle-axis sharding)."""
+        particle-axis sharding). ``out``: the (new cloud, log-weights)
+        buffers to write (the kernel's ``out=``)."""
         if params is None:
             params = self.fused_params()
         return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
                                       normals=normals, row_offset=row_offset,
                                       carry_logw=carry_logw, normalize=normalize,
-                                      particle_offset=particle_offset)
+                                      particle_offset=particle_offset, out=out)
 
 
 def stochastic_volatility(mu=-1.0, phi=0.95, sigma=0.3, device="cuda"):

@@ -87,25 +87,28 @@ class UCSVModel:
 
     def fused_propagate_reweight(self, y, cloud, seed=None, normals=None,
                                  carry_logw=None, params=None, normalize=True,
-                                 row_offset: int = 0, particle_offset: int = 0):
+                                 row_offset: int = 0, particle_offset: int = 0, out=None):
         """Propagate + reweight the θ-cloud's (M, 3, N) planar cloud. With
         ``normalize`` (kernel 2) returns (new cloud, log_norm (M, N),
         lse (M, 1), ess (M, 1)); without (the UC-SV kernel, which takes no
         carried log-weights) returns (new cloud, logw (M, N)). ``row_offset``,
         ``particle_offset``: the global index of row 0 and of particle 0 in
         the kernels' draws (θ- and particle-axis sharding); the injected
-        normals of the plain versions are already those rows' and particles'."""
+        normals of the plain versions are already those rows' and particles'.
+        ``out``: the (new cloud, log-weights) buffers to write (the
+        kernels' ``out=``)."""
         if params is None:
             params = self.fused_params()
         if normalize:
             return fused_elementwise_step(self.update, params, cloud, y, seed=seed,
                                           normals=normals, row_offset=row_offset,
-                                          carry_logw=carry_logw, particle_offset=particle_offset)
+                                          carry_logw=carry_logw, particle_offset=particle_offset,
+                                          out=out)
         if carry_logw is not None:
             raise ValueError("carry_logw requires normalize=True")
         return ucsv_propagate_reweight(seed, y, params[:, 0], params[:, 1], cloud,
                                        row_offset=row_offset, normals=normals,
-                                       particle_offset=particle_offset)
+                                       particle_offset=particle_offset, out=out)
 
 
 def unobserved_components_stochastic_volatility(x0, gamma_eps, gamma_eta, log_sigma_eps,

@@ -101,6 +101,12 @@ per particle, its particles. A step:
   log-weights more through the collective a step than a combine of per-rank
   partials would move, and each rank of the group normalizes the whole rows.
 
+The masked filter (:func:`batched_log_likelihood_masked`, the samplers'
+inner loop) replays its steps on the card from CUDA graphs where the route
+is captured (:mod:`.graphs`: the port's form of the JAX package's jitted
+masked scan); its eager loop runs everywhere else and inside
+:func:`.graphs.disable_graphs`. Both give the same bits.
+
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
 the CPU the normals themselves, from an explicit ``torch.Generator``; the
@@ -110,6 +116,7 @@ generator there.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -118,6 +125,7 @@ import torch
 from ..kernels.propagate import normalize_rows
 from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniforms
 from ..kernels.resample_walk import resample_gather
+from . import graphs
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf, _residual_from_uniforms, get_resampler, metropolis
 from .sharding import (
@@ -194,7 +202,7 @@ def _mine(x, rows, cols):
     return local_cols(local_rows(x, rows, 1), cols, 0)
 
 
-def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=None):
+def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=None, out=None):
     """Propagate + reweight the (M, dx, N) cloud without the normalize:
     (new cloud (M, dx, N), log g(y | x′) (M, N)). Through the model's kernel
     (``draws`` its Philox seed or normals, :func:`_draws`), or, for a model
@@ -203,11 +211,13 @@ def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=Non
     draw (``draws`` the generator) — the JAX package's unfused route. With
     ``rows`` (θ-sharding), ``models`` is the whole bank, the cloud and
     ``params`` this rank's rows; with ``cols`` (particle sharding), the cloud
-    is this rank's particles of them."""
+    is this rank's particles of them. ``out``: (new cloud, log-weights)
+    buffers that the model's kernel writes (the captured step's,
+    :mod:`.graphs`)."""
     local = local_model(models, rows)
     if _has_kernel(models):
         return local.fused_propagate_reweight(y, cloud, params=params, normalize=False,
-                                              **_propagate_draws(draws, rows, cols))
+                                              out=out, **_propagate_draws(draws, rows, cols))
     states = cloud.permute(2, 0, 1)
     if rows is None and cols is None:
         x_new = models.transition_distribution(states).sample(draws)
@@ -283,13 +293,14 @@ def _cols(config: PFConfig, n_local: int):
     return particle_cols(config.mesh, n_local * particle_shards(config.mesh))
 
 
-def _log_normalize(log_w, cols, log_n: float | None = None):
+def _log_normalize(log_w, cols, log_n: float | None = None, out=None):
     """``log_normalize`` along the particles; under particle sharding, of
     the whole rows gathered from the particle group, with this rank's window
     of the normalized log-weights (``log_n`` replaces log N, N the whole
-    row's)."""
+    row's; ``out``, without particle sharding, a buffer for the normalized
+    log-weights)."""
     if cols is None:
-        return log_normalize(log_w, log_n=log_n)
+        return log_normalize(log_w, log_n=log_n, out=out)
     log_mean, log_norm, ess = log_normalize(all_gather_cols(log_w, cols), log_n=log_n)
     return log_mean, local_cols(log_norm, cols).contiguous(), ess
 
@@ -437,7 +448,7 @@ def _guided_increment(models, q, xp, x_new, y) -> torch.Tensor:
 
 
 def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
-                        config: PFConfig = PFConfig(), params=None, active_n=None):
+                        config: PFConfig = PFConfig(), params=None, active_n=None, out=None):
     """Deterministic core of :func:`batched_pf_step`, from its draws
     (:func:`_draws`): the resample + gather, the adaptive per-row selects
     when ``config.ess_threshold < 1``, then the propagate — the fused kernel
@@ -448,7 +459,9 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     rank's rows of them under θ-sharding, where ``models`` is the whole
     bank; ``active_n`` the elastic live count. Under particle sharding the
     particles and log-weights are the rank's slice of its rows, and u and
-    the normals as :func:`_draws` keeps them."""
+    the normals as :func:`_draws` keeps them. ``out``: on the routes the
+    masked filter captures (the fused kernel, no mesh), the (M, dx, N) cloud
+    and (M, N) log-weight buffers that the kernel writes in place."""
     rows = _rows(config, particles.shape[0])
     cols = _cols(config, particles.shape[1])
     n = particles.shape[1] if cols is None else cols.n
@@ -478,7 +491,7 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         local, draws = local_model(models, rows), _propagate_draws(seed_or_normals, rows, cols)
         if cols is None:
             new, log_norm, lse, ess = local.fused_propagate_reweight(
-                y, xp, carry_logw=carry, params=params, **draws)
+                y, xp, carry_logw=carry, params=params, out=out, **draws)
         else:  # the slice's raw log-weights, normalized as whole rows
             new, logw = local.fused_propagate_reweight(y, xp, params=params, normalize=False,
                                                        **draws)
@@ -514,14 +527,16 @@ def apf_lookahead(models, particles, y) -> torch.Tensor:
 
 
 def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
-                         config: PFConfig = PFConfig(), params=None):
+                         config: PFConfig = PFConfig(), params=None, out=None):
     """Deterministic core of the auxiliary particle filter's step (the
     draws as in :func:`_pf_step_from_draws`): the lookahead, one resample
     launch on the (M, dx + 1, N) cloud with the lookahead plane, the model's
     step without the normalize on the split-off planes (a strided view, not
     copied), then the correction and the normalize. Under particle sharding
     the rows' whole clouds, with the lookahead plane, and their λ come in one
-    gather, and λ is normalized over whole rows."""
+    gather, and λ is normalized over whole rows. ``out``: as
+    :func:`_pf_step_from_draws`'s, written by the kernel and the normalize
+    (the log-weight buffer holds the raw increment before it)."""
     dx = particles.shape[2]
     rows = _rows(config, particles.shape[0])
     cols = _cols(config, particles.shape[1])
@@ -534,14 +549,15 @@ def _apf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     lam_mean, lam_norm, _ = log_normalize(lam)
     gathered = _resample_gather(u, config, aug, torch.exp(lam_norm), rows=rows, cols=cols)
     new, incr = propagate_reweight(models, y, gathered[:, :dx], seed_or_normals, params, rows,
-                                   cols)
-    corr_mean, log_norm, ess = _log_normalize(incr - gathered[:, dx], cols)
+                                   cols, out=out)
+    corr_mean, log_norm, ess = _log_normalize(incr - gathered[:, dx], cols,
+                                              out=None if out is None else out[1])
     return BatchedPFOut(from_cloud(new), log_norm, lam_mean + log_n + corr_mean, ess)
 
 
 def batched_pf_step(generator, models, particles, log_w, y,
                     config: PFConfig = PFConfig(), params=None,
-                    active_n=None) -> BatchedPFOut:
+                    active_n=None, out=None) -> BatchedPFOut:
     """One filter step for all M clouds: resample (every row, or the rows
     whose ESS fell below ``config.ess_threshold``·N), propagate, reweight by
     y and normalize — or, with ``config.algorithm == "apf"``, the auxiliary
@@ -550,7 +566,11 @@ def batched_pf_step(generator, models, particles, log_w, y,
     elastic live count (slots past it are dead, at log-weight −inf). With
     ``config.mesh``, ``models`` and ``params`` are the whole M-row bank's
     and the particles and log-weights this rank's rows (and, on a mesh that
-    shards particles, its slice of each)."""
+    shards particles, its slice of each). ``out``: on the routes
+    :func:`captures` names, the (M, dx, N) cloud and (M, N) log-weight
+    buffers that the step writes its particles and log-weights into (a
+    captured step's, :mod:`.graphs`): the kernels write them in place, so
+    no step copies the cloud."""
     m, n, _ = particles.shape
     active_n = _active(active_n)
     rows, cols = _rows(config, m), _cols(config, n)
@@ -562,17 +582,35 @@ def batched_pf_step(generator, models, particles, log_w, y,
     _check_config(config, n, active_n)
     u, rest = _draws(generator, models, m, n, particles.device, config, active_n, rows, cols)
     if config.algorithm == "apf":
-        return _apf_step_from_draws(u, rest, models, particles, log_w, y, config, params)
-    return _pf_step_from_draws(u, rest, models, particles, log_w, y, config, params, active_n)
+        return _apf_step_from_draws(u, rest, models, particles, log_w, y, config, params, out)
+    return _pf_step_from_draws(u, rest, models, particles, log_w, y, config, params, active_n,
+                               out)
+
+
+def captures(models, config: PFConfig, active_n, device) -> bool:
+    """Whether :func:`batched_log_likelihood_masked` replays captured steps
+    (:mod:`.graphs`) for this run: on a CUDA device, outside
+    :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
+    captured), no proposal, no ``active_n``, a model with a fused kernel
+    whose fields are all tensors, and resampling by offsets (K1) or on a
+    stratified grid (K3). Every other route runs the eager loop."""
+    return (graphs.enabled() and device.type == "cuda" and config.mesh is None
+            and config.proposal is None and active_n is None and _has_kernel(models)
+            and config.resampling in _OFFSET_SCHEMES + ("stratified",)
+            and all(isinstance(getattr(models, f.name), torch.Tensor)
+                    for f in dataclasses.fields(models)))
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
                                   config: PFConfig = PFConfig(), active_n=None):
     """Log-likelihood of the observations y[t] with mask[t] > 0 for all M θ —
     the rejuvenation inner loop. Initializes at y[0] and steps only at the
-    live times t ≥ 1 (a Python loop over them, where the JAX package runs a
-    masked scan over all T). ``mask`` is read on the host; the model's
-    kernel parameters are packed once, outside the loop.
+    live times t ≥ 1, where the JAX package runs a jitted masked scan over
+    all T: on the card, on the routes :func:`captures` names, by
+    replaying one captured CUDA graph a live time (:mod:`.graphs`; eager
+    inside :func:`.graphs.disable_graphs`), else by a Python loop over them.
+    ``mask`` is read on the host; the model's kernel parameters are packed
+    once, outside the loop.
 
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,)), this rank's
     rows of them (and its particles of each) under ``config.mesh``."""
@@ -580,6 +618,8 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
     params = kernel_params(models, config)
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
+    if live.numel() and captures(models, config, active_n, particles.device):
+        return graphs.filter_live(generator, models, init, params, y, live, config)
     for t in live.tolist():
         out = batched_pf_step(generator, models, particles, log_w, y[t], config,
                               params, active_n)

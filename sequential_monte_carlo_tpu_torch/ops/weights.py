@@ -37,18 +37,19 @@ def normalize(log_w: torch.Tensor, dim: int = -1) -> Normalized:
 reweight = normalize
 
 
-def log_normalize(log_w: torch.Tensor, dim: int = -1, log_n: float | None = None):
+def log_normalize(log_w: torch.Tensor, dim: int = -1, log_n: float | None = None, out=None):
     """Return (log_mean, normalized log-weights, ess) along ``dim``:
     log_mean = max + log Σ exp(w − max) − log N, ess = 1 / Σ w². ``log_n``
     replaces log N (the elastic filter's log active_n, or 0 where the
-    weights already carry the 1/N)."""
+    weights already carry the 1/N). ``out``: a tensor that the normalized
+    log-weights are written into."""
     if log_n is None:
         log_n = math.log(log_w.shape[dim])
     maxw = torch.amax(log_w, dim=dim, keepdim=True)
     maxw = torch.where(torch.isfinite(maxw), maxw, 0.0)
     shifted = log_w - maxw
     lse = torch.log(torch.sum(torch.exp(shifted), dim=dim, keepdim=True))
-    log_norm = shifted - lse
+    log_norm = torch.sub(shifted, lse, out=out)
     log_mean = torch.squeeze(maxw + lse, dim) - log_n
     ess = 1.0 / torch.sum(torch.exp(2.0 * log_norm), dim=dim)
     return log_mean, log_norm, ess

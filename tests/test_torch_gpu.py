@@ -945,3 +945,159 @@ def test_ucsv_kernel_takes_any_particle_slice(cuda, offset, width, layout):
     assert torch.equal(norm[0], new)
     with pytest.raises(ValueError, match="particle_offset"):
         ucsv_propagate_reweight(seed, y, gam[:, 0], gam[:, 1], part, particle_offset=-1)
+
+
+# -- the masked filter's captured steps (ops/graphs.py) -----------------------
+
+def _launch_counts():
+    return (resample_gather.launches, resample_gather_sorted.launches,
+            ucsv_propagate_reweight.launches, dict(fused_elementwise_step.instance_launches))
+
+
+def _graph_bank(kind, m, seed, cuda):
+    """An m-row UC-SV or LG θ bank drawn with numpy, on the card."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    rng = np.random.default_rng(seed)
+    if kind == "ucsv":
+        theta = np.c_[rng.uniform(0.1, 0.4, m), rng.normal(3.0, 0.5, m),
+                      rng.normal(-1.0, 0.3, m), rng.normal(-1.0, 0.3, m)]
+        return smc.ucsv_model(torch.tensor(theta, dtype=torch.float32, device=cuda))
+    theta = np.c_[rng.uniform(0.3, 0.9, m), rng.uniform(0.5, 1.0, m), rng.uniform(0.5, 1.0, m)]
+    return smc.lg_model(torch.tensor(theta, dtype=torch.float32, device=cuda))
+
+
+def _masked_run(seed, models, m, n, y, mask, inner, cuda):
+    """One masked filter of m rows from ``seed``: (its outputs, the
+    launches it counted, the generator's state after it)."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    before = _launch_counts()
+    out = smc.batched_log_likelihood_masked(gen, models, n, m, y, mask, smc.PFConfig(*inner))
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    counts = tuple(a - b for a, b in zip(after[:3], before[:3])) + (
+        {k: v - before[3].get(k, 0) for k, v in after[3].items() if v != before[3].get(k, 0)},)
+    return out, counts, gen.get_state()
+
+
+def _series_on(cuda, t):
+    rng = np.random.default_rng(1998)
+    return torch.tensor(3.0 + np.cumsum(rng.normal(0, 0.3, t)) + rng.normal(0, 0.5, t),
+                        dtype=torch.float32, device=cuda)
+
+
+def test_kernel_wrappers_write_out_on_the_card(cuda):
+    """Every kernel wrapper with ``out=`` writes its allocating launch's
+    bits into the given buffers (K1, K3, K2 normalized with a carry and
+    raw, K6 raw and normalized on the APF's strided view), at 512×1024."""
+    rng = np.random.default_rng(31)
+    m, n = 512, 1024
+    w = torch.tensor(rng.gamma(0.5, size=(m, n)), dtype=torch.float32, device=cuda)
+    xs = torch.tensor(rng.normal(size=(m, 3, n)), dtype=torch.float32, device=cuda)
+    u0 = torch.rand((m, 1), device=cuda)
+    u = stratified_uniforms(torch.Generator(device=cuda).manual_seed(0), m, n)
+    for fn, args in ((resample_gather, (u0, w, xs)), (resample_gather_sorted, (u, w, xs))):
+        buf = torch.full_like(xs, float("nan"))
+        assert fn(*args, out=buf) is buf and torch.equal(buf, fn(*args))
+    seed, y = torch.tensor([12345], device=cuda), torch.tensor(3.0, device=cuda)
+    params = torch.tensor(rng.uniform(0.1, 0.3, size=(m, 2)), dtype=torch.float32, device=cuda)
+    carry = torch.log(w / w.sum(1, keepdim=True))
+    aug = torch.tensor(rng.normal(size=(m, 4, n)), dtype=torch.float32, device=cuda)
+    calls = [lambda out=None: fused_elementwise_step(UCSV_UPDATE, params, xs, y, seed=seed,
+                                                     carry_logw=carry, out=out),
+             lambda out=None: fused_elementwise_step(UCSV_UPDATE, params, xs, y, seed=seed,
+                                                     normalize=False, out=out)]
+    calls += [lambda out=None, norm=norm: ucsv_propagate_reweight(
+        seed, y, params[:, 0], params[:, 1], aug[:, :3], normalize=norm, out=out)
+        for norm in (False, True)]
+    for call in calls:
+        ref = call()
+        out = (torch.full_like(xs, float("nan")), torch.full_like(w, float("nan")))
+        got = call(out=out)
+        assert got[0] is out[0] and got[1] is out[1]
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind, inner, n", [
+    ("ucsv", ("systematic", 1.0), 1024), ("ucsv", ("systematic", 1.0), 8192),
+    ("lg", ("stratified", 0.5), 1024), ("ucsv", ("systematic", 1.0, None, "apf"), 1024),
+    ("lg", ("systematic", 1.0, None, "apf"), 1024)])
+def test_graph_replays_equal_eager(cuda, kind, inner, n):
+    """Each captured route at 512 rows (UC-SV also at N=8192): the masked
+    filter replayed from its graphs equals the eager loop under
+    ``disable_graphs`` bit for bit — particles, log-weights, log Z and the
+    generator's state after it — with the same launch counts, for the first
+    bank (warm-up step, capture, replays) and for a second bank replayed
+    through the same graphs (the copy-in)."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    smc.clear_graphs()
+    y = _series_on(cuda, 100)
+    mask = torch.arange(100) < 80
+    banks = [_graph_bank(kind, 512, seed, cuda) for seed in (0, 1)]
+    with smc.disable_graphs():
+        ref = [_masked_run(s, bank, 512, n, y, mask, inner, cuda) for s, bank in enumerate(banks)]
+    got = [_masked_run(s, bank, 512, n, y, mask, inner, cuda) for s, bank in enumerate(banks)]
+    assert len(graphs._cache) == 1
+    for (out, counts, state), (ref_out, ref_counts, ref_state) in zip(got, ref):
+        for a, b in zip(out, ref_out):
+            assert torch.equal(a, b)
+        assert counts == ref_counts and sum(counts[:3]) + sum(counts[3].values()) == 2 * 79
+        assert torch.equal(state, ref_state)
+    assert not torch.equal(got[0][0][2], got[1][0][2])
+    smc.clear_graphs()
+
+
+@pytest.mark.parametrize("route", ["guided", "dsl", "metropolis"])
+def test_uncaptured_routes_run_eagerly(cuda, route):
+    """A guided proposal, a DSL model and the metropolis resampler keep the
+    eager loop on the card: nothing is captured, and the run equals the one
+    under ``disable_graphs`` bit for bit with the same launch counts."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    smc.clear_graphs()
+    y = _series_on(cuda, 40)
+    mask = torch.ones(40)
+    bank = _dsl_ucsv(64, cuda) if route == "dsl" else _graph_bank("ucsv", 64, 0, cuda)
+    inner = {"guided": ("systematic", 1.0, smc.Proposal(
+        initial=lambda mm: mm.initial_distribution(),
+        step=lambda mm, xp: mm.transition_distribution(xp))),
+        "dsl": ("systematic", 1.0), "metropolis": ("metropolis", 1.0)}[route]
+    with smc.disable_graphs():
+        ref = _masked_run(0, bank, 64, 1024, y, mask, inner, cuda)
+    got = _masked_run(0, bank, 64, 1024, y, mask, inner, cuda)
+    assert not graphs._cache
+    for a, b in zip(got[0], ref[0]):
+        assert torch.equal(a, b)
+    assert got[1] == ref[1] and torch.equal(got[2], ref[2])
+
+
+def test_host_sync_in_a_captured_step_raises(cuda, monkeypatch):
+    """A host read put into the captured step makes the capture raise (it
+    is captured with capture_error_mode="global"); nothing runs the eager
+    loop in its place, and no graph is kept."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops import batched_filter, graphs
+
+    smc.clear_graphs()
+    step = batched_filter._pf_step_from_draws
+
+    def synced(*args, **kwargs):
+        out = step(*args, **kwargs)
+        out.log_mean.sum().item()
+        return out
+
+    monkeypatch.setattr(batched_filter, "_pf_step_from_draws", synced)
+    with pytest.raises(RuntimeError):
+        smc.batched_log_likelihood(torch.Generator(device=cuda).manual_seed(0),
+                                   _graph_bank("ucsv", 64, 0, cuda), 1024, 64,
+                                   _series_on(cuda, 20), smc.PFConfig())
+    assert not graphs._cache
+    monkeypatch.undo()
+    smc.clear_graphs()
+    torch.cuda.synchronize()

@@ -19,15 +19,19 @@ without figures (UC 512 × 1024 chain 3, UC-SV 512 × 8192 chain 5, each with
 its filter at θ̂, FFBS and posterior mixture) — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
-(Σ device time / wall-clock) and the host's CPU time. Prints one JSON line
-per cell and writes them all to ``--out``; ``--cells`` picks cells by name.
-Needs a CUDA device.
+(Σ device time / wall-clock), the host's CPU time and the unprofiled run's
+peak of allocated device memory. Each cell runs ``graphed`` (the default
+path: the masked filter replays its captured CUDA graphs where its route is
+captured, ``ops/graphs.py``), then ``eager`` (inside ``disable_graphs()``).
+Prints one JSON line per cell and mode and writes them all to ``--out``;
+``--cells`` picks cells by name. Needs a CUDA device.
 
     python3 tools/profile_port.py --cells smc2_ucsv_512x8192   # the flagship
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -124,10 +128,12 @@ def _profile(torch, fn, seed: int) -> dict:
 
     fn(seed)  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fn(seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     cs.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -148,7 +154,8 @@ def _profile(torch, fn, seed: int) -> dict:
     coll_us = sum(r[1] for r in device if r[0].startswith(("nccl", "gloo:")))
     device_us = sum(r[1] for r in device) - coll_us
     return {
-        "wall_s": wall, "wall_profiled_s": wall_prof, "device_s": device_us / 1e6,
+        "wall_s": wall, "wall_profiled_s": wall_prof, "peak_allocated_mb": peak_mb,
+        "device_s": device_us / 1e6,
         "collective_device_s": coll_us / 1e6,
         "device_calls": sum(r[2] for r in device),
         "device_busy": device_us / 1e6 / wall_prof,
@@ -169,6 +176,7 @@ def main() -> int:
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: no CUDA device")
+    import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.kernels import _build
 
     _build.library()
@@ -183,9 +191,11 @@ def main() -> int:
     for name, fn in cells.items():
         if args.cells and name not in args.cells:
             continue
-        row = {"cell": name, "card": smi, **_profile(torch, fn, 0)}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        for mode in ("graphed", "eager"):
+            with smc.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                row = {"cell": name, "mode": mode, "card": smi, **_profile(torch, fn, 0)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rows, f, indent=1)
