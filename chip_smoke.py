@@ -201,28 +201,40 @@ Phases, one line each or more; any failure raises and exits non-zero:
      posterior against JAX_MEAN; (d) phase 13's UC-SV APF SMC² at 512×1000
      on (1, 2) over its first P_STEPS observations, bit for bit the
      one-process run.
- 30. graphs — the masked filter's captured steps (``ops/graphs.py``; every
-     phase above replays them where its route is captured: no mesh, no
-     proposal, no active_n, a model with a kernel, systematic or stratified,
-     bootstrap or APF) against its eager loop under ``disable_graphs()``
-     from the same seeds: the slice's SMC² at 512×1024 and 512×8192 (θ,
-     log Z, log ω, particles, log-weights and every StepInfo bit for bit),
-     the dt phase's runs (a) and (b), phase 13's UC-SV APF SMC² over its
-     first GRAPH_APF_T observations, and the per-θ LG filter at 1×1024
-     (PER_THETA_SEEDS runs); launch counts equal between the two and to
-     each schedule; walls (the better of two warm runs each, taken in
+ 30. graphs — the compiled loops (``ops/graphs.py``; every phase above
+     replays them where its route is captured: no mesh, no proposal, no
+     active_n, a model with a kernel, systematic or stratified, bootstrap or
+     APF): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
+     step (one replay and one flag read a step), filter_sequence and the
+     forward bank (store routes), each against its eager loop under
+     ``disable_graphs()`` from the same seeds: the slice's SMC² at 512×1024
+     and 512×8192 (θ, log Z, log ω, particles, log-weights and every
+     StepInfo bit for bit), the dt phase's runs (a) and (b), phase 13's
+     UC-SV APF SMC² over its first GRAPH_APF_T observations, the per-θ LG
+     filter at 1×1024 (PER_THETA_SEEDS runs), run_segmented with the
+     inflation example's collector (UC 512×1024, chain 3; its series too),
+     filter_sequence with a quantile summary, FFBS's forward pass
+     (forward_clouds) at 1×8192 and the posterior mixture's 8×8192 bank
+     from phase 7's flagship state; launch counts equal between the two and
+     to each schedule; walls (the better of two warm runs each, taken in
      turns), wall per inner step, the device's busy share (one profiled run
-     each of the SMC² cells, DT (b) and the APF, which between them run K1,
-     K3, K2 and K6: the profiler's events of each kernel must number as its
-     launch counter counts) and peak memory (allocated; the graphs' pool
-     beside it); and a replayed step's wall split into the host's issue and
-     the device's run.
+     each of every cell but DT (a) and the per-θ filter: the profiler's
+     events of K1, K3, K2 and K6 must number as their launch counters
+     count) and peak memory (allocated; the graphs' pool beside it); the
+     slice's graphed SMC² at 512×1024 under the profiler with the host's
+     activity, whose graph launches must be one an online step plus each
+     rejuvenation's masked filters' ⌊(t−1)/S⌋ + (t−1) mod S, and whose host
+     syncs one an online step plus a rejuvenation's own; and a replayed
+     filter's wall split into its fixed cost and its cost a step, at S
+     steps a launch and at one, and into the host's issue and the device's
+     run.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -3474,7 +3486,84 @@ def check_animations(torch):
 
 
 GRAPH_APF_T = 60  # phase 30's APF SMC² cut, as phase 28's and 29's (phase 13 runs the whole T)
-REPLAY_T = 41  # 40 replays: under a thousand queued launches even counted a graph node each
+REPLAY_T = 41  # replay_split's short filter: 40 steps, beside the whole T
+
+
+# A profiled run's trace is whole only where the profiler took in both of
+# its ends. On an NVIDIA H100 80GB HBM3 at 700 W, a window closed at once
+# lost its tail (the last 200–600 of 60,400 device events) in 6 of 16
+# profiled runs of phase 30's APF cell, and in none of 40 that waited 50 ms
+# after it or ran one more kernel; inside the whole script, a window that
+# waited 50 ms still lost 35 steps' kernels once. The head can go too: in
+# some processes a trace drops its first device events, however long the
+# window waited before them (the lone marker of an empty run, 3 traces in a
+# row on one card; on another, all 4 marker kernels that ran 0.2–1.6 s
+# after the window opened in about half of phase 30's traces, and 2–3 of
+# the 4 in most others, while the run's own events after them were all
+# there), in other processes none in 32 traces; with 64 such markers, a
+# process's traces lost 0, 1, 2, … and from its eighth on 8–10 of them.
+# So a window opens with a wait of PROFILE_SETTLE_S and HEAD_PADS long
+# marker kernels (torch.cuda._sleep: ``spin_kernel``), which a trace may
+# lose, and closes with a short marker and the wait; a trace that lost its
+# short marker or every long one is taken again with the wait doubled, up
+# to PROFILE_ATTEMPTS traces in all. A trace kept is held exactly: it is no
+# use to count a trace that lost an end.
+PROFILE_SETTLE_S = 0.2
+PROFILE_ATTEMPTS = 4
+HEAD_PADS = 256
+MARKER = "spin_kernel"
+HEAD_PAD_CYCLES = 200_000  # ≥ 0.1 ms at the card's 1980 MHz; the short marker's 1000, < 1 µs
+RUN_SPAN = "chip_smoke.profiled_run"  # the annotation round the run inside the window
+
+
+def _trace_ends(prof) -> dict:
+    """What a trace kept of its ends: how many of the long head markers and
+    of the short tail marker (the two told apart by their durations), and
+    where its first and last device events lie, in ms from its start."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    start = results.trace_start_ns()
+    kernels = sorted((e for e in results.events() if e.device_type() == DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+    markers = [e.duration_ns() for e in kernels if MARKER in e.name()]
+    long = sum(d >= 20_000 for d in markers)
+    return {"head_pads": long, "tail_markers": len(markers) - long,
+            "device_events": len(kernels),
+            "first_ms": round((kernels[0].start_ns() - start) / 1e6, 3) if kernels else None,
+            "last_ms": round((kernels[-1].start_ns() - start) / 1e6, 3) if kernels else None}
+
+
+def _profiled(torch, activities, fn):
+    """(fn()'s result, its wall, the profiler, what the trace kept of its
+    ends with the traces taken) of a run traced whole (see
+    PROFILE_SETTLE_S). The run lies inside a RUN_SPAN annotation; the
+    window's own synchronizes and markers lie outside it; the wall is the
+    run's, to the device's end."""
+    from torch.profiler import profile, record_function
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        settle = PROFILE_SETTLE_S * 2 ** (attempt - 1)
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(settle)
+            for _ in range(HEAD_PADS):
+                torch.cuda._sleep(HEAD_PAD_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function(RUN_SPAN):
+                out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(settle)
+        ends = _trace_ends(prof)
+        if ends["tail_markers"] == 1 and ends["head_pads"] > 0:
+            kept = {"traces": attempt, "head_pads_lost": HEAD_PADS - ends["head_pads"]}
+            return out, wall, prof, kept
+        say("graphs", profile_end_lost=attempt, settle_s=settle, **ends)
+    raise AssertionError(f"graphs: {PROFILE_ATTEMPTS} traces in a row lost an end")
 
 
 # The device kernels each launch counter's wrapper launches, by their names
@@ -3493,18 +3582,15 @@ def _busy(torch, label: str, fn) -> dict:
     activity only (the host's ops would slow the trace's parsing). Fails
     unless the profiler saw each kernel (KERNEL_EVENTS) run as many times
     as its counter counted: a count that no launch backs, or a launch that
-    no counter counts, whether eager or from a graph's replay."""
+    no counter counts, whether eager or from a graph's replay. The trace is
+    taken whole (:func:`_profiled`); the markers are left out of its numbers."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        counts = fn()[2]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    out, wall, prof, kept = _profiled(torch, [ProfilerActivity.CUDA], fn)
+    counts = out[2]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and MARKER not in e.key]
     seen = {k: sum(e.count for e in events
                    if any(e.key == name or f"{name}<" in e.key for name in names))
             for k, names in KERNEL_EVENTS.items()}
@@ -3516,7 +3602,7 @@ def _busy(torch, label: str, fn) -> dict:
     device_s = sum(e.self_device_time_total for e in events) / 1e6
     return {"profiled_wall_s": round(wall, 4), "device_s": round(device_s, 4),
             "device_events": sum(e.count for e in events), "kernel_events": seen,
-            "busy": round(device_s / wall, 4)}
+            "busy": round(device_s / wall, 4), **kept}
 
 
 def _graph_pool_mb(torch) -> float:
@@ -3526,9 +3612,10 @@ def _graph_pool_mb(torch) -> float:
                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 2**20
 
 
-def check_graphs(torch):
-    """Phase 30 (see the module's docstring). Returns the runs' launch
-    counts."""
+def check_graphs(torch, flagship):
+    """Phase 30 (see the module's docstring); ``flagship``, the 512×8192
+    SMC² state of phase 7 (the posterior mixture's θ-cloud). Returns the
+    runs' launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
 
     total = None
@@ -3655,45 +3742,203 @@ def check_graphs(torch):
     rows["per_theta"] = paired("per_theta lg 1x1024", run_per_theta, per_theta_same,
                                lambda out: {"resample_count": steps, "fused_propagate_lg1": steps},
                                lambda out: steps)
+
+    # run_segmented with the inflation example's collector, UC 512×1024
+    import tempfile
+
+    from sequential_monte_carlo_tpu_torch.examples import inflation as ex
+
+    outdir = tempfile.mkdtemp(prefix="smc_graphs_")
+    y_pce = ex.load_pce("cuda")[1]
+    n_uc, m_uc, chain_uc = ex.FULL_SIZES["uc"]
+
+    def run_inflation():
+        out, _, counts = _counted(torch, lambda: ex.run_online(
+            "uc", smc.uc_model, ex.uc_prior("cuda"), y_pce, n_uc, m_uc, chain_uc, outdir,
+            figures=False))
+        return out, out["wall_s"], counts
+
+    def inflation_same(a, b):
+        same = bitwise(a["state"], b["state"], state_fields)
+        same.update({f"info_{k}": bool(torch.equal(getattr(a["infos"], k), getattr(b["infos"], k)))
+                     for k in a["infos"]._fields})
+        same.update({k: bool(np.array_equal(a[k], b[k])) for k in ("xq", "cq", "var")})
+        return same
+
+    def inflation_steps(out):
+        return _schedule(out["infos"], chain_uc, [])
+
+    rows["inflation_uc"] = paired(
+        f"run_segmented uc {m_uc}x{n_uc}, inflation collector", run_inflation, inflation_same,
+        lambda out: {"resample_count": inflation_steps(out),
+                     "fused_propagate_lg1": inflation_steps(out)}, inflation_steps, profile=True)
+
+    # filter_sequence (quantile summary), FFBS's forward pass, the posterior
+    # mixture's 8-row bank: UC-SV at N = 8192 on the store routes
+    ys = series(torch, "cuda")
+    ucsv = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda"))
+    ps = [0.05, 0.5, 0.95]
+
+    def summarize(state):
+        from sequential_monte_carlo_tpu_torch.analysis import weighted_quantile
+
+        return weighted_quantile(state.particles[:, 0], torch.exp(state.log_weights), ps)
+
+    stored = {
+        "filter_sequence": (f"filter_sequence ucsv 1x{FFBS_N}, quantile summary",
+                            lambda gen: smc.filter_sequence(gen, ucsv, FFBS_N, ys,
+                                                            summarize=summarize),
+                            "fused_propagate_ucsv"),
+        "ffbs_forward": (f"ffbs forward pass ucsv 1x{FFBS_N}",
+                         lambda gen: smc.forward_clouds(gen, ucsv, FFBS_N, ys),
+                         "fused_propagate_ucsv"),
+        "posterior_mixture": (f"posterior mixture ucsv {MIX_THETA}x{FFBS_N}",
+                              lambda gen: smc.posterior_smoothed_paths(
+                                  gen, smc.ucsv_model, flagship.theta, flagship.log_omega, ys,
+                                  FFBS_N, n_theta=MIX_THETA, n_paths=MIX_PATHS),
+                              "fused_propagate_ucsv")}
+    for name, (label, fn, kernel) in stored.items():
+        def run(fn=fn):
+            return _counted(torch, lambda: fn(torch.Generator(device="cuda").manual_seed(1500)))
+
+        def tree_same(a, b):
+            from sequential_monte_carlo_tpu_torch.ops.graphs import _leaves
+
+            return {f"leaf{i}": bool(torch.equal(x, z))
+                    for i, (x, z) in enumerate(zip(_leaves(a), _leaves(b), strict=True))}
+
+        rows[name] = paired(label, run, tree_same,
+                            lambda out, k=kernel: {"resample_count": T - 1, k: T - 1},
+                            lambda out: T - 1, profile=True)
+    rows["replays_and_reads"] = replays_and_reads(torch, smc)
     rows["replay_split"] = replay_split(torch, smc)
     return total, rows
 
 
-def replay_split(torch, smc) -> dict:
-    """Where a replayed step's wall goes: 512 UC-SV filters at JAX_MEAN,
-    N=1024, over the series' first REPLAY_T observations (K1 + K2-UC-SV,
-    captured): the wall of one filter, the host's time to issue it while
-    the device waits behind a sleep kernel, and the device's time to run it
-    once issued (CUDA events), each per inner step."""
-    models = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
-    y = series(torch, "cuda")[:REPLAY_T]
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def _runtime_calls(torch, fn) -> dict:
+    """(fn()'s result, counts of the CUDA runtime calls it made, by name),
+    under torch.profiler with the host's activity, the trace taken whole
+    (:func:`_profiled`): the calls that lie inside its RUN_SPAN annotation,
+    so neither the window's markers nor its synchronizes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    out, _, prof, _ = _profiled(torch, [ProfilerActivity.CPU, ProfilerActivity.CUDA], fn)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    (span,) = [e.time_range for e in events if e.name == RUN_SPAN]
+    return out, collections.Counter(
+        e.name for e in events if e.name.startswith("cuda")
+        and span.start <= e.time_range.start and e.time_range.end <= span.end)
+
+
+# the runtime calls by which the host waits for the device: a host read
+# (.item(), an event's or a stream's synchronize) or a device synchronize
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize")
+
+
+def replays_and_reads(torch, smc) -> dict:
+    """The slice's SMC² at 512×1024, graphed, under torch.profiler with the
+    host's activity: its graph launches (``cudaGraphLaunch``) must be one an
+    online step plus, per rejuvenation at t, ``chain`` masked filters of
+    ⌊(t−1)/S⌋ + (t−1) mod S launches each; its host syncs one an online
+    step (the flag read) plus a rejuvenation's own (counted alone, one
+    rejuvenation of the final state under the profiler) each."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    s = graphs.STEPS_PER_GRAPH
+    # run_slice's run, its prior and series made outside the profiled window
+    # (each number copied to the card from host memory is a stream sync)
+    sampler = smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), smc.SMCConfig(
+        n_particles=1024, n_theta=512, chain=CHAIN, ess_threshold=0.5))
+    y = series(torch, "cuda")
 
     def run():
-        return smc.batched_log_likelihood(gen, models, DT_N, DT_M, y)
+        out = sampler.run(torch.Generator(device="cuda").manual_seed(SEED), y)
+        torch.cuda.synchronize()
+        return out
 
-    run()  # the capture
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run()  # the captures
+    (state, infos), calls = _runtime_calls(torch, run)
+    rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
+    steps = len(infos.ess)
+    launches = steps + sum(CHAIN * ((t - 1) // s + (t - 1) % s) for t in rejuv_t)
+    _, one = _runtime_calls(torch, lambda: sampler._resample_move(
+        torch.Generator(device="cuda").manual_seed(1), state, y, torch.arange(T) < T))
+    syncs = sum(calls[k] for k in SYNC_CALLS)
+    per_rejuv = sum(one[k] for k in SYNC_CALLS)
+    want = steps + len(rejuv_t) * per_rejuv + 1  # and run()'s own synchronize
+    row = {"run": "smc2 ucsv 512x1024, graphed", "online_steps": steps,
+           "rejuvenations": len(rejuv_t), "steps_per_graph": s,
+           "graph_launches": calls["cudaGraphLaunch"], "graph_launches_expected": launches,
+           "host_syncs": syncs, "host_syncs_expected": want,
+           "syncs_per_rejuvenation": per_rejuv,
+           "sync_calls": {k: calls[k] for k in SYNC_CALLS}}
+    say("graphs", **row)
+    if calls["cudaGraphLaunch"] != launches or syncs != want:
+        raise AssertionError(f"graphs (replays and reads): {row}")
+    return row
+
+
+def replay_split(torch, smc) -> dict:
+    """Where a replayed step's wall goes: 512 UC-SV filters at JAX_MEAN,
+    N=1024 (K1 + K2-UC-SV, captured), with STEPS_PER_GRAPH steps a launch
+    and with one: the wall of one filter over the series' first REPLAY_T
+    observations and over all T, and from the two the fixed cost of a filter
+    (init, copy-in, result) apart from the wall per step; of the short
+    filter, the host's time to issue it while the device waits behind a
+    sleep kernel and the device's time to run it once issued (CUDA events),
+    per step, the fixed cost included."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    models = smc.ucsv_model(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
+    ys = series(torch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(max(SLEEP_CYCLES, int(3 * wall * sm_clock_hz())))
-    t0 = time.perf_counter()
-    start.record()
-    run()
-    end.record()
-    issue = time.perf_counter() - t0
-    started = start.query()  # the sleep must still be running
-    end.synchronize()
-    if started:
-        raise AssertionError(f"graphs: issuing the replays took {issue:.4f} s, past the sleep")
-    n = REPLAY_T - 1
-    row = {"run": "replay split, ucsv 512x1024", "inner_steps": n,
-           "wall_ms_per_step": round(1e3 * wall / n, 5),
-           "host_issue_ms_per_step": round(1e3 * issue / n, 5),
-           "device_ms_per_step": round(start.elapsed_time(end) / n, 5)}
+    row, s_graph = {"run": "replay split, ucsv 512x1024"}, graphs.STEPS_PER_GRAPH
+    try:
+        for s in (s_graph, 1):
+            graphs.STEPS_PER_GRAPH = s
+            graphs.clear_graphs()
+            walls = {}
+            for t_len in (T, REPLAY_T):
+                def run(y=ys[:t_len]):
+                    return smc.batched_log_likelihood(gen, models, DT_N, DT_M, y)
+
+                run()  # the capture
+                best = float("inf")
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                walls[t_len] = best
+            # the short filter behind the sleep: under a thousand queued launches
+            torch.cuda._sleep(max(SLEEP_CYCLES, int(3 * walls[REPLAY_T] * sm_clock_hz())))
+            t0 = time.perf_counter()
+            start.record()
+            run()
+            end.record()
+            issue = time.perf_counter() - t0
+            started = start.query()  # the sleep must still be running
+            end.synchronize()
+            if started:
+                raise AssertionError(f"graphs: issuing the replays took {issue:.4f} s, past the"
+                                     " sleep")
+            per_step = (walls[T] - walls[REPLAY_T]) / (T - REPLAY_T)
+            row[f"steps_per_graph_{s}"] = {
+                "wall_s": {str(k - 1): round(v, 5) for k, v in walls.items()},
+                "wall_ms_per_step": round(1e3 * per_step, 5),
+                "fixed_ms_per_filter": round(1e3 * (walls[REPLAY_T] - (REPLAY_T - 1) * per_step),
+                                             4),
+                "whole_call_ms_per_step": round(1e3 * walls[REPLAY_T] / (REPLAY_T - 1), 5),
+                "host_issue_ms_per_step": round(1e3 * issue / (REPLAY_T - 1), 5),
+                "device_ms_per_step": round(start.elapsed_time(end) / (REPLAY_T - 1), 5)}
+    finally:
+        graphs.STEPS_PER_GRAPH = s_graph
+        graphs.clear_graphs()
     say("graphs", **row)
     return row
 
@@ -3870,7 +4115,7 @@ def main() -> int:
     mark("dt_mesh")
 
     # -- 30. the masked filter's captured steps against its eager loop
-    graph_counts, _ = check_graphs(torch)
+    graph_counts, _ = check_graphs(torch, fstate)
 
     mark("graphs")
 

@@ -6,7 +6,8 @@ predictive of an IBIS state; histograms of θ-posterior draws.
 
 Plain tensor code on the state's device, batched over the θ-cloud where the
 JAX package maps over it, so that ``filter_sequence(summarize=)`` and
-``SMC2.run(collect_fn=)`` can call them at every step.
+``SMC2.run(collect_fn=)`` can call them at every step; none reads the host,
+so each can be captured inside ``filter_sequence``'s replayed step.
 """
 from __future__ import annotations
 
@@ -35,6 +36,13 @@ __all__ = [
 
 
 def _ps(ps, like: torch.Tensor) -> torch.Tensor:
+    """The probabilities as a tensor on ``like``'s device. Python numbers
+    are filled in on the device, not copied from host memory, so that a
+    summary stays capturable inside ``filter_sequence``'s replayed step."""
+    if isinstance(ps, (int, float)):
+        return torch.full((), ps, dtype=like.dtype, device=like.device)
+    if isinstance(ps, (list, tuple)) and all(isinstance(p, (int, float)) for p in ps):
+        return torch.stack([torch.full((), p, dtype=like.dtype, device=like.device) for p in ps])
     return torch.as_tensor(ps, dtype=like.dtype, device=like.device)
 
 
@@ -56,14 +64,20 @@ def weighted_quantile_binned(x, w, ps, bins: int = 128):
     bins of each row's range, inverted at the bin edges and interpolated
     inside the landing bin (error at most one bin width). Leading batch axes
     on x and w; the quantiles ``ps`` (P,) on the trailing output axis. The
-    bins' masses are a scatter-add (the JAX package's one-hot product)."""
+    bins' masses are a scatter-add (the JAX package's one-hot product) in
+    fixed point: each weight in units of 2^-40 of its row's largest (rows
+    of up to 2^23 particles), so that the card's atomic adds, in whatever
+    order they land, give the same bits every run."""
     ps = _ps(ps, x)
     lo = torch.amin(x, dim=-1, keepdim=True)
     hi = torch.amax(x, dim=-1, keepdim=True)
     span = torch.clamp(hi - lo, min=1e-12)
     idx = torch.clamp(((x - lo) / span * bins).to(torch.int64), 0, bins - 1)
-    mass = torch.zeros(x.shape[:-1] + (bins,), dtype=x.dtype, device=x.device)
-    mass = mass.scatter_add(-1, idx, w.expand(x.shape).to(x.dtype))
+    w = w.expand(x.shape).to(x.dtype)
+    top = torch.clamp(torch.amax(w, dim=-1, keepdim=True), min=torch.finfo(x.dtype).tiny)
+    units = torch.round(w / top * 2.0**40).to(torch.int64)
+    mass = torch.zeros(x.shape[:-1] + (bins,), dtype=torch.int64, device=x.device)
+    mass = mass.scatter_add(-1, idx, units).to(x.dtype)
     cdf = torch.cumsum(mass, dim=-1)
     total = torch.clamp(cdf[..., -1:], min=1e-30)
     cdf = cdf / total

@@ -138,11 +138,11 @@ def set_launch_counts(counts: list) -> None:
             setattr(w, a, c)
 
 
-def add_launch_counts(delta: list) -> None:
-    """Add ``delta``, a difference of two :func:`launch_counts`, to the
-    registered counters."""
+def add_launch_counts(delta: list, times: int = 1) -> None:
+    """Add ``times`` × ``delta``, a difference of two :func:`launch_counts`,
+    to the registered counters (a graph's launches, once a replay)."""
     for (w, a), d in zip(LAUNCH_COUNTERS, delta, strict=True):
         if isinstance(d, collections.Counter):
-            getattr(w, a).update(d)
+            getattr(w, a).update({k: v * times for k, v in d.items()})
         else:
-            setattr(w, a, getattr(w, a) + d)
+            setattr(w, a, getattr(w, a) + d * times)

@@ -103,8 +103,10 @@ per particle, its particles. A step:
 
 The masked filter (:func:`batched_log_likelihood_masked`, the samplers'
 inner loop) replays its steps on the card from CUDA graphs where the route
-is captured (:mod:`.graphs`: the port's form of the JAX package's jitted
-masked scan); its eager loop runs everywhere else and inside
+is captured (:func:`captures`; :mod:`.graphs`: the port's form of the JAX
+package's jitted masked scan), several steps a launch; so do SMC²'s online
+step, ``filter_sequence`` and the smoothers' forward bank on the same
+routes. The eager loops run everywhere else and inside
 :func:`.graphs.disable_graphs`. Both give the same bits.
 
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
@@ -588,8 +590,9 @@ def batched_pf_step(generator, models, particles, log_w, y,
 
 
 def captures(models, config: PFConfig, active_n, device) -> bool:
-    """Whether :func:`batched_log_likelihood_masked` replays captured steps
-    (:mod:`.graphs`) for this run: on a CUDA device, outside
+    """Whether the loops over this inner filter replay captured steps
+    (:mod:`.graphs`): :func:`batched_log_likelihood_masked`, SMC²'s online
+    step, ``filter_sequence`` and the forward bank. On a CUDA device, outside
     :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
     captured), no proposal, no ``active_n``, a model with a fused kernel
     whose fields are all tensors, and resampling by offsets (K1) or on a
@@ -607,8 +610,9 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     the rejuvenation inner loop. Initializes at y[0] and steps only at the
     live times t ≥ 1, where the JAX package runs a jitted masked scan over
     all T: on the card, on the routes :func:`captures` names, by
-    replaying one captured CUDA graph a live time (:mod:`.graphs`; eager
-    inside :func:`.graphs.disable_graphs`), else by a Python loop over them.
+    replaying captured CUDA graphs, ``graphs.STEPS_PER_GRAPH`` live times a
+    launch and the rest one a launch (:mod:`.graphs`; eager inside
+    :func:`.graphs.disable_graphs`), else by a Python loop over them.
     ``mask`` is read on the host; the model's kernel parameters are packed
     once, outside the loop.
 

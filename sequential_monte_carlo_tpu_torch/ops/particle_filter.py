@@ -18,7 +18,10 @@ As in the JAX package, ``PFConfig.algorithm`` belongs to the batched layer:
 ``pf_step`` is the bootstrap or guided step whatever it says, and
 ``apf_step`` the auxiliary one. Where the JAX package scans over T with
 split keys, these functions loop over T drawing from one explicit
-``torch.Generator``.
+``torch.Generator``; on the card, where the route is captured, the loops
+of ``log_likelihood(_masked)``, ``apf_log_likelihood`` and
+``filter_sequence`` replay CUDA graphs (``ops/graphs.py``), bit for bit the
+eager loop.
 """
 from __future__ import annotations
 
@@ -81,6 +84,7 @@ class PFStepOut(NamedTuple):
 
 # The batched layer imports PFConfig from here, so it is imported after it.
 from . import batched_filter as _bf  # noqa: E402
+from . import graphs  # noqa: E402
 
 
 def _config(config: PFConfig, proposal=None, algorithm: str = "bootstrap") -> PFConfig:
@@ -175,7 +179,16 @@ def filter_sequence(generator, model, n: int, y, config: PFConfig = PFConfig(),
     applied to the (N, dx) :class:`ParticleState` after every step, e.g.
     weighted quantiles. Returns (final state, log Z, per-step dict with
     "log_mean" (T,), "ess" (T,) and, with ``summarize``, "summary" stacked
-    over T)."""
+    over T).
+
+    On the card, where the route is captured (``batched_filter.captures``),
+    the steps replay CUDA graphs (``ops/graphs.py``) that store each step's
+    outputs, ``summarize``'s included: it is captured inside the step, as the
+    JAX package traces it into its scan, so it must be capturable — device
+    tensor code that reads nothing from the host (no ``.item()``, no tensor
+    made from Python numbers on the device). One that is not raises
+    ``graphs.CaptureError``, naming it; ``disable_graphs()`` runs the eager
+    loop, bit for bit the same."""
     config = _config(config, proposal)
     bank = broadcast_model(model)
     params = _bf.kernel_params(bank, config)
@@ -186,7 +199,13 @@ def filter_sequence(generator, model, n: int, y, config: PFConfig = PFConfig(),
             d["summary"] = summarize(out.state)
         return d
 
-    out = _row(_bf.batched_pf_init(generator, bank, n, 1, y[0], config))
+    init = _bf.batched_pf_init(generator, bank, n, 1, y[0], config)
+    if y.shape[0] > 1 and _bf.captures(bank, config, None, init.log_weights.device):
+        particles, log_w, _, series = graphs.filter_stored(
+            generator, bank, init, params, y, config, lambda o: emit(_row(o)),
+            ("filter_sequence", summarize))
+        return (ParticleState(particles[0], log_w[0]), torch.sum(series["log_mean"]), series)
+    out = _row(init)
     emitted = [emit(out)]
     for t in range(1, y.shape[0]):
         out = _step(generator, bank, out.state, y[t], config, params)

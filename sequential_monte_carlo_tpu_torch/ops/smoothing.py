@@ -9,7 +9,9 @@ backward-smoother on particles, for any model with a pointwise
 - :func:`forward_clouds` — the bootstrap filter storing every step's cloud:
   the batched filter at one row (``ops/particle_filter.py``), so on a GPU K1
   and the model's fused propagate at M = 1; :func:`posterior_smoothed_paths`
-  runs its n_theta filters as one (n_theta, N) bank of the same layer.
+  runs its n_theta filters as one (n_theta, N) bank of the same layer. On
+  the card both replay CUDA graphs that store every step
+  (``ops/graphs.py``); the backward passes stay eager.
 - :func:`smoothed_marginals` — backward reweighting (Hürzeler & Künsch
   1998; Doucet, Godsill & Andrieu 2000)
 
@@ -36,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import broadcast_model
+from . import batched_filter, graphs
 from .batched_filter import as_cloud, batched_pf_init, batched_pf_step, kernel_params
 from .kalman import kalman_init, kalman_step
 from .particle_filter import PFConfig, _config
@@ -96,10 +99,17 @@ class SmoothedCloud(NamedTuple):
 def _forward_bank(generator, models, n: int, m: int, y, config: PFConfig):
     """The batched filter over all of y for a bank of m models, storing
     every step's cloud: (particles (T, m, N, dx), filtered log-weights
-    (T, m, N), log Z (m,))."""
+    (T, m, N), log Z (m,)). On the card, where the route is captured, the
+    steps replay CUDA graphs that store each cloud into (T, m, dx, N) and
+    each set of log-weights into (T, m, N) (``ops/graphs.py``)."""
     out = batched_pf_init(generator, models, n, m, y[0], config)
-    clouds, lws, logz = [as_cloud(out.particles)], [out.log_weights], out.log_mean
     params = kernel_params(models, config)
+    if y.shape[0] > 1 and batched_filter.captures(models, config, None, out.log_weights.device):
+        _, _, logz, (clouds, lws) = graphs.filter_stored(
+            generator, models, out, params, y, config,
+            lambda o: (as_cloud(o.particles), o.log_weights), ("forward_bank",))
+        return clouds.transpose(-1, -2), lws, logz
+    clouds, lws, logz = [as_cloud(out.particles)], [out.log_weights], out.log_mean
     for t in range(1, y.shape[0]):
         out = batched_pf_step(generator, models, out.particles, out.log_weights, y[t], config,
                               params)

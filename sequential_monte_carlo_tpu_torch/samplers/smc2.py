@@ -6,12 +6,23 @@ shares, and ``expected_parameters``.
 
 The M inner particle filters are one batched (M, N) program
 (``ops/batched_filter.py``). Where the JAX package compiles the whole run
-into one ``lax.scan`` with ``lax.cond`` triggers, the port is a host loop:
-one ``step`` per observation, which reads the θ-ESS on the host to decide on
-a rejuvenation (and the acceptance rate, after one, to decide on an
-exchange), and rejuvenations that loop over the consumed prefix y[0:t] only.
-Randomness comes from one explicit ``torch.Generator`` on the device of the
-data.
+into one ``lax.scan`` with ``lax.cond`` triggers, the port steps from the
+host: one ``step`` per observation, which reads the θ-ESS flag on the host
+to decide on a rejuvenation (and the acceptance rate, after one, to decide
+on an exchange), and rejuvenations that filter the consumed prefix y[0:t]
+only. On the card, where the inner filter's route is captured
+(``batched_filter.captures``; not under "full" padding), the step after the
+decision is a CUDA-graph replay (``ops/graphs.py``, the counterpart of
+``_step_jit``): ``run`` / ``run_segmented`` keep the state in the route's
+buffers between steps, read one flag a step through a pinned buffer, run a
+rejuvenation eagerly between replays (its masked filters replay their own
+graphs) and copy the state out at the end, at a ``max_steps`` bound and
+where a doubling changes N; ``step`` loads the state, replays and returns a
+state that owns its arrays. ``collect_fn`` runs eagerly after each step
+(its outputs copied), as ``state.t`` stays a host int that a capture would
+freeze. Inside ``disable_graphs()`` every step is the eager loop, bit for
+bit the same. Randomness comes from one explicit ``torch.Generator`` on the
+device of the data.
 
 The exchange step (``acc_threshold > 0``, ≡ the reference's ``exchange!``):
 right after a rejuvenation whose acceptance rate fell below
@@ -61,6 +72,8 @@ from typing import Callable
 
 import torch
 
+from ..ops import batched_filter as _bf
+from ..ops import graphs
 from ..ops.batched_filter import (
     as_cloud,
     batched_log_likelihood_masked,
@@ -93,6 +106,16 @@ def _stack(items: list):
     if isinstance(items[0], tuple):
         return _tuple_like(items[0], [_stack(list(f)) for f in zip(*items)])
     return torch.stack([torch.as_tensor(x) for x in items])
+
+
+def _copied(tree):
+    """A collector's outputs with their tensors copied: on a captured
+    route they may view its buffers, which the next replay overwrites."""
+    if isinstance(tree, dict):
+        return {k: _copied(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return _tuple_like(tree, [_copied(f) for f in tree])
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _first(tree, k: int):
@@ -247,7 +270,9 @@ class SMC2:
             log_w=log_w,
             log_z=log_z,
             log_omega=torch.zeros_like(state.log_omega),
-            ess=torch.tensor(float(m), device=theta.device),
+            # filled on the device: a tensor made from a host number there
+            # would wait for the device (a host sync each rejuvenation)
+            ess=torch.full((), float(m), device=theta.device),
             acc_ratio=torch.mean(accepted.to(theta.dtype)),
         )
 
@@ -289,10 +314,53 @@ class SMC2:
         return replace(self._refilter(generator, state, y, mask, self._n_pad, active2),
                        active_n=active2)
 
+    def _graphed(self, state: SMC2State) -> bool:
+        """Whether the online steps replay a captured route: the inner
+        filter's route is captured (``batched_filter.captures``) and the
+        arrays carry no live count ("full" padding keeps the eager step)."""
+        return not self._use_active and _bf.captures(
+            self.model_fn(state.theta), self.config.inner, None, state.theta.device)
+
+    @staticmethod
+    def _owned(state: SMC2State) -> SMC2State:
+        """The state with copies of the tensors that a later replay
+        overwrites (views of an online route's buffers)."""
+        return replace(state, particles=state.particles.clone(), log_w=state.log_w.clone(),
+                       log_omega=state.log_omega.clone(), log_z=state.log_z.clone(),
+                       ess=state.ess.clone())
+
+    def _online_step(self, generator, route, state: SMC2State, y):
+        """One online step on the captured route whose buffers hold
+        ``state``: the step's one host read (the flag ESS < ess_min of the
+        step or load before), the rejuvenation and the exchange test eagerly
+        where it is set, their result loaded into the buffers, then one
+        replay. Returns (the state after it, its stepped tensors views of the
+        route's buffers; whether it rejuvenated)."""
+        degenerate = route.buffers.read_flag()
+        if degenerate:
+            mask = torch.arange(y.shape[0]) < state.t
+            state = self._resample_move(generator, state, y, mask)
+            if self._elastic:
+                state = self._exchange(generator, state, y, mask)
+            models = self.model_fn(state.theta)
+            route.load(models, _bf.kernel_params(models, self.config.inner), state)
+        route.replay(generator, 1)
+        return replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate
+
     def step(self, generator, state: SMC2State, y):
         """One online assimilation step of y[state.t]; rejuvenates first
         when the θ-ESS fell below ``ess_min`` (then, with the exchange step
-        on, the exchange). Returns (state, StepInfo)."""
+        on, the exchange). On a captured route (:meth:`_graphed`) the step
+        after the decision is a graph replay, and the state returned owns
+        its arrays. Returns (state, StepInfo)."""
+        if self._graphed(state):
+            t = state.t
+            route = graphs.online_route(generator, self, state, y)
+            state, degenerate = self._online_step(generator, route, state, y)
+            state = self._owned(state)
+            incr = route.buffers.infos(t, t + 1)["log_evidence_incr"]
+            return state, StepInfo(ess=state.ess, rejuvenated=torch.tensor(degenerate),
+                                   acc_ratio=state.acc_ratio, log_evidence_incr=incr[0])
         cfg = self.config
         degenerate = bool(state.ess < cfg.ess_min)  # host sync
         if degenerate:
@@ -379,6 +447,15 @@ class SMC2:
         elif self._grow and state.exchange_pending:
             state = self._service_exchange(generator, state, y)
         target = T if max_steps is None else min(T, state.t + max_steps)
+        if state.t >= target:  # past the bound: zero steps, in the structure of a run's outputs
+            out = _first(_stack([StepInfo(ess=state.ess, rejuvenated=torch.tensor(False),
+                                          acc_ratio=state.acc_ratio,
+                                          log_evidence_incr=torch.zeros_like(state.ess))]), 0)
+            return state, (out if collect_fn is None
+                           else (out, _first(_stack([collect_fn(state)]), 0)))
+        if self._graphed(state):
+            state, out, series = self._run_graphed(generator, state, y, target, collect_fn)
+            return state, (out if collect_fn is None else (out, series))
         infos, series = [], []
         while state.t < target:
             state, info = self.step(generator, state, y)
@@ -388,12 +465,34 @@ class SMC2:
             mid_bound = state.t >= target and target < T
             if self._grow and state.exchange_pending and not mid_bound:
                 state = self._service_exchange(generator, state, y)
-        if infos:
-            out = _stack(infos)
-            return state, (out if collect_fn is None else (out, _stack(series)))
-        # past the bound: zero steps, in the structure of a run's outputs
-        out = _first(_stack([StepInfo(ess=state.ess, rejuvenated=torch.tensor(False),
-                                      acc_ratio=state.acc_ratio,
-                                      log_evidence_incr=torch.zeros_like(state.ess))]), 0)
-        return state, (out if collect_fn is None
-                       else (out, _first(_stack([collect_fn(state)]), 0)))
+        out = _stack(infos)
+        return state, (out if collect_fn is None else (out, _stack(series)))
+
+    def _run_graphed(self, generator, state: SMC2State, y, target: int, collect_fn):
+        """:meth:`run_segmented`'s steps up to ``target`` on the captured
+        online route: the state stays in the route's buffers (a new route
+        where a doubling changes N) and is copied out at the end. Returns
+        (state, StepInfo of the steps' stacked tensors, the collector's
+        outputs, copied and stacked, or None)."""
+        T = y.shape[0]
+        route, first, chunks, fired, series = None, state.t, [], [], []
+        while state.t < target:
+            if route is None:
+                route, first = graphs.online_route(generator, self, state, y), state.t
+            state, degenerate = self._online_step(generator, route, state, y)
+            fired.append(degenerate)
+            if collect_fn is not None:
+                series.append(_copied(collect_fn(state)))
+            mid_bound = state.t >= target and target < T
+            if self._grow and state.exchange_pending and not mid_bound:
+                chunks.append(route.buffers.infos(first, state.t))
+                state = self._service_exchange(generator, state, y)  # new arrays at 2N
+                route = None
+        if route is not None:
+            chunks.append(route.buffers.infos(first, state.t))
+            state = self._owned(state)
+        stores = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        infos = StepInfo(ess=stores["ess"], rejuvenated=torch.tensor(fired),
+                         acc_ratio=stores["acc_ratio"],
+                         log_evidence_incr=stores["log_evidence_incr"])
+        return state, infos, (_stack(series) if collect_fn is not None else None)

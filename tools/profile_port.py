@@ -21,8 +21,9 @@ cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock), the host's CPU time and the unprofiled run's
 peak of allocated device memory. Each cell runs ``graphed`` (the default
-path: the masked filter replays its captured CUDA graphs where its route is
-captured, ``ops/graphs.py``), then ``eager`` (inside ``disable_graphs()``).
+path: the masked filter, SMC²'s online step, ``filter_sequence`` and the
+forward bank replay their captured CUDA graphs where the route is captured,
+``ops/graphs.py``), then ``eager`` (inside ``disable_graphs()``).
 Prints one JSON line per cell and mode and writes them all to ``--out``;
 ``--cells`` picks cells by name. Needs a CUDA device.
 
@@ -140,6 +141,7 @@ def _profile(torch, fn, seed: int) -> dict:
         fn(seed)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+        time.sleep(cs.PROFILE_SETTLE_S)  # the trace's last records reach the profiler late
     launches = {k: v for k, v in cs.launch_counts().items() if v}
     events = prof.key_averages()
     # device-side events only (kernels, copies): a CPU op's device time
