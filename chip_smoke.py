@@ -116,7 +116,10 @@ Phases, one line each or more; any failure raises and exits non-zero:
      chain through particle_gibbs and 8 as one bank, pooled; on LG at
      the JAX test's configuration (T=60, N=128, 400 sweeps, chain=3), 8
      chains as one bank, pooled against the Kalman prior-IS oracle; iterated
-     CSMC (N=256, 120 sweeps, both methods) against RTS;
+     CSMC (N=256, 120 sweeps, both methods) against RTS; graphed (one
+     replay a PG or CSMC sweep, the initial multinomial bank on its store
+     route), each line with its graph launches and the host syncs torch's
+     sync debug mode reports;
  23. dsl — UC-SV written with the model DSL (ssm_model, no fused kernel: its
      propagate is plain tensor code) in online SMC² at the slice's
      configuration (K1 at every inner step of the schedule, no K2 or K6),
@@ -227,7 +230,17 @@ Phases, one line each or more; any failure raises and exits non-zero:
      syncs one an online step plus a rejuvenation's own; and a replayed
      filter's wall split into its fixed cost and its cost a step, at S
      steps a launch and at one, and into the host's issue and the device's
-     run.
+     run. Then particle Gibbs and conditional SMC (one graph a PG
+     sweep, one a CSMC sweep, the multinomial forward bank on the store
+     route): phase 22's UC-SV chain at 241×8192, "bs" and "as", one chain
+     cut to GRAPH_PG_SWEEPS sweeps, its LG bank of 8 chains at 60×128 cut
+     to GRAPH_PG_LG_SWEEPS, and its iterated csmc_sweep, both methods, cut
+     to GRAPH_CSMC_SWEEPS, each against its eager twin (θ chain, acceptances, final path, paths,
+     launch counts bit for bit), with walls, busy share, the graph pool and
+     the routes' warm-up, capture and instantiate seconds; and under the
+     profiler with the host's activity, one graph launch a sweep (beside
+     the initial bank's replays) and no host sync but the run's closing
+     synchronize, for PG at two sweep counts and for iterated CSMC.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -2214,21 +2227,67 @@ def check_smoothing(torch, flagship):
     return total
 
 
+@contextlib.contextmanager
+def graph_calls(torch):
+    """Counts, into the dict it yields, the CUDA graphs the block launches
+    (``CUDAGraph.replay``) and the host syncs that torch's sync debug mode
+    reports in it: a torch op that waits for the device (a host read, a copy
+    from pageable host memory); an explicit ``torch.cuda.synchronize`` is
+    not counted."""
+    import warnings
+
+    calls = {"graph_launches": 0, "host_syncs": 0}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        calls["graph_launches"] += 1
+        return replay(self)
+
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            yield calls
+        calls["host_syncs"] = sum("synchroniz" in str(w.message) for w in seen)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.CUDAGraph.replay = replay
+
+
 def run_pg(torch, model_fn, prior_spec, y, cfg, seed: int, chains: int = 0):
-    """One particle-Gibbs run from counts at 0: (result, wall s, counts).
-    With ``chains`` it runs that many chains as the rows of one bank
-    (``model_fn`` then the θ-cloud's constructor), θ0 drawn from the prior
-    first."""
+    """One particle-Gibbs run from counts at 0: (result, wall s, counts, its
+    graph launches and host syncs). With ``chains`` it runs that many chains
+    as the rows of one bank (``model_fn`` then the θ-cloud's constructor),
+    θ0 drawn from the prior first."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
     from sequential_monte_carlo_tpu_torch.samplers.particle_gibbs import _particle_gibbs_bank
 
-    prior = prior_from_spec(prior_spec, device="cuda")
+    prior = prior_from_spec(prior_spec, device="cuda")  # copied from the host: outside the run
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    if not chains:
-        return _counted(torch, lambda: smc.particle_gibbs(gen, model_fn, prior, y, cfg))
-    return _counted(torch, lambda: _particle_gibbs_bank(gen, model_fn, prior, y, cfg,
-                                                        prior.sample(gen, (chains,))))
+    with graph_calls(torch) as calls:
+        if not chains:
+            out = _counted(torch, lambda: smc.particle_gibbs(gen, model_fn, prior, y, cfg))
+        else:
+            out = _counted(torch, lambda: _particle_gibbs_bank(gen, model_fn, prior, y, cfg,
+                                                               prior.sample(gen, (chains,))))
+    return out + (calls,)
+
+
+def iterate_csmc(torch, model, y, method: str, sweeps: int = CSMC_SWEEPS):
+    """Iterated csmc_sweep at fixed θ from the zero path, ``sweeps`` sweeps
+    of CSMC_N particles: the path after each, stacked (sweeps, T) on the
+    card."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    gen, paths = torch.Generator(device="cuda").manual_seed(1700), []
+    path = torch.zeros((y.shape[0], 1), device="cuda")
+    for _ in range(sweeps):
+        path = smc.csmc_sweep(gen, model, CSMC_N, y, path, method=method).path
+        paths.append(path[:, 0])
+    return torch.stack(paths)
 
 
 def check_pg(torch):
@@ -2256,7 +2315,8 @@ def check_pg(torch):
         ref_stats = PG_JAX[method]
         ref, ref_sd = np.asarray(ref_stats["mean"]), np.asarray(ref_stats["sd"])
         for chains in (0, PG_CHAINS):
-            res, wall, counts = run_pg(torch, smc.ucsv_model, PRIOR_SPEC, ys, cfg, 1500, chains)
+            res, wall, counts, calls = run_pg(torch, smc.ucsv_model, PRIOR_SPEC, ys, cfg, 1500,
+                                              chains)
             expect_counts(f"pg (ucsv {method}, {max(chains, 1)} chains)", counts,
                           {"ucsv_propagate": (T - 1) * PG_SWEEPS, "fused_propagate_ucsv": T - 1})
             total = _add(total, counts)
@@ -2278,7 +2338,7 @@ def check_pg(torch):
                 acc_ratio=round(acc, 4), acc_ratios=np.round(accs, 4).tolist(),
                 jax_acc=ref_stats["acc_mean"], acc_tolerance=round(acc_tol, 5),
                 chain_mean=np.round(mean, 5).tolist(), jax_mean=ref.tolist(),
-                tolerance=np.round(tol, 5).tolist(), launches_k6=(T - 1) * PG_SWEEPS)
+                tolerance=np.round(tol, 5).tolist(), launches_k6=(T - 1) * PG_SWEEPS, **calls)
 
     # (b) LG: chains pooled against the prior-IS oracle
     y = torch.tensor(lg_series(PG_LG_T), device="cuda")
@@ -2287,7 +2347,8 @@ def check_pg(torch):
     _, lz = smc.kalman_log_likelihood(smc.lg_model(theta), y)
     oracle = (torch.softmax(lz.double(), 0) @ theta.double()).cpu().numpy()
     cfg = smc.PGConfig(n_particles=PG_LG_N, sweeps=PG_LG_SWEEPS, chain=PG_CHAIN)
-    res, wall, counts = run_pg(torch, smc.lg_model, LG_PRIOR_SPEC, y, cfg, 1600, PG_LG_CHAINS)
+    res, wall, counts, calls = run_pg(torch, smc.lg_model, LG_PRIOR_SPEC, y, cfg, 1600,
+                                      PG_LG_CHAINS)
     expect_counts("pg (lg)", counts, {"fused_propagate_lg1_raw": (PG_LG_T - 1) * PG_LG_SWEEPS,
                                       "fused_propagate_lg1": PG_LG_T - 1})
     total = _add(total, counts)
@@ -2300,7 +2361,7 @@ def check_pg(torch):
     say("pg", model="lg", n=PG_LG_N, T=PG_LG_T, sweeps=PG_LG_SWEEPS, chains=PG_LG_CHAINS,
         wall_s=round(wall, 4), acc=np.round(accs, 4).tolist(),
         chain_means=np.round(means, 4).tolist(), pooled=np.round(pooled, 4).tolist(),
-        oracle=np.round(oracle, 4).tolist())
+        oracle=np.round(oracle, 4).tolist(), **calls)
 
     # (c) CSMC invariance at θ* against RTS of the filter's target
     y = torch.tensor(lg_series(CSMC_T), device="cuda")
@@ -2310,24 +2371,18 @@ def check_pg(torch):
     ms, sd = ms[:, 0].cpu().numpy(), torch.sqrt(ps[:, 0, 0]).cpu().numpy()
     model = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
     for method in ("bs", "as"):
-        def iterate():
-            gen, path, paths = torch.Generator(device="cuda").manual_seed(1700), None, []
-            path = torch.zeros((CSMC_T, 1), device="cuda")
-            for _ in range(CSMC_SWEEPS):
-                path = smc.csmc_sweep(gen, model, CSMC_N, y, path, method=method).path
-                paths.append(path[:, 0])
-            return torch.stack(paths[CSMC_BURN:]).mean(0).cpu().numpy()
-
-        pooled, wall, counts = _counted(torch, iterate)
+        with graph_calls(torch) as calls:
+            paths, wall, counts = _counted(torch, lambda: iterate_csmc(torch, model, y, method))
         expect_counts(f"pg (csmc {method})", counts, {"fused_propagate_lg1_raw": (CSMC_T - 1) * CSMC_SWEEPS})
         total = _add(total, counts)
+        pooled = paths[CSMC_BURN:].mean(0).cpu().numpy()
         err = np.abs(pooled - ms) / sd
         if not (err.max() < 0.75 and err.mean() < 0.3):
             raise AssertionError(f"pg (csmc {method}): pooled path mean off RTS by"
                                  f" {err.max()} sd (mean {err.mean()})")
         say("pg", run="csmc invariance", method=method, n=CSMC_N, T=CSMC_T, sweeps=CSMC_SWEEPS,
             wall_s=round(wall, 4), max_err_sd=round(float(err.max()), 4),
-            mean_err_sd=round(float(err.mean()), 4))
+            mean_err_sd=round(float(err.mean()), 4), **calls)
     return total
 
 
@@ -3486,6 +3541,11 @@ def check_animations(torch):
 
 
 GRAPH_APF_T = 60  # phase 30's APF SMC² cut, as phase 28's and 29's (phase 13 runs the whole T)
+# phase 30's particle-Gibbs cells, cut from phase 22's PG_SWEEPS and
+# PG_LG_SWEEPS (tools/profile_port.py's cuts), and the sweeps of its
+# launch-and-sync counts
+GRAPH_PG_SWEEPS, GRAPH_PG_LG_SWEEPS, GRAPH_PG_READ_SWEEPS = 10, 100, (2, 4)
+GRAPH_CSMC_SWEEPS = 40  # phase 30's iterated CSMC, cut from phase 22's CSMC_SWEEPS
 REPLAY_T = 41  # replay_split's short filter: 40 steps, beside the whole T
 
 
@@ -3589,19 +3649,22 @@ def _busy(torch, label: str, fn) -> dict:
 
     out, wall, prof, kept = _profiled(torch, [ProfilerActivity.CUDA], fn)
     counts = out[2]
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0 and MARKER not in e.key]
-    seen = {k: sum(e.count for e in events
-                   if any(e.key == name or f"{name}<" in e.key for name in names))
+    # the trace's own events, not torch's Python parse of them (minutes for
+    # a run of a few hundred thousand kernels)
+    events = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+              and MARKER not in e.name()]
+    seen = {k: sum(any(key == name or f"{name}<" in key for name in names)
+                   for key, _ in events)
             for k, names in KERNEL_EVENTS.items()}
     counted = {k: sum(v for c, v in counts.items() if c == k or c.startswith(k + "_"))
                for k in KERNEL_EVENTS}
     if seen != counted:
         raise AssertionError(f"graphs ({label}): the profiler saw kernels {seen}, the counters"
                              f" counted {counted}")
-    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    device_s = sum(ns for _, ns in events) / 1e9
     return {"profiled_wall_s": round(wall, 4), "device_s": round(device_s, 4),
-            "device_events": sum(e.count for e in events), "kernel_events": seen,
+            "device_events": len(events), "kernel_events": seen,
             "busy": round(device_s / wall, 4), **kept}
 
 
@@ -3617,6 +3680,7 @@ def check_graphs(torch, flagship):
     SMC² state of phase 7 (the posterior mixture's θ-cloud). Returns the
     runs' launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops import graphs
 
     total = None
     state_fields = ("theta", "log_z", "log_omega", "particles", "log_w")
@@ -3624,16 +3688,17 @@ def check_graphs(torch, flagship):
     def bitwise(a, b, names) -> dict:
         return {k: bool(torch.equal(getattr(a, k), getattr(b, k))) for k in names}
 
-    def paired(label, run, compare, expected, steps, profile=False):
+    def paired(label, run, compare, expected, steps, profile=False, routes=()):
         """run() → (result, wall s, counts): graphed, then eager from the
         same seed, held bit for bit and by their counts; then two runs each
         in turns (eager, graphed, graphed, eager), the graphs freed before
         each eager run, so that its peak memory holds no graph's buffers
         and the first graphed run captures again: walls (the better of two),
         the peak allocated memory of each mode's last run and the graphs'
-        pool after the graphed runs; with ``profile``, one profiled run
-        each, its kernels' events held against the launch counters
-        (_busy)."""
+        pool after the graphed runs, and the seconds of each route of the
+        kinds ``routes`` took to warm up, capture and instantiate; with
+        ``profile``, one profiled run each, its kernels' events held against
+        the launch counters (_busy)."""
         nonlocal total
         smc.clear_graphs()
         got, wall_g, counts_g = run()
@@ -3659,6 +3724,8 @@ def check_graphs(torch, flagship):
             peak[mode] = round(torch.cuda.max_memory_allocated() / 2**20, 1)
             if mode == "graphed":
                 pool_mb = round(_graph_pool_mb(torch), 1)
+                captures = {key[0]: {k: round(v, 4) for k, v in route.timing.items()}
+                            for key, route in graphs._cache.items() if key[0] in routes}
         n = steps(got)
         row = {"run": label, "inner_steps": n, "bitwise": True, "launches": counts_g,
                "first_wall_s": {"graphed": round(wall_g, 4), "eager": round(wall_e, 4)}}
@@ -3675,6 +3742,8 @@ def check_graphs(torch, flagship):
                     row[mode].update(_busy(torch, f"{label}, {mode}", run))
         row["speedup"] = round(row["eager"]["wall_s"] / row["graphed"]["wall_s"], 3)
         row["graph_pool_mb"] = pool_mb
+        if routes:
+            row["capture_s"] = captures
         say("graphs", **row)
         return row
 
@@ -3810,7 +3879,51 @@ def check_graphs(torch, flagship):
         rows[name] = paired(label, run, tree_same,
                             lambda out, k=kernel: {"resample_count": T - 1, k: T - 1},
                             lambda out: T - 1, profile=True)
+    # particle Gibbs (one graph a sweep) and iterated CSMC (one a sweep),
+    # phase 22's cells cut in sweeps, and PG's initial multinomial bank
+    def pg_same(a, b):
+        fields = ("theta", "acc_ratio", "final_path", "paths")
+        return {k: (getattr(a, k) is None and getattr(b, k) is None)
+                or bool(torch.equal(getattr(a, k), getattr(b, k))) for k in fields}
+
+    y_pg_lg = torch.tensor(lg_series(PG_LG_T), device="cuda")
+    pg_cells = {
+        "pg_ucsv_bs": (smc.ucsv_model, PRIOR_SPEC, ys, "bs", PG_N, GRAPH_PG_SWEEPS, 0,
+                       "ucsv_propagate", "fused_propagate_ucsv"),
+        "pg_ucsv_as": (smc.ucsv_model, PRIOR_SPEC, ys, "as", PG_N, GRAPH_PG_SWEEPS, 0,
+                       "ucsv_propagate", "fused_propagate_ucsv"),
+        "pg_lg": (smc.lg_model, LG_PRIOR_SPEC, y_pg_lg, "bs", PG_LG_N, GRAPH_PG_LG_SWEEPS,
+                  PG_LG_CHAINS, "fused_propagate_lg1_raw", "fused_propagate_lg1")}
+    for name, (model_fn, spec, y, method, n, sweeps, chains, k_csmc, k_init) in pg_cells.items():
+        cfg = smc.PGConfig(n_particles=n, sweeps=sweeps, chain=PG_CHAIN, method=method,
+                           collect_paths=True)
+        t_len = y.shape[0]
+
+        def run(model_fn=model_fn, spec=spec, y=y, cfg=cfg, chains=chains):
+            return run_pg(torch, model_fn, spec, y, cfg, 1500, chains)[:3]
+
+        rows[name] = paired(
+            f"pg {name[3:]} {max(chains, 1)}x{n}, T={t_len}, {sweeps} sweeps (cut from"
+            f" {PG_SWEEPS if chains == 0 else PG_LG_SWEEPS})", run, pg_same,
+            lambda out, k=(k_csmc, k_init), t=t_len, sw=sweeps: {k[0]: (t - 1) * sw,
+                                                                 k[1]: t - 1},
+            lambda out, t=t_len, sw=sweeps: (t - 1) * (sw + 1), profile=True,
+            routes=("pg", "stored"))
+
+    y_csmc = torch.tensor(lg_series(CSMC_T), device="cuda")
+    lg_star = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+    for method in ("bs", "as"):
+        def run(method=method):
+            return _counted(torch, lambda: iterate_csmc(torch, lg_star, y_csmc, method,
+                                                        GRAPH_CSMC_SWEEPS))
+
+        rows[f"csmc_{method}"] = paired(
+            f"iterated csmc_sweep {method} lg 1x{CSMC_N}, T={CSMC_T}, {GRAPH_CSMC_SWEEPS} sweeps"
+            f" (cut from {CSMC_SWEEPS})", run, lambda a, b: {"paths": bool(torch.equal(a, b))},
+            lambda out: {"fused_propagate_lg1_raw": (CSMC_T - 1) * GRAPH_CSMC_SWEEPS},
+            lambda out: (CSMC_T - 1) * GRAPH_CSMC_SWEEPS, profile=True, routes=("csmc",))
     rows["replays_and_reads"] = replays_and_reads(torch, smc)
+    rows["pg_replays_and_reads"] = pg_replays_and_reads(torch, smc)
     rows["replay_split"] = replay_split(torch, smc)
     return total, rows
 
@@ -3824,11 +3937,12 @@ def _runtime_calls(torch, fn) -> dict:
     from torch.profiler import ProfilerActivity
 
     out, _, prof, _ = _profiled(torch, [ProfilerActivity.CPU, ProfilerActivity.CUDA], fn)
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    (span,) = [e.time_range for e in events if e.name == RUN_SPAN]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU]
+    (span,) = [e for e in events if e.name() == RUN_SPAN]
     return out, collections.Counter(
-        e.name for e in events if e.name.startswith("cuda")
-        and span.start <= e.time_range.start and e.time_range.end <= span.end)
+        e.name() for e in events if e.name().startswith("cuda")
+        and span.start_ns() <= e.start_ns() and e.end_ns() <= span.end_ns())
 
 
 # the runtime calls by which the host waits for the device: a host read
@@ -3878,6 +3992,46 @@ def replays_and_reads(torch, smc) -> dict:
     say("graphs", **row)
     if calls["cudaGraphLaunch"] != launches or syncs != want:
         raise AssertionError(f"graphs (replays and reads): {row}")
+    return row
+
+
+def pg_replays_and_reads(torch, smc) -> dict:
+    """Particle Gibbs on UC-SV at 241×8192 ("bs", one chain) and iterated
+    csmc_sweep, graphed, their routes captured, under torch.profiler with
+    the host's activity: the PG run's graph launches must be one a sweep
+    beside its initial forward bank's ⌊(T−1)/S⌋ + (T−1) mod S, at two
+    sweep counts, and iterated CSMC's one a sweep; the host syncs of each
+    run only its own closing synchronize."""
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    s = graphs.STEPS_PER_GRAPH
+    prior, ys = prior_from_spec(PRIOR_SPEC, device="cuda"), series(torch, "cuda")
+    y_csmc = torch.tensor(lg_series(CSMC_T), device="cuda")
+    lg_star = smc.lg_model(torch.tensor(LG_THETA, device="cuda"))
+    row, bad = {"run": "pg and csmc replays and reads, graphed", "steps_per_graph": s}, False
+    cases = {f"pg_ucsv_bs_{sweeps}sweeps": (
+        lambda sweeps=sweeps: smc.particle_gibbs(
+            torch.Generator(device="cuda").manual_seed(1500), smc.ucsv_model, prior, ys,
+            smc.PGConfig(n_particles=PG_N, sweeps=sweeps, chain=PG_CHAIN)),
+        sweeps + (T - 1) // s + (T - 1) % s) for sweeps in GRAPH_PG_READ_SWEEPS}
+    cases["csmc_bs_10sweeps"] = (lambda: iterate_csmc(torch, lg_star, y_csmc, "bs", 10), 10)
+    for name, (fn, launches) in cases.items():
+        def run(fn=fn):
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+
+        run()  # the captures
+        _, calls = _runtime_calls(torch, run)
+        syncs = sum(calls[k] for k in SYNC_CALLS)
+        row[name] = {"graph_launches": calls["cudaGraphLaunch"],
+                     "graph_launches_expected": launches, "host_syncs": syncs,
+                     "host_syncs_expected": 1, "sync_calls": {k: calls[k] for k in SYNC_CALLS}}
+        bad |= calls["cudaGraphLaunch"] != launches or syncs != 1
+    say("graphs", **row)
+    if bad:
+        raise AssertionError(f"graphs (pg replays and reads): {row}")
     return row
 
 

@@ -49,6 +49,18 @@ def simulate(generator, model, T: int):
     return torch.stack(xs), torch.stack(ys)
 
 
+def as_f32_tensors(*vals, device="cuda") -> list:
+    """f32 tensors on the device of the first tensor among ``vals``, or on
+    ``device`` when none is a tensor. A Python number becomes a fill on that
+    device, not a copy from host memory, so that a model built from θ
+    inside a captured CUDA graph (particle Gibbs's ``model_fn``) reads
+    nothing from the host; other values (numpy arrays) are copied."""
+    device = next((v.device for v in vals if isinstance(v, torch.Tensor)), device)
+    return [torch.full((), float(v), dtype=torch.float32, device=device)
+            if isinstance(v, (int, float)) else torch.as_tensor(v, dtype=torch.float32, device=device)
+            for v in vals]
+
+
 def broadcast_model(model, m: int = 1):
     """One θ's model (any family: its tensor fields are that θ's parameters)
     as a θ-cloud of ``m`` identical rows: every tensor field gets a leading

@@ -25,6 +25,7 @@ import torch
 
 from ..distributions import MvNormal, Normal, Product
 from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
+from .base import as_f32_tensors
 from ..utils.struct import struct
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -109,6 +110,14 @@ class LinearGaussianModel:
     def observation_distribution(self, x):
         return Normal(torch.sum(self.B * x, dim=-1), torch.sqrt(self.R))
 
+    @property
+    def params_read_host(self) -> bool:
+        """Whether :meth:`fused_params` reads the host: at dx > 1 the eigh
+        of Q checks its errors there (``torch.linalg.eigh``), so a CUDA
+        graph cannot capture it (particle Gibbs builds the kernel parameters
+        inside its sweep and keeps the eager loop for such a model)."""
+        return self.state_dim > 1
+
     def fused_prep(self):
         """Any F with F·Fᵀ = Q: √Q at dx = 1, else the eigh factor, which
         takes a singular Q (Hodrick–Prescott)."""
@@ -145,19 +154,12 @@ class LinearGaussianModel:
                                       particle_offset=particle_offset, out=out)
 
 
-def _as_tensors(*vals, device="cuda"):
-    """f32 tensors on the device of the first tensor among ``vals``, or on
-    ``device`` when none is a tensor (numbers, numpy arrays)."""
-    device = next((v.device for v in vals if isinstance(v, torch.Tensor)), device)
-    return [torch.as_tensor(v, dtype=torch.float32, device=device) for v in vals]
-
-
 def univariate_linear_gaussian(A, B, Q, R, x0=0.0, sigma0=1.0, device="cuda"):
     """Scalar-parameter LG model stored with dx = 1; each parameter is a
     scalar or a θ-cloud's (M,) tensor, broadcast to one batch shape. The
     fields lie on the tensor arguments' device, or on ``device`` when every
     argument is a number."""
-    A, B, Q, R, x0, sigma0 = _as_tensors(A, B, Q, R, x0, sigma0, device=device)
+    A, B, Q, R, x0, sigma0 = as_f32_tensors(A, B, Q, R, x0, sigma0, device=device)
     batch = torch.broadcast_shapes(A.shape, B.shape, Q.shape, R.shape, x0.shape,
                                    sigma0.shape)
     col = lambda v: v.expand(batch)[..., None]  # noqa: E731
@@ -175,7 +177,7 @@ def multivariate_linear_gaussian(A, B, Q, R, X0=None, Sigma0=None, device="cuda"
     """LG model with a dx-dimensional state and a univariate observation
     (x0 = 0 and Σ0 = I unless given), on the tensor arguments' device, or on
     ``device`` when none is a tensor."""
-    A, B, Q, R, X0, Sigma0 = _as_tensors(A, B, Q, R, 0.0 if X0 is None else X0,
+    A, B, Q, R, X0, Sigma0 = as_f32_tensors(A, B, Q, R, 0.0 if X0 is None else X0,
                                          1.0 if Sigma0 is None else Sigma0, device=device)
     dx = A.shape[-1]
     return LinearGaussianModel(A=A, B=B, Q=_as_matrix(Q, dx), R=R,
@@ -193,7 +195,7 @@ def unobserved_components(sigma_eps, sigma_eta, x0, device="cuda"):
 def hodrick_prescott(lam, y, init_cov=1000.0, device="cuda"):
     """Hodrick–Prescott filter model in companion form, with a singular Q, on
     the device of ``y`` when it is a tensor, else on ``device``."""
-    y = _as_tensors(y, device=device)[0]
+    y = as_f32_tensors(y, device=device)[0]
     return multivariate_linear_gaussian(
         A=torch.tensor([[2.0, -1.0], [1.0, 0.0]], device=y.device),
         B=torch.tensor([1.0, 0.0], device=y.device),

@@ -20,6 +20,7 @@ import torch
 from ..distributions import Normal, Product
 from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
 from ..utils.struct import struct
+from .base import as_f32_tensors
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -89,9 +90,8 @@ class StochasticVolatilityModel:
 def stochastic_volatility(mu=-1.0, phi=0.95, sigma=0.3, device="cuda"):
     """One SV model, on the tensor arguments' device, or on ``device`` when
     every argument is a number."""
-    device = next((v.device for v in (mu, phi, sigma) if isinstance(v, torch.Tensor)), device)
-    f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)  # noqa: E731
-    return StochasticVolatilityModel(mu=f(mu), phi=f(phi), sigma=f(sigma))
+    mu, phi, sigma = as_f32_tensors(mu, phi, sigma, device=device)
+    return StochasticVolatilityModel(mu=mu, phi=phi, sigma=sigma)
 
 
 def sv_model(theta):

@@ -25,6 +25,7 @@ from ..distributions import Normal, TupleProduct
 from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
 from ..kernels.ucsv import ucsv_propagate_reweight
 from ..utils.struct import struct
+from .base import as_f32_tensors
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -117,9 +118,8 @@ def unobserved_components_stochastic_volatility(x0, gamma_eps, gamma_eta, log_si
     state_space_models.jl:225-227): one UC-SV model, or a θ-cloud where the
     arguments are (M,) tensors, on the tensor arguments' device, or on
     ``device`` when every argument is a number."""
-    vals = (x0, gamma_eps, gamma_eta, log_sigma_eps, log_sigma_eta)
-    device = next((v.device for v in vals if isinstance(v, torch.Tensor)), device)
-    x0, ge, gn, lse, lsn = (torch.as_tensor(v, dtype=torch.float32, device=device) for v in vals)
+    x0, ge, gn, lse, lsn = as_f32_tensors(x0, gamma_eps, gamma_eta, log_sigma_eps,
+                                          log_sigma_eta, device=device)
     return UCSVModel(gamma_eps=ge, gamma_eta=gn, x0=x0, log_sigma_eps0=lse, log_sigma_eta0=lsn)
 
 

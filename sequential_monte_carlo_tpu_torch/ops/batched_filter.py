@@ -592,14 +592,16 @@ def batched_pf_step(generator, models, particles, log_w, y,
 def captures(models, config: PFConfig, active_n, device) -> bool:
     """Whether the loops over this inner filter replay captured steps
     (:mod:`.graphs`): :func:`batched_log_likelihood_masked`, SMC²'s online
-    step, ``filter_sequence`` and the forward bank. On a CUDA device, outside
-    :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
-    captured), no proposal, no ``active_n``, a model with a fused kernel
-    whose fields are all tensors, and resampling by offsets (K1) or on a
-    stratified grid (K3). Every other route runs the eager loop."""
+    step, ``filter_sequence`` and the forward bank; at the multinomial
+    scheme also conditional SMC's and particle Gibbs's sweeps. On a CUDA
+    device, outside :func:`.graphs.disable_graphs`, with no mesh (its
+    collectives cannot be captured), no proposal, no ``active_n``, a model
+    with a fused kernel whose fields are all tensors, and resampling by
+    offsets (K1), on a stratified grid (K3) or multinomial (its plain
+    ancestors and gather). Every other route runs the eager loop."""
     return (graphs.enabled() and device.type == "cuda" and config.mesh is None
             and config.proposal is None and active_n is None and _has_kernel(models)
-            and config.resampling in _OFFSET_SCHEMES + ("stratified",)
+            and config.resampling in _OFFSET_SCHEMES + ("stratified", "multinomial")
             and all(isinstance(getattr(models, f.name), torch.Tensor)
                     for f in dataclasses.fields(models)))
 

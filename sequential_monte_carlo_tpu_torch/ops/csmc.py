@@ -26,6 +26,12 @@ The new trajectory is drawn by backward sampling over the stored clouds
 The steps run on an M-row bank, each row with its own model row and
 reference path: the per-θ ``csmc_forward`` and ``csmc_sweep`` are its one-row
 case, and particle Gibbs runs independent chains as the rows of one bank.
+
+On the card a whole sweep (the init, the T − 1 steps and the path draw)
+replays one captured CUDA graph (``ops/graphs.py``, the counterpart of the
+JAX package's scans over t), where ``batched_filter.captures`` admits the
+bank at the multinomial scheme; eagerly elsewhere and inside
+``disable_graphs()``, with the same bits.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import broadcast_model
+from . import batched_filter, graphs
 from .batched_filter import _draws, _gather, kernel_params, propagate_reweight
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf
@@ -82,13 +89,16 @@ def _csmc_step_from_draws(u, v, seed_or_normals, bank, cloud, log_w, y, ref, ref
     return new, logw, anc
 
 
-def _csmc_forward_bank(generator, bank, n: int, y, ref, ancestor_sampling: bool = False):
+def _csmc_forward_bank(generator, bank, n: int, y, ref, ancestor_sampling: bool = False,
+                       params=None):
     """The conditional forward pass of every row of an M-row bank, row m's
     slot 0 pinned to ``ref[:, m]`` (ref (T, M, dx)): (particles
     (T, M, N, dx), normalized log-weights (T, M, N), ancestors (T−1, M, N)
-    int32, log Z (M,))."""
+    int32, log Z (M,)). ``params``: the bank's kernel parameters, packed
+    here when not given."""
     m = ref.shape[1]
-    params = kernel_params(bank)
+    if params is None:
+        params = kernel_params(bank)
     x = bank.initial_distribution().sample(generator, (n,))  # (N, M, dx)
     x[0] = ref[0]
     logz, log_w, _ = log_normalize(bank.observation_distribution(x).log_prob(y[0]).T)
@@ -123,17 +133,31 @@ def _trace_lineage(generator, xs, lw, ancestors):
     return torch.gather(xs, 2, idx[..., None].expand(idx.shape + (xs.shape[-1],)))[:, :, 0]
 
 
-def _csmc_sweep_bank(generator, bank, n: int, y, ref, method: str = "bs"):
-    """One CSMC kernel application on every row of an M-row bank: the
-    reference paths ``ref`` (T, M, dx) → fresh paths (T, M, dx), with the
-    forward pass's (particles, log-weights, ancestors, log Z)."""
-    fwd = _csmc_forward_bank(generator, bank, n, y, ref, ancestor_sampling=method == "as")
+def _csmc_eager(generator, bank, n: int, y, ref, ancestor_sampling: bool, draw, params=None):
+    """The conditional forward pass of an M-row bank (PGAS with
+    ``ancestor_sampling``) and, with ``draw``, each row's fresh path:
+    backward sampling over the stored clouds ("bs") or the traced lineage
+    ("as"). Returns (paths (T, M, dx) or None, (particles, log-weights,
+    ancestors, log Z)): the body the CSMC route captures."""
+    fwd = _csmc_forward_bank(generator, bank, n, y, ref, ancestor_sampling, params)
     xs, lw, anc, _ = fwd
-    if method == "bs":
+    if draw == "bs":
         paths = _sample_paths(generator, xs.transpose(1, 2), lw.transpose(1, 2), bank, 1)[:, 0]
-    else:
+    elif draw == "as":
         paths = _trace_lineage(generator, xs, lw, anc)
+    else:
+        paths = None
     return paths, fwd
+
+
+def _csmc_bank(generator, bank, n: int, y, ref, ancestor_sampling: bool, draw):
+    """:func:`_csmc_eager` on the card replayed whole from one CUDA graph
+    where the route is captured (``batched_filter.captures`` at the
+    multinomial scheme: a model with a kernel and tensor fields, no
+    :func:`.graphs.disable_graphs`; ``graphs.csmc_sweep``), else eagerly."""
+    if y.shape[0] > 1 and batched_filter.captures(bank, _MULTINOMIAL, None, ref.device):
+        return graphs.csmc_sweep(generator, bank, n, y, ref, ancestor_sampling, draw, _csmc_eager)
+    return _csmc_eager(generator, bank, n, y, ref, ancestor_sampling, draw)
 
 
 def csmc_forward(generator, model, n: int, y, ref_path, ancestor_sampling: bool = False):
@@ -145,8 +169,8 @@ def csmc_forward(generator, model, n: int, y, ref_path, ancestor_sampling: bool 
     ``filter_log_weights`` are the per-step normalized conditional-filter
     weights; ``log_z`` accumulates the incremental evidence (a diagnostic:
     CSMC's is not an unbiased log Z)."""
-    xs, lw, anc, logz = _csmc_forward_bank(generator, broadcast_model(model), n, y,
-                                           ref_path[:, None], ancestor_sampling)
+    _, (xs, lw, anc, logz) = _csmc_bank(generator, broadcast_model(model), n, y,
+                                        ref_path[:, None], ancestor_sampling, None)
     return SmoothedCloud(xs[:, 0], lw[:, 0], lw[:, 0], logz[0]), anc[:, 0]
 
 
@@ -157,7 +181,7 @@ def csmc_sweep(generator, model, n: int, y, ref_path, method: str = "bs") -> CSM
     (``"as"``)."""
     if method not in ("bs", "as"):
         raise ValueError(f"unknown method {method!r}; one of ['bs', 'as']")
-    paths, (xs, lw, anc, logz) = _csmc_sweep_bank(generator, broadcast_model(model), n, y,
-                                                  ref_path[:, None], method)
+    paths, (xs, lw, anc, logz) = _csmc_bank(generator, broadcast_model(model), n, y,
+                                            ref_path[:, None], method == "as", method)
     cloud = SmoothedCloud(xs[:, 0], lw[:, 0], lw[:, 0], logz[0])
     return CSMCOut(path=paths[:, 0], cloud=cloud, ancestors=anc[:, 0], log_z=cloud.log_z)

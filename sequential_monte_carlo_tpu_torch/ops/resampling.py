@@ -18,10 +18,21 @@ from __future__ import annotations
 import torch
 
 
+def _row_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """cumsum along the last axis, the same bits run to run. On CUDA torch
+    scans a tensor of one row with CUB's decoupled look-back, whose float
+    sums past one tile can group otherwise from run to run (so a replayed
+    and an eager run could part); such a row is scanned beside a copy of
+    itself by the per-row kernel, whose order is fixed."""
+    if w.is_cuda and w.numel() == w.shape[-1] > 1:
+        return torch.cumsum(w.reshape(1, -1).expand(2, -1), dim=-1)[0].reshape(w.shape)
+    return torch.cumsum(w, dim=-1)
+
+
 def _inverse_cdf(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Ancestors of uniforms u ∈ [0, 1) under the weights' CDF
     (searchsorted side="left", clipped to the last index)."""
-    cdf = torch.cumsum(weights, dim=-1)
+    cdf = _row_cumsum(weights)
     cdf = cdf / cdf[..., -1:]
     idx = torch.searchsorted(cdf, u.contiguous())
     return torch.clamp(idx, max=weights.shape[-1] - 1).to(torch.int32)

@@ -11,8 +11,11 @@ with the random-walk scale λ·rw_sigma tuned by diminishing adaptation
 (Andrieu & Thoms 2008 §4.3): log λ += s^{-0.6} (acc_s − target_accept).
 
 Where the JAX package compiles the chain into one ``lax.scan`` over sweeps,
-the port loops over sweeps on the host, and nothing in the loop reads the
-device: the acceptance, λ and θ stay tensors on the data's device. The
+the port on the card replays one captured CUDA graph a sweep
+(``ops/graphs.py::pg_chain``: the MH steps, the adaptation, the CSMC sweep
+and the stores, at a sweep counter the graph advances), and elsewhere
+loops over sweeps on the host; nothing in a sweep reads the device: the
+acceptance, λ and θ stay tensors on the data's device. The
 chain runs on a bank of CSMC rows (``ops/csmc.py``) of one row;
 ``_particle_gibbs_bank`` runs independent chains as the rows of one bank,
 at the cost of one chain in launches. Unlike the JAX package, a scalar θ
@@ -22,16 +25,20 @@ shape), ``sweeps < 1`` raises, and the 1024 prior draws behind the default
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..models.base import broadcast_model
-from ..ops.csmc import _csmc_sweep_bank
+from ..ops import batched_filter, graphs
+from ..ops.csmc import _csmc_bank, _csmc_eager
 from ..ops.particle_filter import PFConfig
 from ..ops.smoothing import _forward_bank, _sample_paths
 
 __all__ = ["PGConfig", "PGResult", "complete_data_log_prob", "particle_gibbs"]
+
+_MULTINOMIAL = PFConfig("multinomial")  # the initial paths' filter
 
 
 class PGConfig(NamedTuple):
@@ -90,11 +97,55 @@ def particle_gibbs(generator, model_fn, prior, y, config: PGConfig = PGConfig(),
     if theta0 is None:
         theta0 = prior.sample(generator)
     theta0 = torch.as_tensor(theta0, dtype=torch.float32, device=y.device)
-    res = _particle_gibbs_bank(generator, lambda th: broadcast_model(model_fn(th[0])), prior, y,
-                               config, theta0[None], rw_sigma)
+
+    @functools.wraps(model_fn)  # the captured route's key: model_fn itself
+    def bank_fn(th):
+        return broadcast_model(model_fn(th[0]))
+
+    res = _particle_gibbs_bank(generator, bank_fn, prior, y, config, theta0[None], rw_sigma)
     return PGResult(theta=res.theta[:, 0], acc_ratio=res.acc_ratio[0],
                     final_path=res.final_path[:, 0],
                     paths=None if res.paths is None else res.paths[:, :, 0])
+
+
+def _log_target(prior, bank, th, path, y, event):
+    """log p(θ) + log p(x, y | θ) per chain (θ (K, d), the prior seeing
+    shape ``event``), −inf where not finite."""
+    k = th.shape[0]
+    lp = (prior.log_prob(th.reshape(event)).reshape(k)
+          + complete_data_log_prob(bank, path, y).reshape(k))
+    return torch.where(torch.isfinite(lp), lp, -torch.inf)
+
+
+def _sweep(generator, y, rw_sigma, theta, log_lam, path, rate, *, bank_fn, prior,
+           config: PGConfig, event, csmc=_csmc_bank):
+    """One Gibbs sweep of K chains from θ (K, d), log λ (K,) and their
+    paths (T, K, dx): ``config.chain`` complete-data MH steps at the paths
+    (the bank built at each proposal by ``bank_fn``), the diminishing
+    adaptation of log λ at ``rate`` (s + 1)^−0.6, then x | θ, y by one
+    CSMC sweep (``csmc``, :func:`~..ops.csmc._csmc_bank`'s signature) of
+    the bank at the new θ. Returns (θ, log λ, the acceptance (K,), the new
+    paths). The eager loop's body and, with the eager CSMC sweep, the one
+    the particle-Gibbs route captures."""
+    k, f32 = theta.shape[0], dict(dtype=torch.float32, device=theta.device)
+    lam = torch.exp(log_lam)[:, None]
+    lp, n_acc = _log_target(prior, bank_fn(theta.reshape(event)), theta, path, y, event), 0.0
+    for _ in range(config.chain):
+        prop = theta + lam * rw_sigma * torch.randn(theta.shape, generator=generator, **f32)
+        lp_prop = torch.where(prior.in_support(prop.reshape(event)).reshape(k),
+                              _log_target(prior, bank_fn(prop.reshape(event)), prop, path, y,
+                                          event), -torch.inf)
+        u = torch.rand(k, generator=generator, **f32)
+        accept = (lp_prop > -torch.inf) & (torch.log(u) < lp_prop - lp)
+        theta = torch.where(accept[:, None], prop, theta)
+        lp = torch.where(accept, lp_prop, lp)
+        n_acc = n_acc + accept.to(torch.float32)
+    acc = n_acc / config.chain
+    if config.adapt:
+        log_lam = log_lam + rate * (acc - config.target_accept)
+    path, _ = csmc(generator, bank_fn(theta.reshape(event)), config.n_particles, y, path,
+                   config.method == "as", config.method)
+    return theta, log_lam, acc, path
 
 
 def _particle_gibbs_bank(generator, bank_fn, prior, y, config: PGConfig, theta0,
@@ -106,51 +157,42 @@ def _particle_gibbs_bank(generator, bank_fn, prior, y, config: PGConfig, theta0,
     (K, *event) is the chains' start, ``event`` the prior's own θ shape;
     ``config`` as :func:`particle_gibbs` checks it.
     The result has a chain axis after the sweep axis: θ (sweeps, K, dθ),
-    acceptances (K,), final paths (T, K, dx), paths (sweeps, T, K, dx)."""
+    acceptances (K,), final paths (T, K, dx), paths (sweeps, T, K, dx).
+
+    On the card, where the bank's route is captured, each sweep replays one
+    CUDA graph (``ops/graphs.py::pg_chain``); else, and inside
+    ``disable_graphs()``, the sweeps loop on the host. The set-up (θ0, the
+    default rw_sigma's prior draws, the initial paths) runs before either."""
     n, device = config.n_particles, y.device
     f32 = dict(dtype=torch.float32, device=device)
     theta0 = torch.as_tensor(theta0, **f32)
-    k, event = theta0.shape[0], theta0.shape
+    k, event = theta0.shape[0], tuple(theta0.shape)
     theta = theta0.reshape(k, -1)
-
-    def as_prior(th):  # (K, d) → the prior's and bank_fn's (K, *event)
-        return th.reshape(event)
 
     if rw_sigma is None:
         draws = prior.sample(generator, (1024,)).reshape(1024, -1)
         rw_sigma = config.rw_scale * torch.std(draws, dim=0, correction=0)
     rw_sigma = torch.broadcast_to(torch.as_tensor(rw_sigma, **f32).reshape(-1), theta.shape[1:])
 
-    def log_target(th, bank, path):
-        """log p(θ) + log p(x, y | θ) per chain, −inf where not finite."""
-        lp = (prior.log_prob(as_prior(th)).reshape(k)
-              + complete_data_log_prob(bank, path, y).reshape(k))
-        return torch.where(torch.isfinite(lp), lp, -torch.inf)
-
     # the initial paths: one multinomial filter at θ0 and one backward draw
-    bank = bank_fn(as_prior(theta))
-    xs, lw, _ = _forward_bank(generator, bank, n, k, y, PFConfig("multinomial"))
+    bank = bank_fn(theta.reshape(event))
+    xs, lw, _ = _forward_bank(generator, bank, n, k, y, _MULTINOMIAL)
     path = _sample_paths(generator, xs.transpose(1, 2), lw.transpose(1, 2), bank, 1)[:, 0]
     log_lam = torch.zeros(k, **f32)
+    if (batched_filter.captures(bank, _MULTINOMIAL, None, device)
+            and not getattr(bank, "params_read_host", False)):
+        static = (config._replace(sweeps=0), event)
+        thetas, accs, path, paths = graphs.pg_chain(
+            generator, config.sweeps, static, bank_fn, prior, bank, theta, path, rw_sigma, y,
+            config.collect_paths,
+            functools.partial(_sweep, config=config, event=event, csmc=_csmc_eager))
+        return PGResult(theta=thetas, acc_ratio=torch.mean(accs, dim=0), final_path=path,
+                        paths=paths)
     thetas, accs, paths = [], [], []
     for s in range(config.sweeps):
-        # θ | x, y: config.chain complete-data MH steps at the current paths
-        lam, lp, n_acc = torch.exp(log_lam)[:, None], log_target(theta, bank, path), 0.0
-        for _ in range(config.chain):
-            prop = theta + lam * rw_sigma * torch.randn(theta.shape, generator=generator, **f32)
-            lp_prop = torch.where(prior.in_support(as_prior(prop)).reshape(k),
-                                  log_target(prop, bank_fn(as_prior(prop)), path), -torch.inf)
-            u = torch.rand(k, generator=generator, **f32)
-            accept = (lp_prop > -torch.inf) & (torch.log(u) < lp_prop - lp)
-            theta = torch.where(accept[:, None], prop, theta)
-            lp = torch.where(accept, lp_prop, lp)
-            n_acc = n_acc + accept.to(torch.float32)
-        acc = n_acc / config.chain
-        if config.adapt:
-            log_lam = log_lam + (s + 1.0) ** -0.6 * (acc - config.target_accept)
-        # x | θ, y
-        bank = bank_fn(as_prior(theta))
-        path, _ = _csmc_sweep_bank(generator, bank, n, y, path, config.method)
+        theta, log_lam, acc, path = _sweep(generator, y, rw_sigma, theta, log_lam, path,
+                                           (s + 1.0) ** -0.6, bank_fn=bank_fn, prior=prior,
+                                           config=config, event=event)
         thetas.append(theta)
         accs.append(acc)
         if config.collect_paths:

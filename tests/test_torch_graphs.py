@@ -258,7 +258,7 @@ def _guided():
 @pytest.mark.parametrize("case,captured", [
     ("systematic", True), ("residual_systematic", True), ("stratified", True),
     ("stratified_ess", True), ("systematic_ess", True), ("apf", True), ("apf_stratified", True),
-    ("multinomial", False), ("residual", False), ("metropolis", False), ("guided", False),
+    ("multinomial", True), ("residual", False), ("metropolis", False), ("guided", False),
     ("active_n", False), ("mesh", False), ("dsl", False), ("cpu", False),
 ])
 def test_captured_routes(case, captured):

@@ -21,9 +21,10 @@ cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock), the host's CPU time and the unprofiled run's
 peak of allocated device memory. Each cell runs ``graphed`` (the default
-path: the masked filter, SMC²'s online step, ``filter_sequence`` and the
-forward bank replay their captured CUDA graphs where the route is captured,
-``ops/graphs.py``), then ``eager`` (inside ``disable_graphs()``).
+path: the masked filter, SMC²'s online step, ``filter_sequence``, the
+forward bank, and particle Gibbs's and conditional SMC's sweeps replay
+their captured CUDA graphs where the route is captured, ``ops/graphs.py``),
+then ``eager`` (inside ``disable_graphs()``).
 Prints one JSON line per cell and mode and writes them all to ``--out``;
 ``--cells`` picks cells by name. Needs a CUDA device.
 
