@@ -89,7 +89,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
  18. routes — 512 LG filters at θ*, N=1024, T=100, with the
      residual_systematic (K1), multinomial and residual inner schemes and a
      guided proposal (the transition widened 1.5-fold; K1, no propagate
-     kernel), each against the Kalman log Z;
+     kernel), each against the Kalman log Z, each replayed from graphs
+     (its graph launches held against the masked filter's count);
  19. one_row — the kernels at M = 1 (K1 C = 1, 3 and the APF's C = 2, 4;
      K3; K2 UC-SV, LG dx=1 with and without carry, LG dx=1 raw; K6 raw) at
      1×1024 and 1×8192, on a contiguous row, on unsqueezed and expanded
@@ -128,7 +129,9 @@ Phases, one line each or more; any failure raises and exits non-zero:
      the dt configuration with the AR(1) declared by linear_ssm_model (K1 +
      K2-LG), against DT_JAX_MEAN; 512 filters of the AR(1) written with
      ssm_model, systematic (K1) and stratified at ESS < N/2 (K3), against the
-     Kalman log Z; the wall per inner step, DSL against native;
+     Kalman log Z; all replayed from graphs (the plain propagate route
+     captured), each line with its graph launches, held against the
+     schedule's; the wall per inner step, DSL against native;
  24. inflation — the port's inflation example at --full sizes (UC
      512×1024 chain 3, UC-SV 512×8192 chain 5) without figures: launch
      counts, θ̂ of both models against the JAX package's 8-seed means, the
@@ -205,9 +208,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
      on (1, 2) over its first P_STEPS observations, bit for bit the
      one-process run.
  30. graphs — the compiled loops (``ops/graphs.py``; every phase above
-     replays them where its route is captured: no mesh, no proposal, no
-     active_n, a model with a kernel, systematic or stratified, bootstrap or
-     APF): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
+     replays them where its route is captured: no mesh, no active_n; any
+     model, proposal and scheme): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
      step (one replay and one flag read a step), filter_sequence and the
      forward bank (store routes), each against its eager loop under
      ``disable_graphs()`` from the same seeds: the slice's SMC² at 512×1024
@@ -240,7 +242,13 @@ Phases, one line each or more; any failure raises and exits non-zero:
      the routes' warm-up, capture and instantiate seconds; and under the
      profiler with the host's activity, one graph launch a sweep (beside
      the initial bank's replays) and no host sync but the run's closing
-     synchronize, for PG at two sweep counts and for iterated CSMC.
+     synchronize, for PG at two sweep counts and for iterated CSMC. Then the
+     inner routes beyond the fused kernels, each against its eager twin the
+     same way: the DSL UC-SV SMC² at 512×1024, chain 5, cut to its first
+     GRAPH_APF_T observations; the DSL UC-SV bank at 512×1024, bootstrap
+     and APF; the residual, metropolis and guided LG banks at 512×1024,
+     T=100; particle Gibbs on the DSL AR(1), 8 chains at 60×128, cut to
+     GRAPH_PG_DSL_SWEEPS sweeps.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -1051,10 +1059,12 @@ def kalman_is_oracle(torch):
     return (w @ theta.double()).cpu().numpy(), (1.0 / torch.sum(w * w)).item()
 
 
-def run_filters(torch, models, y, inner, seed: int, n: int = DT_N, m: int = DT_M):
+def run_filters(torch, models, y, inner, seed: int, n: int = DT_N, m: int = DT_M,
+                calls=None):
     """m parallel filters of n particles through ``batched_log_likelihood``,
     after a warm-up run: (log Z, wall-clock s, launch counts) of the second
-    run. ``inner``: PFConfig's fields."""
+    run. ``inner``: PFConfig's fields. ``calls``: a dict that gets the
+    second run's graph launches and host syncs (:func:`graph_calls`)."""
     import sequential_monte_carlo_tpu_torch as smc
 
     smc.batched_log_likelihood(torch.Generator(device="cuda").manual_seed(seed + 100), models,
@@ -1062,10 +1072,13 @@ def run_filters(torch, models, y, inner, seed: int, n: int = DT_N, m: int = DT_M
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    _, log_w, log_z = smc.batched_log_likelihood(gen, models, n, m, y, smc.PFConfig(*inner))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with graph_calls(torch) if calls is not None else contextlib.nullcontext({}) as seen:
+        t0 = time.perf_counter()
+        _, log_w, log_z = smc.batched_log_likelihood(gen, models, n, m, y, smc.PFConfig(*inner))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if calls is not None:
+        calls.update(seen)
     if not (torch.all(torch.isfinite(log_z))
             and torch.allclose(torch.logsumexp(log_w, 1), torch.zeros(m, device="cuda"),
                                atol=1e-4)):
@@ -1112,11 +1125,12 @@ def sv_series(mu: float, phi: float, sigma: float, t: int = DT_T) -> np.ndarray:
 
 
 def check_delta(model: str, lz, kz: float, wall: float, steps: int,
-                phase: str = "filters", n: int = DT_N) -> None:
+                phase: str = "filters", n: int = DT_N, **extra) -> None:
     """Hold the rows' PF log Z against the exact log Z of the filter's
     target: E[Ẑ] = Z gives mean + var/2 ≈ log Z (delta method), within 5
     standard errors of that estimate from the rows' mean and variance (the
-    bank's rows, ``lz``'s length; ``n`` particles a row, printed)."""
+    bank's rows, ``lz``'s length; ``n`` particles a row, printed; ``extra``
+    printed after the line's fields)."""
     rows = lz.shape[0]
     mean, var = lz.mean().item(), lz.var().item()
     se = math.sqrt(var / rows + var**2 / (2 * (rows - 1)))
@@ -1125,7 +1139,22 @@ def check_delta(model: str, lz, kz: float, wall: float, steps: int,
                              f" beyond 5·{se}")
     say(phase, model=model, rows=rows, n=n, T=DT_T, wall_s=round(wall, 4),
         logz_mean=round(mean, 5), logz_var=round(var, 5), exact_logz=round(kz, 5),
-        delta=round(mean + var / 2 - kz, 5), five_se=round(5 * se, 5), launches=steps)
+        delta=round(mean + var / 2 - kz, 5), five_se=round(5 * se, 5), launches=steps, **extra)
+
+
+def filter_graph_launches(live: int) -> int:
+    """The graph launches of a masked filter over ``live`` live times:
+    ⌊live/S⌋ of the S-step graph, then one a step."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    s = graphs.STEPS_PER_GRAPH
+    return live // s + live % s
+
+
+def expect_graph_launches(phase: str, calls: dict, want: int) -> None:
+    """Fail unless the run launched ``want`` CUDA graphs."""
+    if calls["graph_launches"] != want:
+        raise AssertionError(f"{phase}: {calls}, expected {want} graph launches")
 
 
 def check_filters(torch, algorithm: str = "bootstrap", seed: int = 3):
@@ -1763,22 +1792,29 @@ def check_ibis(torch):
     return state
 
 
+def widened_proposal(smc, torch):
+    """The guided proposal of the routes: an LG bank's transition widened
+    1.5-fold, a ``Product(Normal)``."""
+    return smc.Proposal(
+        initial=lambda mm: mm.initial_distribution(),
+        step=lambda mm, xp: smc.Product(smc.Normal(mm.A[..., 0, :] * xp,
+                                                   1.5 * torch.sqrt(mm.Q[..., 0, :]))))
+
+
 def check_routes(torch):
     """512 LG filters at θ* (N=1024, T=100) with the residual_systematic
     (K1), multinomial and residual inner schemes (K2-LG after each), and a
     guided proposal (the transition widened 1.5-fold: K1, no propagate
-    kernel): each bank's log Z against the Kalman filter's. Returns the
-    banks' launch counts."""
+    kernel): each bank's log Z against the Kalman filter's; each replayed
+    from graphs, ⌊99/S⌋ + 99 mod S launches (its host syncs printed).
+    Returns the banks' launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
 
     y = torch.tensor(lg_series(), device="cuda")
     a, q, r = LG_THETA
     target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
     kz = smc.kalman_log_likelihood(target, y)[1].item()
-    widened = smc.Proposal(
-        initial=lambda mm: mm.initial_distribution(),
-        step=lambda mm, xp: smc.Product(smc.Normal(mm.A[..., 0, :] * xp,
-                                                   1.5 * torch.sqrt(mm.Q[..., 0, :]))))
+    widened = widened_proposal(smc, torch)
     steps, total = DT_T - 1, None
     for i, (label, inner, kernels) in enumerate((
             ("residual_systematic", ("residual_systematic", 1.0),
@@ -1786,9 +1822,13 @@ def check_routes(torch):
             ("multinomial", ("multinomial", 1.0), ("fused_propagate_lg1",)),
             ("residual", ("residual", 1.0), ("fused_propagate_lg1",)),
             ("guided", ("systematic", 1.0, widened), ("resample_count",)))):
-        lz, wall, counts = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y, inner, 30 + i)
+        calls = {}
+        lz, wall, counts = run_filters(torch, _lg_cloud(torch, smc, DT_M, 1), y, inner, 30 + i,
+                                       calls=calls)
         expect_counts(f"routes ({label})", counts, {k: steps for k in kernels})
-        check_delta(f"lg {label}", lz, kz, wall, steps, "routes")
+        expect_graph_launches(f"routes ({label})", calls, filter_graph_launches(steps))
+        check_delta(f"lg {label}", lz, kz, wall, steps, "routes",
+                    graph_launches=calls["graph_launches"], host_syncs=calls["host_syncs"])
         total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
     return total
 
@@ -2432,9 +2472,13 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
     configuration with the AR(1) declared by linear_ssm_model (K1 + K2-LG),
     posterior against DT_JAX_MEAN; (d) 512 filters of the AR(1) written with
     ssm_model, systematic (K1) and stratified at ESS < N/2 (K3), log Z
-    against the Kalman filter's. The wall per inner step of (a) is printed
-    beside the native UC-SV slice's (``native_ms_per_step``) and the card's
-    name. Returns the runs' launch counts."""
+    against the Kalman filter's. Each replays graphs (the DSL's plain
+    propagate route captured): (a) one an online step plus each
+    rejuvenation's masked filters', (b) and (d) a masked filter's; each
+    line with its graph launches, held against that count, and host syncs.
+    The wall per inner step of (a) is printed beside the native UC-SV
+    slice's (``native_ms_per_step``) and the card's name. Returns the runs'
+    launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 
@@ -2443,10 +2487,14 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
     cfg = smc.SMCConfig(n_particles=1024, n_theta=512, chain=CHAIN, ess_threshold=0.5,
                         inner=smc.PFConfig("systematic", 1.0))
     sampler = smc.SMC2(ucsv_dsl(smc, torch), prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
-    (state, infos), wall, counts = _counted(
-        torch, lambda: sampler.run(torch.Generator(device="cuda").manual_seed(SEED), y))
+    with graph_calls(torch) as calls:
+        (state, infos), wall, counts = _counted(
+            torch, lambda: sampler.run(torch.Generator(device="cuda").manual_seed(SEED), y))
     steps = _schedule(infos, CHAIN, [])
     expect_counts("dsl (ucsv smc2)", counts, {"resample_count": steps})
+    rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
+    expect_graph_launches("dsl (ucsv smc2)", calls, len(infos.ess) + sum(
+        CHAIN * filter_graph_launches(t - 1) for t in rejuv_t))
     total = counts
     mean = smc.expected_parameters(state).cpu().numpy()
     tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
@@ -2455,6 +2503,7 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
                              f" beyond {tol}")
     say("dsl", model="ucsv via ssm_model", shape="512x1024", T=T, chain=CHAIN,
         wall_s=round(wall, 4), rejuvenations=int(infos.rejuvenated.sum()), launches=steps,
+        graph_launches=calls["graph_launches"], host_syncs=calls["host_syncs"],
         posterior_mean=np.round(mean, 5).tolist(), jax_mean=JAX_MEAN,
         tolerance=np.round(tol, 5).tolist())
     say("dsl", wall_ms_per_inner_step=round(1e3 * wall / steps, 5),
@@ -2464,8 +2513,11 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
     # (b) 512 DSL UC-SV filters, bootstrap and APF
     models = ucsv_dsl(smc, torch)(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
     for i, alg in enumerate(("bootstrap", "apf")):
-        lz, wall, counts = run_filters(torch, models, y, ("systematic", 1.0, None, alg), 40 + i)
+        calls = {}
+        lz, wall, counts = run_filters(torch, models, y, ("systematic", 1.0, None, alg), 40 + i,
+                                       calls=calls)
         expect_counts(f"dsl (ucsv bank, {alg})", counts, {"resample_count": T - 1})
+        expect_graph_launches(f"dsl (ucsv bank, {alg})", calls, filter_graph_launches(T - 1))
         total = _add(total, counts)
         mean, var = lz.mean().item(), lz.var().item()
         ref_mean, ref_var, ref_rows = UCSV_BANK_JAX[alg]
@@ -2475,7 +2527,8 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
                                  f" beyond 5·{se}")
         say("dsl", model="ucsv via ssm_model", filter=alg, rows=DT_M, n=DT_N, T=T,
             wall_s=round(wall, 4), logz_mean=round(mean, 5), logz_var=round(var, 5),
-            jax_logz_mean=ref_mean, five_se=round(5 * se, 5), launches=T - 1)
+            jax_logz_mean=ref_mean, five_se=round(5 * se, 5), launches=T - 1,
+            graph_launches=calls["graph_launches"], host_syncs=calls["host_syncs"])
 
     # (c) the AR(1) declared by linear_ssm_model in density-tempered SMC
     total = _add(total, check_dt(torch, "linear_ssm_model", ("systematic", 1.0),
@@ -2491,9 +2544,12 @@ def check_dsl(torch, native_ms_per_step: float, kind: str):
     for i, (label, inner, kernel) in enumerate((
             ("systematic", ("systematic", 1.0), "resample_count"),
             ("stratified ess<N/2", ("stratified", 0.5), "resample_sorted"))):
-        lz, wall, counts = run_filters(torch, models, y, inner, 50 + i)
+        calls = {}
+        lz, wall, counts = run_filters(torch, models, y, inner, 50 + i, calls=calls)
         expect_counts(f"dsl (ar1 {label})", counts, {kernel: DT_T - 1})
-        check_delta(f"ar1 via ssm_model, {label}", lz, kz, wall, DT_T - 1, "dsl")
+        expect_graph_launches(f"dsl (ar1 {label})", calls, filter_graph_launches(DT_T - 1))
+        check_delta(f"ar1 via ssm_model, {label}", lz, kz, wall, DT_T - 1, "dsl",
+                    graph_launches=calls["graph_launches"], host_syncs=calls["host_syncs"])
         total = _add(total, counts)
     return total
 
@@ -3546,6 +3602,7 @@ GRAPH_APF_T = 60  # phase 30's APF SMC² cut, as phase 28's and 29's (phase 13 r
 # launch-and-sync counts
 GRAPH_PG_SWEEPS, GRAPH_PG_LG_SWEEPS, GRAPH_PG_READ_SWEEPS = 10, 100, (2, 4)
 GRAPH_CSMC_SWEEPS = 40  # phase 30's iterated CSMC, cut from phase 22's CSMC_SWEEPS
+GRAPH_PG_DSL_SWEEPS = 40  # phase 30's PG on the DSL AR(1), cut from phase 22's PG_LG_SWEEPS
 REPLAY_T = 41  # replay_split's short filter: 40 steps, beside the whole T
 
 
@@ -3922,10 +3979,83 @@ def check_graphs(torch, flagship):
             f" (cut from {CSMC_SWEEPS})", run, lambda a, b: {"paths": bool(torch.equal(a, b))},
             lambda out: {"fused_propagate_lg1_raw": (CSMC_T - 1) * GRAPH_CSMC_SWEEPS},
             lambda out: (CSMC_T - 1) * GRAPH_CSMC_SWEEPS, profile=True, routes=("csmc",))
+    rows.update(inner_route_cells(torch, smc, paired, smc2_same))
     rows["replays_and_reads"] = replays_and_reads(torch, smc)
     rows["pg_replays_and_reads"] = pg_replays_and_reads(torch, smc)
     rows["replay_split"] = replay_split(torch, smc)
     return total, rows
+
+
+def inner_route_cells(torch, smc, paired, smc2_same) -> dict:
+    """Phase 30's cells of the inner routes beyond the fused kernels, each
+    through ``paired`` (graphed, then its eager twin, bit for bit, launch
+    counts, walls, busy share, graph pool, capture seconds): the DSL UC-SV
+    SMC² at 512×1024, chain CHAIN, cut to its first GRAPH_APF_T
+    observations (K1 only: the plain propagate route); the DSL UC-SV bank
+    at 512×1024, bootstrap and APF (K1); the residual and metropolis LG
+    banks (K2-LG after their ancestors) and the guided one (K1) at 512×1024,
+    T=100; particle Gibbs on the DSL AR(1), PG_LG_CHAINS chains at
+    PG_LG_T×PG_LG_N cut to GRAPH_PG_DSL_SWEEPS sweeps (no kernel: the
+    multinomial ancestors and the plain propagate route)."""
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.ops.graphs import _leaves
+
+    def tree_same(a, b):
+        return {f"leaf{i}": bool(torch.equal(x, z))
+                for i, (x, z) in enumerate(zip(_leaves(a), _leaves(b), strict=True))}
+
+    rows = {}
+    ucsv = ucsv_dsl(smc, torch)
+    sampler = smc.SMC2(ucsv, prior_from_spec(PRIOR_SPEC, device="cuda"), smc.SMCConfig(
+        n_particles=1024, n_theta=512, chain=CHAIN, ess_threshold=0.5))
+    y = series(torch, "cuda")
+
+    def run_smc2():
+        return _counted(torch, lambda: sampler.run(
+            torch.Generator(device="cuda").manual_seed(SEED), y[:GRAPH_APF_T]))
+
+    rows["dsl_smc2"] = paired(
+        f"smc2 ucsv via ssm_model 512x1024, T={GRAPH_APF_T} (cut from {T})", run_smc2, smc2_same,
+        lambda out: {"resample_count": _schedule(out[1], CHAIN, [])},
+        lambda out: _schedule(out[1], CHAIN, []), profile=True, routes=("online", "masked"))
+
+    def bank(models, ys, inner, kernels, label):
+        def run():
+            return _counted(torch, lambda: smc.batched_log_likelihood(
+                torch.Generator(device="cuda").manual_seed(1600), models, DT_N, DT_M, ys,
+                smc.PFConfig(*inner)))
+
+        steps = ys.shape[0] - 1
+        return paired(label, run, tree_same, lambda out: {k: steps for k in kernels},
+                      lambda out: steps, profile=True, routes=("masked",))
+
+    models = ucsv(torch.tensor(JAX_MEAN, device="cuda").expand(DT_M, 4))
+    for alg in ("bootstrap", "apf"):
+        rows[f"dsl_bank_{alg}"] = bank(models, y, ("systematic", 1.0, None, alg),
+                                       ("resample_count",),
+                                       f"ucsv via ssm_model bank {alg} {DT_M}x{DT_N}, T={T}")
+    y_lg, lg = torch.tensor(lg_series(), device="cuda"), _lg_cloud(torch, smc, DT_M, 1)
+    for label, inner, kernels in (
+            ("residual", ("residual", 1.0), ("fused_propagate_lg1",)),
+            ("metropolis", ("metropolis", 1.0), ("fused_propagate_lg1",)),
+            ("guided", ("systematic", 1.0, widened_proposal(smc, torch)), ("resample_count",))):
+        rows[f"bank_{label}"] = bank(lg, y_lg, inner, kernels,
+                                     f"lg bank {label} {DT_M}x{DT_N}, T={DT_T}")
+
+    def pg_same(a, b):
+        return tree_same(tuple(a), tuple(b))
+
+    cfg = smc.PGConfig(n_particles=PG_LG_N, sweeps=GRAPH_PG_DSL_SWEEPS, chain=PG_CHAIN,
+                       method="bs", collect_paths=True)
+    y_pg = torch.tensor(lg_series(PG_LG_T), device="cuda")
+    ar1 = ar1_dsl(smc, torch)
+    rows["pg_dsl_ar1"] = paired(
+        f"pg ar1 via ssm_model {PG_LG_CHAINS}x{PG_LG_N}, T={PG_LG_T}, {GRAPH_PG_DSL_SWEEPS}"
+        f" sweeps (cut from {PG_LG_SWEEPS})",
+        lambda: run_pg(torch, ar1, LG_PRIOR_SPEC, y_pg, cfg, 1500, PG_LG_CHAINS)[:3], pg_same,
+        lambda out: {}, lambda out: (PG_LG_T - 1) * (GRAPH_PG_DSL_SWEEPS + 1), profile=True,
+        routes=("pg", "stored"))
+    return rows
 
 
 def _runtime_calls(torch, fn) -> dict:
@@ -3977,7 +4107,7 @@ def replays_and_reads(torch, smc) -> dict:
     (state, infos), calls = _runtime_calls(torch, run)
     rejuv_t = (torch.nonzero(infos.rejuvenated).flatten() + 1).tolist()
     steps = len(infos.ess)
-    launches = steps + sum(CHAIN * ((t - 1) // s + (t - 1) % s) for t in rejuv_t)
+    launches = steps + sum(CHAIN * filter_graph_launches(t - 1) for t in rejuv_t)
     _, one = _runtime_calls(torch, lambda: sampler._resample_move(
         torch.Generator(device="cuda").manual_seed(1), state, y, torch.arange(T) < T))
     syncs = sum(calls[k] for k in SYNC_CALLS)
@@ -4014,7 +4144,7 @@ def pg_replays_and_reads(torch, smc) -> dict:
         lambda sweeps=sweeps: smc.particle_gibbs(
             torch.Generator(device="cuda").manual_seed(1500), smc.ucsv_model, prior, ys,
             smc.PGConfig(n_particles=PG_N, sweeps=sweeps, chain=PG_CHAIN)),
-        sweeps + (T - 1) // s + (T - 1) % s) for sweeps in GRAPH_PG_READ_SWEEPS}
+        sweeps + filter_graph_launches(T - 1)) for sweeps in GRAPH_PG_READ_SWEEPS}
     cases["csmc_bs_10sweeps"] = (lambda: iterate_csmc(torch, lg_star, y_csmc, "bs", 10), 10)
     for name, (fn, launches) in cases.items():
         def run(fn=fn):

@@ -21,10 +21,14 @@ from ..utils.struct import struct
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
-def _as_like(p, like: torch.Tensor) -> torch.Tensor:
-    """Probabilities ``p`` (a number, an array or a tensor) as a tensor of
-    ``like``'s dtype and device."""
-    return torch.as_tensor(p, dtype=like.dtype, device=like.device)
+def _as_like(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number, an array or a tensor) as a tensor of ``like``'s dtype
+    and device: a Python number as a fill on that device, not a copy from
+    host memory, so that a step captured into a CUDA graph reads nothing
+    from the host; a tensor of that dtype and device as itself."""
+    if isinstance(v, (int, float)):
+        return torch.full((), float(v), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
 def _std_pdf(t):

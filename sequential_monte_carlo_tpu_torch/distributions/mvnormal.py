@@ -24,9 +24,20 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _EIG_TOL = 1e-10
 
 
+def eigh(cov):
+    """``torch.linalg.eigh``, counted in ``eigh.calls``. On CUDA it checks
+    its errors on the host, which a CUDA-graph capture refuses: a route
+    whose step runs it keeps the eager loop (``ops/graphs.py``)."""
+    eigh.calls += 1
+    return torch.linalg.eigh(cov)
+
+
+eigh.calls = 0
+
+
 def _eig_parts(cov):
     """(eigenvectors, clipped eigenvalues, nonzero mask) of a PSD matrix."""
-    w, v = torch.linalg.eigh(cov)
+    w, v = eigh(cov)
     w = torch.clamp(w, min=0.0)
     tol = _EIG_TOL * torch.clamp(torch.amax(w, dim=-1, keepdim=True), min=1.0)
     return v, w, w > tol

@@ -31,13 +31,16 @@ Multi-state models pack the named states into a trailing (k,) axis through
 on an (M, k) θ gives a θ-cloud: the parameters the functions read are then
 (M,) tensors, and the states they are handed (..., M), as the batched
 filter's (N, M, dx) layout gives them. Numbers in the functions (``Normal(0.0,
-1.0)``) become tensors of θ's dtype and device, and every distribution's
-fields are broadcast to one batch shape, so that each θ row draws its own
-states.
+1.0)``) become tensors of θ's dtype and device (fills on that device, not
+copies from host memory), and every distribution's fields are broadcast to
+one batch shape, so that each θ row draws its own states.
 
 A DSL model has no fused kernel: the filters propagate it by plain tensor
 code over these distributions, as the JAX package does outside any Pallas
-kernel, while the resample stays on its kernel. ``linear_ssm_model``
+kernel, while the resample stays on its kernel. On the card the loops replay
+that code from CUDA graphs (``ops/graphs.py``), as JAX jits it: a function
+that reads the host (``float(p["a"])``, ``if p["a"] > 0:``) raises
+``graphs.CaptureError`` naming it at capture. ``linear_ssm_model``
 declares a linear-Gaussian model and returns the port's
 :class:`LinearGaussianModel`, which has the fused kernel, the Kalman filter
 and IBIS.
@@ -50,16 +53,17 @@ from typing import Callable, Mapping, Sequence
 import torch
 
 from ..distributions import Product, TupleProduct
+from ..distributions.core import _as_like
 from ..utils.struct import struct
 
 
 def _tensor_fields(dist, batch, like: torch.Tensor, trailing: bool = False):
-    """``dist`` with every field a tensor of ``like``'s dtype and device,
+    """``dist`` with every field a tensor of ``like``'s dtype and device
+    (a number a fill on that device, :func:`~..distributions.core._as_like`),
     broadcast to ``batch`` (the shape of its fields, θ's batch shape and the
     states' batch shape, broadcast), and with ``trailing`` a trailing
     length-1 component axis (a single-state model's)."""
-    vals = {f.name: torch.as_tensor(getattr(dist, f.name), dtype=like.dtype, device=like.device)
-            for f in dataclasses.fields(dist)}
+    vals = {f.name: _as_like(getattr(dist, f.name), like) for f in dataclasses.fields(dist)}
     batch = torch.broadcast_shapes(batch, *(v.shape for v in vals.values()))
     return dataclasses.replace(dist, **{
         k: (v.expand(batch)[..., None] if trailing else v.expand(batch))
@@ -96,16 +100,34 @@ class DSLModel:
             return Product(_tensor_fields(dists[0], batch, self.theta, trailing=True))
         return TupleProduct(tuple(_tensor_fields(d, batch, self.theta) for d in dists))
 
+    def _built(self, fn, role: str, build):
+        """``build()``, which calls the model's function ``fn``; inside a
+        CUDA-graph capture, a host read in it (``float(p["a"])``, ``if
+        p["a"] > 0:``, a number copied to the card) raises
+        ``graphs.CaptureError`` naming ``fn``, as JAX's jit refuses it."""
+        try:
+            return build()
+        except RuntimeError as err:
+            from ..ops.graphs import capture_error  # the ops layer sits above the models'
+            name = getattr(fn, "__qualname__", fn)
+            refusal = capture_error(err, f"the {role} function {name!r} of the DSL model"
+                                    f" {self.name!r}", self.theta.device)
+            if refusal is None:
+                raise
+            raise refusal from err
+
     def initial_distribution(self):
-        return self._pack(self.init_fn(self._params()), ())
+        return self._built(self.init_fn, "init",
+                           lambda: self._pack(self.init_fn(self._params()), ()))
 
     def transition_distribution(self, x):
-        return self._pack(self.transition_fn(self._params(), self._states(x)), x.shape[:-1])
+        return self._built(self.transition_fn, "transition", lambda: self._pack(
+            self.transition_fn(self._params(), self._states(x)), x.shape[:-1]))
 
     def observation_distribution(self, x):
-        dist = self.observe_fn(self._params(), self._states(x))
-        return _tensor_fields(dist, torch.broadcast_shapes(x.shape[:-1], self.theta.shape[:-1]),
-                              self.theta)
+        batch = torch.broadcast_shapes(x.shape[:-1], self.theta.shape[:-1])
+        return self._built(self.observe_fn, "observe", lambda: _tensor_fields(
+            self.observe_fn(self._params(), self._states(x)), batch, self.theta))
 
 
 class ModelSpec:
@@ -141,9 +163,8 @@ class ModelSpec:
             )
         defaults = dict(self._defaults)
         defaults.update(overrides)
-        if defaults:
-            tail = torch.stack([torch.as_tensor(defaults[n], dtype=theta.dtype, device=theta.device)
-                                for n in self._defaults])
+        if defaults:  # numbers as fills on θ's device: PG builds the model in its graph
+            tail = torch.stack([_as_like(defaults[n], theta) for n in self._defaults])
             theta = torch.cat([theta, tail.expand(theta.shape[:-1] + tail.shape)], dim=-1)
         return DSLModel(
             theta=theta,

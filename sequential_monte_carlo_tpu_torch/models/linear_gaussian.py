@@ -24,6 +24,7 @@ import math
 import torch
 
 from ..distributions import MvNormal, Normal, Product
+from ..distributions.mvnormal import eigh
 from ..kernels.propagate import ElementwiseUpdate, fused_elementwise_step
 from .base import as_f32_tensors
 from ..utils.struct import struct
@@ -123,7 +124,7 @@ class LinearGaussianModel:
         takes a singular Q (Hodrick–Prescott)."""
         if self.state_dim == 1:
             return torch.sqrt(self.Q)
-        s, V = torch.linalg.eigh(self.Q)
+        s, V = eigh(self.Q)
         return V * torch.sqrt(torch.clamp(s, min=0.0))[..., None, :]
 
     def fused_params(self):

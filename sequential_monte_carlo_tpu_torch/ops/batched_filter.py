@@ -106,8 +106,9 @@ inner loop) replays its steps on the card from CUDA graphs where the route
 is captured (:func:`captures`; :mod:`.graphs`: the port's form of the JAX
 package's jitted masked scan), several steps a launch; so do SMC²'s online
 step, ``filter_sequence`` and the smoothers' forward bank on the same
-routes. The eager loops run everywhere else and inside
-:func:`.graphs.disable_graphs`. Both give the same bits.
+routes: every model (the plain propagate route of a DSL model too), proposal
+and scheme, without a mesh or ``active_n``. The eager loops run on those and
+inside :func:`.graphs.disable_graphs`. Both give the same bits.
 
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
@@ -118,7 +119,6 @@ generator there.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import NamedTuple
 
@@ -214,8 +214,8 @@ def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=Non
     ``rows`` (θ-sharding), ``models`` is the whole bank, the cloud and
     ``params`` this rank's rows; with ``cols`` (particle sharding), the cloud
     is this rank's particles of them. ``out``: (new cloud, log-weights)
-    buffers that the model's kernel writes (the captured step's,
-    :mod:`.graphs`)."""
+    buffers that the step writes (the captured step's, :mod:`.graphs`): the
+    model's kernel in place, the plain route by a copy."""
     local = local_model(models, rows)
     if _has_kernel(models):
         return local.fused_propagate_reweight(y, cloud, params=params, normalize=False,
@@ -227,7 +227,9 @@ def propagate_reweight(models, y, cloud, draws, params=None, rows=None, cols=Non
         x_new = _mine(models.transition_distribution(_whole_bank(states, rows, cols))
                       .sample(draws), rows, cols)
     incr = local.observation_distribution(x_new).log_prob(y)
-    return x_new.permute(1, 2, 0).contiguous(), incr.T.contiguous()
+    if out is None:
+        return x_new.permute(1, 2, 0).contiguous(), incr.T.contiguous()
+    return out[0].copy_(x_new.permute(1, 2, 0)), out[1].copy_(incr.T)
 
 
 def _elastic_sorted_u(offsets: torch.Tensor, n: int, active_n: int) -> torch.Tensor:
@@ -462,8 +464,8 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     bank; ``active_n`` the elastic live count. Under particle sharding the
     particles and log-weights are the rank's slice of its rows, and u and
     the normals as :func:`_draws` keeps them. ``out``: on the routes the
-    masked filter captures (the fused kernel, no mesh), the (M, dx, N) cloud
-    and (M, N) log-weight buffers that the kernel writes in place."""
+    loops capture (no mesh, no ``active_n``), the (M, dx, N) cloud and
+    (M, N) log-weight buffers that the step writes (the kernel in place)."""
     rows = _rows(config, particles.shape[0])
     cols = _cols(config, particles.shape[1])
     n = particles.shape[1] if cols is None else cols.n
@@ -504,7 +506,7 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
         return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
     if config.proposal is None:
-        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params, rows, cols)
+        new, incr = propagate_reweight(models, y, xp, seed_or_normals, params, rows, cols, out)
     else:
         # (N, M, dx): the models' distributions' layout, the whole bank's
         # draw kept at this rank's rows and particles
@@ -512,10 +514,12 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
         q = config.proposal.step(models, states)
         x_new = q.sample(seed_or_normals)
         incr = _mine(_guided_increment(models, q, states, x_new, y), rows, cols).T
-        new = _mine(x_new, rows, cols).permute(1, 2, 0).contiguous()
+        new = _mine(x_new, rows, cols).permute(1, 2, 0)
+        new = new.contiguous() if out is None else out[0].copy_(new)
     if active_n is not None:
         incr = torch.where(live, incr, 0.0)  # the dead tail stays exactly −inf
-    log_mean, log_norm, ess = _log_normalize(lw + incr, cols, log_n=0.0)
+    log_mean, log_norm, ess = _log_normalize(lw + incr, cols, log_n=0.0,
+                                             out=None if out is None else out[1])
     return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess)
 
 
@@ -589,21 +593,22 @@ def batched_pf_step(generator, models, particles, log_w, y,
                                out)
 
 
-def captures(models, config: PFConfig, active_n, device) -> bool:
-    """Whether the loops over this inner filter replay captured steps
-    (:mod:`.graphs`): :func:`batched_log_likelihood_masked`, SMC²'s online
-    step, ``filter_sequence`` and the forward bank; at the multinomial
-    scheme also conditional SMC's and particle Gibbs's sweeps. On a CUDA
-    device, outside :func:`.graphs.disable_graphs`, with no mesh (its
-    collectives cannot be captured), no proposal, no ``active_n``, a model
-    with a fused kernel whose fields are all tensors, and resampling by
-    offsets (K1), on a stratified grid (K3) or multinomial (its plain
-    ancestors and gather). Every other route runs the eager loop."""
+def captures(config: PFConfig, active_n, device) -> bool:
+    """Whether the loops over an inner filter under ``config`` replay
+    captured steps (:mod:`.graphs`):
+    :func:`batched_log_likelihood_masked`, SMC²'s online step,
+    ``filter_sequence`` and the forward bank; at the multinomial scheme also
+    conditional SMC's and particle Gibbs's sweeps. On a CUDA device, outside
+    :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
+    captured) and no ``active_n`` (its live count is a host int that sets
+    the step's shapes): any model (a fused kernel's or the plain propagate
+    route of a DSL model; its tensor fields become the route's buffers, its
+    other leaves key it, :mod:`.graphs`), bootstrap, guided or auxiliary,
+    and every resampling scheme. A route whose step runs ``torch.linalg.eigh`` (an
+    ``MvNormal`` with ``allow_singular``), which checks its errors on the
+    host, runs its step bodies eagerly instead (:mod:`.graphs`)."""
     return (graphs.enabled() and device.type == "cuda" and config.mesh is None
-            and config.proposal is None and active_n is None and _has_kernel(models)
-            and config.resampling in _OFFSET_SCHEMES + ("stratified", "multinomial")
-            and all(isinstance(getattr(models, f.name), torch.Tensor)
-                    for f in dataclasses.fields(models)))
+            and active_n is None)
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
@@ -624,7 +629,7 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     particles, log_w, logz = init.particles, init.log_weights, init.log_mean
     params = kernel_params(models, config)
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
-    if live.numel() and captures(models, config, active_n, particles.device):
+    if live.numel() and captures(config, active_n, particles.device):
         return graphs.filter_live(generator, models, init, params, y, live, config)
     for t in live.tolist():
         out = batched_pf_step(generator, models, particles, log_w, y[t], config,

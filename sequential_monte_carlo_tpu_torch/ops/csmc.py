@@ -153,9 +153,10 @@ def _csmc_eager(generator, bank, n: int, y, ref, ancestor_sampling: bool, draw, 
 def _csmc_bank(generator, bank, n: int, y, ref, ancestor_sampling: bool, draw):
     """:func:`_csmc_eager` on the card replayed whole from one CUDA graph
     where the route is captured (``batched_filter.captures`` at the
-    multinomial scheme: a model with a kernel and tensor fields, no
-    :func:`.graphs.disable_graphs`; ``graphs.csmc_sweep``), else eagerly."""
-    if y.shape[0] > 1 and batched_filter.captures(bank, _MULTINOMIAL, None, ref.device):
+    multinomial scheme: any model, a DSL model's plain propagate route
+    too, outside :func:`.graphs.disable_graphs`; ``graphs.csmc_sweep``),
+    else eagerly."""
+    if y.shape[0] > 1 and batched_filter.captures(_MULTINOMIAL, None, ref.device):
         return graphs.csmc_sweep(generator, bank, n, y, ref, ancestor_sampling, draw, _csmc_eager)
     return _csmc_eager(generator, bank, n, y, ref, ancestor_sampling, draw)
 

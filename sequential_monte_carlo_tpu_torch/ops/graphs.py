@@ -26,22 +26,31 @@ bit: the same kernels and glue on the same inputs, the same Philox offsets,
 the same launch counts.
 
 Captured routes (:func:`~.batched_filter.captures`): on a CUDA device, no
-mesh, no ``proposal``, no ``active_n``, a model with a fused kernel whose
-fields are all tensors, resampling by offsets (``systematic``,
-``residual_systematic``: K1), on a stratified grid (K3) or multinomial
-(its plain ancestors and gather), at any ``ess_threshold`` (below 1 with
-K2's carry and the per-row selects), and the auxiliary filter on those
-schemes (the lookahead, K1 or K3 on the augmented cloud, K6 or K2 raw, the
-correction and normalize). A CSMC sweep is captured where its bank's
-filter would be at the multinomial scheme; a PG sweep too, unless the
-model's kernel parameters read the host (``params_read_host``: an LG model
-at dx > 1, whose ``torch.linalg.eigh`` checks its errors on the host; a
-capture refuses it), where the sweeps loop eagerly, each CSMC sweep on its
-route (its parameters packed outside the graph). Every other route runs the
-eager loop, chosen by the configuration: a mesh (its collectives cannot be
-captured), a guided proposal, a model without a kernel (the DSL's plain
-route), residual and metropolis, and the elastic ``active_n`` (so SMC²'s
-"full" padding).
+mesh, no ``active_n``; any model — a fused kernel's (K2, K6), or a DSL
+model's plain propagate route (its draw from the transition and the
+observation density, ~50 small launches a step, all captured) — whose
+tensor fields become buffers and whose other leaves (name, state names,
+functions by identity) key the route; the bootstrap, a guided ``proposal``
+(its step's draw and the importance-corrected weight; keyed by the
+proposal's functions) or the auxiliary filter (the lookahead, K1 or K3 on
+the augmented cloud, the propagate, the correction and normalize); every
+scheme: by offsets (``systematic``, ``residual_systematic``: K1), on a
+stratified grid (K3), multinomial, residual and metropolis (their
+ancestors on the device and a gather), at any ``ess_threshold`` (below 1
+with K2's carry or the plain normalize, and the per-row selects). A CSMC
+sweep is captured where its bank's filter would be at the multinomial
+scheme; a PG sweep too, unless the model's kernel parameters read the host
+(``params_read_host``: an LG model at dx > 1), where the sweeps loop
+eagerly, each CSMC sweep on its route (its parameters packed outside the
+graph). The eager loop runs, chosen by the configuration, under a mesh (its
+collectives cannot be captured) and the elastic ``active_n`` (so SMC²'s
+"full" padding). One rule is read from the warm-up (below): a step that
+runs ``torch.linalg.eigh`` (``distributions/mvnormal.py::eigh``: an
+``MvNormal`` with ``allow_singular``, the default, as an LG model's
+transition at dx > 1, so a guided proposal or a smoother's backward draw
+on it) is not captured, since CUDA's eigh checks its errors on the host,
+which a capture refuses; that route runs its step bodies eagerly through
+its buffers (``_Route.graphed`` False), with the same bits.
 
 - Buffers: a graph reads and writes only tensors of its own — two clouds
   and two log-weight planes (a step from buffer k writes buffer 1 − k: the
@@ -95,14 +104,18 @@ route), residual and metropolis, and the elastic ``active_n`` (so SMC²'s
 - Launch counts: the capture records the increase of every counter in the
   kernels' registry (``kernels/_build.py``) a graph and restores them; each
   replay adds its graph's increase, so the counts are the eager loop's.
-- Warm-up and capture: a route's first call runs one step eagerly on a side
-  stream through the buffers (Triton's specialization, the kernel library's
-  load and first-launch attributes), then undoes it (the generator's state,
-  the counters and the buffers restored), and captures with
-  ``capture_error_mode="global"``: a host sync inside a step raises.
+- Warm-up and capture: a route's first call runs one step eagerly (on the
+  card on a side stream) through the buffers (Triton's specialization, the
+  kernel library's load and first-launch attributes, the eigh rule), then
+  undoes it (the generator's state, the counters and the buffers
+  restored), and captures with ``capture_error_mode="global"``: a host sync
+  inside a step raises. A model's function, a proposal's step, ``summarize``,
+  ``model_fn`` or a prior that reads the host raises :class:`CaptureError`
+  naming it (:func:`capture_error`).
 - Cache: captured routes share one memory pool and sit in an LRU of
-  :data:`CACHE_SIZE`, keyed by the kind of route, the configuration, the
-  model's class and fields' shapes, the cloud's (M, dx, N) and dtype and
+  :data:`CACHE_SIZE`, keyed by the kind of route, the configuration (its
+  proposal's functions by identity), the model's tree (:func:`_tree_key`),
+  the cloud's (M, dx, N) and dtype and
   the observations' buffer size (a CSMC sweep's: the kind, the method,
   the bank's class and fields' shapes, (M, N, T, dx) and dtype; a PG
   sweep's also ``model_fn`` by identity, the prior's structure and the
@@ -112,7 +125,7 @@ route), residual and metropolis, and the elastic ``active_n`` (so SMC²'s
 
 On the CPU nothing is captured: a route's "replays" run its step body
 eagerly through the same buffers (the tests' way to hold the bodies against
-the eager loops).
+the eager loops), after the same warm-up.
 """
 from __future__ import annotations
 
@@ -123,8 +136,10 @@ import time
 
 import torch
 
+from ..distributions.mvnormal import eigh
 from ..kernels._build import add_launch_counts, launch_counts, set_launch_counts
 from . import batched_filter as _bf
+from .particle_filter import Proposal
 from .weights import ess_from_log_weights
 
 __all__ = ["CaptureError", "clear_graphs", "disable_graphs"]
@@ -140,6 +155,17 @@ _pool = None  # the memory pool every captured graph shares
 
 class CaptureError(RuntimeError):
     """A step body that cannot be captured (a host read inside it)."""
+
+
+def capture_error(err: RuntimeError, what: str, device):
+    """The :class:`CaptureError` naming ``what`` for ``err``, raised while
+    ``device``'s current stream is capturing; None outside a capture."""
+    if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        return None
+    return CaptureError(
+        f"{what} cannot be captured into a replayed graph: it reads the host (.item(), .cpu(),"
+        " a branch on a tensor, a tensor made from Python numbers on the device, ...). Make it"
+        f" capturable, or run inside disable_graphs(). ({err})")
 
 
 @contextlib.contextmanager
@@ -387,20 +413,24 @@ class _Route:
     """A captured route: its buffers, its body ``body(generator, k)``, its
     generator, its graphs by (first buffer, steps) (None until captured)
     and each graph's launches; ``k``, the buffer that holds the last step's
-    output; ``replays``, its graph launches (on the CPU, its bodies' runs
-    grouped as the graphs would launch them). A filter's route (``period``
-    2) captures one step from either buffer and, with ``multi``, also
-    :data:`STEPS_PER_GRAPH` steps from buffer 0; a sweep's (``period`` 1)
-    one body, whose outputs (``out``: what the body returned at capture, or
-    on the CPU at its last run) each replay rewrites in place. ``timing``:
-    the seconds of the warm-up, of the capture (the body's issue into the
-    graphs) and of the instantiation."""
+    output; ``replays``, its graph launches (where it has no graphs, its
+    bodies' runs grouped as the graphs would launch them). A filter's route
+    (``period`` 2) captures one step from either buffer and, with ``multi``,
+    also :data:`STEPS_PER_GRAPH` steps from buffer 0; a sweep's (``period``
+    1) one body, whose outputs (``out``: what the body returned at capture,
+    or at its last eager run) each replay rewrites in place. ``runs_eigh``:
+    the warm-up's body ran ``torch.linalg.eigh``; ``graphed``: the route
+    replays graphs (on the card, unless ``runs_eigh``), else it runs its
+    bodies eagerly through the buffers. ``timing``: the seconds of the
+    warm-up, of the capture (the body's issue into the graphs) and of the
+    instantiation."""
 
     def __init__(self, buffers, body, device, multi: bool, period: int = 2):
         self.buffers, self.body, self.device = buffers, body, device
         self.multi, self.period = multi, period
         self.generator = torch.Generator(device=device)
         self.graphs = None
+        self.runs_eigh = self.graphed = False
         self.launches = {}
         self.k = 0
         self.replays = 0
@@ -414,27 +444,35 @@ class _Route:
         self.k = 0
 
     def capture(self, generator, reload) -> None:
-        """The warm-up (the body once eagerly on a side stream, then undone:
-        the caller's generator state and the counters restored, ``reload()``
-        loading the buffers again), then the graphs. On the CPU, nothing."""
-        if self.device.type != "cuda":
-            self.graphs = {}
+        """The warm-up (the body once eagerly, on the card on a side stream,
+        then undone: the caller's generator state and the counters restored,
+        ``reload()`` loading the buffers again), then, on the card, the
+        graphs — unless the warm-up ran ``torch.linalg.eigh``, which checks
+        its errors on the host (a capture refuses it): such a route, as
+        every route on the CPU, runs its bodies eagerly."""
+        cuda = self.device.type == "cuda"
+        before, drawn, eighs = launch_counts(), generator.get_state(), eigh.calls
+        t0 = time.perf_counter()
+        if cuda:
+            side, main = torch.cuda.Stream(device=self.device), torch.cuda.current_stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.body(generator, 0)
+            main.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+        else:
+            self.body(generator, 0)
+        timing = {"warmup_s": time.perf_counter() - t0, "capture_s": 0.0, "instantiate_s": 0.0}
+        generator.set_state(drawn)
+        set_launch_counts(before)
+        self.runs_eigh, eigh.calls = eigh.calls != eighs, eighs
+        reload()
+        if not cuda or self.runs_eigh:
+            self.graphs, self.timing = {}, timing
             return
         global _pool
         if _pool is None:
             _pool = torch.cuda.graph_pool_handle()
-        before, drawn = launch_counts(), generator.get_state()
-        t0 = time.perf_counter()
-        side, main = torch.cuda.Stream(device=self.device), torch.cuda.current_stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self.body(generator, 0)
-        main.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        timing = {"warmup_s": time.perf_counter() - t0, "capture_s": 0.0, "instantiate_s": 0.0}
-        generator.set_state(drawn)
-        set_launch_counts(before)
-        reload()
         shapes = [(0, 1), (1, 1)] if self.period == 2 else [(0, 1)]
         if self.multi and STEPS_PER_GRAPH > 1:
             shapes.append((0, STEPS_PER_GRAPH))
@@ -466,12 +504,13 @@ class _Route:
         finally:
             set_launch_counts(before)  # a capture launches nothing
         self.graphs, self.launches, self.timing = graphs, launches, timing
+        self.graphed = True
 
     def _launch(self, generator, steps: int, times: int) -> None:
         """``times`` launches of the graph of ``steps`` steps from buffer
-        ``self.k`` (on the CPU, its bodies with ``generator``)."""
+        ``self.k`` (with no graphs, its bodies with ``generator``)."""
         k = self.k
-        if self.device.type == "cuda":
+        if self.graphed:
             g = self.graphs[(k, steps)]
             for _ in range(times):
                 g.replay()
@@ -488,20 +527,20 @@ class _Route:
         with the caller's generator state: ⌊steps/S⌋ launches of the S-step
         graph (from buffer 0, on the routes that have one), then one launch
         a step."""
-        cuda = self.device.type == "cuda"
-        if cuda:
+        if self.graphed:
             self.generator.set_state(generator.get_state())
         if self.multi and STEPS_PER_GRAPH > 1 and self.k == 0 and steps >= STEPS_PER_GRAPH:
             self._launch(generator, STEPS_PER_GRAPH, steps // STEPS_PER_GRAPH)
             steps %= STEPS_PER_GRAPH
         for _ in range(steps):
             self._launch(generator, 1, 1)
-        if cuda:
+        if self.graphed:
             generator.set_state(self.generator.get_state())
 
 
 def _key(models, params, cloud, y, config, capacity: int) -> tuple:
-    return (config.algorithm, config.resampling, config.ess_threshold, _tree_key(models),
+    return (config.algorithm, config.resampling, config.ess_threshold,
+            _tree_key(config.proposal), _tree_key(models),
             None if params is None else tuple(params.shape), tuple(cloud.shape), cloud.dtype,
             cloud.device, y.dtype, capacity)
 
@@ -531,7 +570,8 @@ def _filter_route(kind, generator, models, init, params, y, live, config, record
         buffers = StepBuffers(models, params, cloud, init.log_weights, y, capacity)
         if record_for is not None:
             buffers.record = record_for(buffers)
-        return _Route(buffers, lambda gen, k: buffers.step(gen, config, k), cloud.device, True)
+        cfg = _guarded(config, cloud.device)
+        return _Route(buffers, lambda gen, k: buffers.step(gen, cfg, k), cloud.device, True)
 
     return _ready(key, make, lambda route: route.load(models, params, init, y, live), generator)
 
@@ -572,13 +612,10 @@ def filter_stored(generator, models, init, params, y, config, emit, tag):
             try:
                 values = _leaves(emit(out))
             except RuntimeError as err:
-                if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-                    raise CaptureError(
-                        f"{tag[-1]!r} cannot be captured into the replayed step: it reads the"
-                        " host (.item(), .cpu(), a tensor made from Python numbers on the"
-                        " device, ...). Make it capturable, or run inside"
-                        f" disable_graphs(). ({err})") from err
-                raise
+                refusal = capture_error(err, repr(tag[-1]), device)
+                if refusal is None:
+                    raise
+                raise refusal from err
             for store, value in zip(buffers.stores, values, strict=True):
                 store.index_copy_(0, t, value.unsqueeze(0))
         return record
@@ -607,8 +644,8 @@ def online_route(generator, sampler, state, y) -> _Route:
 
     def make():
         buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min)
-        return _Route(buffers, lambda gen, k: buffers.step(gen, cfg.inner, k), cloud.device,
-                      False)
+        inner = _guarded(cfg.inner, cloud.device)
+        return _Route(buffers, lambda gen, k: buffers.step(gen, inner, k), cloud.device, False)
 
     return _ready(key, make, lambda route: route.load(models, params, state, y), generator)
 
@@ -643,13 +680,21 @@ def _guard(fn, what: str, device):
         try:
             return fn(*args)
         except RuntimeError as err:
-            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-                raise CaptureError(
-                    f"{what} cannot be captured into the replayed sweep: it reads the host"
-                    " (.item(), .cpu(), a tensor made from Python numbers on the device, ...)."
-                    f" Make it capturable, or run inside disable_graphs(). ({err})") from err
-            raise
+            refusal = capture_error(err, what, device)
+            if refusal is None:
+                raise
+            raise refusal from err
     return call
+
+
+def _guarded(config, device):
+    """``config`` with its proposal's step guarded (:func:`_guard`, naming
+    it), as a route's body calls it."""
+    p = config.proposal
+    if p is None:
+        return config
+    return config._replace(proposal=Proposal(
+        p.initial, _guard(p.step, f"the proposal's step {_name(p.step)!r}", device)))
 
 
 def _clone(tree):

@@ -200,7 +200,7 @@ def filter_sequence(generator, model, n: int, y, config: PFConfig = PFConfig(),
         return d
 
     init = _bf.batched_pf_init(generator, bank, n, 1, y[0], config)
-    if y.shape[0] > 1 and _bf.captures(bank, config, None, init.log_weights.device):
+    if y.shape[0] > 1 and _bf.captures(config, None, init.log_weights.device):
         particles, log_w, _, series = graphs.filter_stored(
             generator, bank, init, params, y, config, lambda o: emit(_row(o)),
             ("filter_sequence", summarize))

@@ -23,7 +23,9 @@ def _row_cumsum(w: torch.Tensor) -> torch.Tensor:
     scans a tensor of one row with CUB's decoupled look-back, whose float
     sums past one tile can group otherwise from run to run (so a replayed
     and an eager run could part); such a row is scanned beside a copy of
-    itself by the per-row kernel, whose order is fixed."""
+    itself by the per-row kernel, whose order is fixed. Every float cdf of
+    the resamplers here goes through it (the inverse cdf, residual's
+    remainders)."""
     if w.is_cuda and w.numel() == w.shape[-1] > 1:
         return torch.cumsum(w.reshape(1, -1).expand(2, -1), dim=-1)[0].reshape(w.shape)
     return torch.cumsum(w, dim=-1)
@@ -79,7 +81,7 @@ def _residual_from_uniforms(u: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     nw = n * w
     floor = torch.floor(nw)
     n_det = torch.sum(floor, dim=-1).to(torch.int32)  # Σ floor(n·w) ≤ n
-    cdf = torch.cumsum(nw - floor, dim=-1)
+    cdf = _row_cumsum(nw - floor)
     cdf = cdf / torch.clamp(cdf[..., -1:], min=torch.finfo(w.dtype).tiny)
     draws = torch.clamp(torch.searchsorted(cdf, u.contiguous()), max=size - 1)
     # only the first R = n − Σ floor draws are live

@@ -104,7 +104,7 @@ def _forward_bank(generator, models, n: int, m: int, y, config: PFConfig):
     each set of log-weights into (T, m, N) (``ops/graphs.py``)."""
     out = batched_pf_init(generator, models, n, m, y[0], config)
     params = kernel_params(models, config)
-    if y.shape[0] > 1 and batched_filter.captures(models, config, None, out.log_weights.device):
+    if y.shape[0] > 1 and batched_filter.captures(config, None, out.log_weights.device):
         _, _, logz, (clouds, lws) = graphs.filter_stored(
             generator, models, out, params, y, config,
             lambda o: (as_cloud(o.particles), o.log_weights), ("forward_bank",))

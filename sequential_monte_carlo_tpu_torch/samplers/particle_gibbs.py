@@ -179,7 +179,7 @@ def _particle_gibbs_bank(generator, bank_fn, prior, y, config: PGConfig, theta0,
     xs, lw, _ = _forward_bank(generator, bank, n, k, y, _MULTINOMIAL)
     path = _sample_paths(generator, xs.transpose(1, 2), lw.transpose(1, 2), bank, 1)[:, 0]
     log_lam = torch.zeros(k, **f32)
-    if (batched_filter.captures(bank, _MULTINOMIAL, None, device)
+    if (batched_filter.captures(_MULTINOMIAL, None, device)
             and not getattr(bank, "params_read_host", False)):
         static = (config._replace(sweeps=0), event)
         thetas, accs, path, paths = graphs.pg_chain(

@@ -318,8 +318,8 @@ class SMC2:
         """Whether the online steps replay a captured route: the inner
         filter's route is captured (``batched_filter.captures``) and the
         arrays carry no live count ("full" padding keeps the eager step)."""
-        return not self._use_active and _bf.captures(
-            self.model_fn(state.theta), self.config.inner, None, state.theta.device)
+        return not self._use_active and _bf.captures(self.config.inner, None,
+                                                     state.theta.device)
 
     @staticmethod
     def _owned(state: SMC2State) -> SMC2State:

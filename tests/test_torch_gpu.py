@@ -1053,10 +1053,11 @@ def test_graph_replays_equal_eager(cuda, kind, inner, n):
 
 
 @pytest.mark.parametrize("route", ["guided", "dsl", "metropolis"])
-def test_uncaptured_routes_run_eagerly(cuda, route):
-    """A guided proposal, a DSL model and the metropolis resampler keep the
-    eager loop on the card: nothing is captured, and the run equals the one
-    under ``disable_graphs`` bit for bit with the same launch counts."""
+def test_guided_dsl_and_metropolis_routes_replay(cuda, route):
+    """A guided proposal, a DSL model and the metropolis resampler replay
+    graphs on the card: one route is cached and replayed, and the run
+    equals the one under ``disable_graphs`` bit for bit with the same
+    launch counts."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.ops import graphs
 
@@ -1071,7 +1072,9 @@ def test_uncaptured_routes_run_eagerly(cuda, route):
     with smc.disable_graphs():
         ref = _masked_run(0, bank, 64, 1024, y, mask, inner, cuda)
     got = _masked_run(0, bank, 64, 1024, y, mask, inner, cuda)
-    assert not graphs._cache
+    (captured,) = graphs._cache.values()
+    assert captured.graphed and captured.replays == 39 // graphs.STEPS_PER_GRAPH + 39 % (
+        graphs.STEPS_PER_GRAPH)
     for a, b in zip(got[0], ref[0]):
         assert torch.equal(a, b)
     assert got[1] == ref[1] and torch.equal(got[2], ref[2])

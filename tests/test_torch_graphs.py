@@ -255,16 +255,25 @@ def _guided():
                          step=lambda mm, xp: mm.transition_distribution(xp))
 
 
+def _mvnormal_guided():
+    """A guided proposal whose step is an ``MvNormal`` (its eigh path)."""
+    return tsmc.Proposal(initial=lambda mm: mm.initial_distribution(),
+                         step=lambda mm, xp: tsmc.MvNormal(xp, mm.Q))
+
+
 @pytest.mark.parametrize("case,captured", [
     ("systematic", True), ("residual_systematic", True), ("stratified", True),
     ("stratified_ess", True), ("systematic_ess", True), ("apf", True), ("apf_stratified", True),
-    ("multinomial", True), ("residual", False), ("metropolis", False), ("guided", False),
-    ("active_n", False), ("mesh", False), ("dsl", False), ("cpu", False),
+    ("multinomial", True), ("residual", True), ("metropolis", True), ("guided", True),
+    ("guided_mvnormal", True), ("active_n", False), ("mesh", False), ("dsl", True),
+    ("cpu", False),
 ])
-def test_captured_routes(case, captured):
+def test_captured_routes(case, captured, monkeypatch):
     """The routes the masked filter replays on the card, and the ones it
-    keeps eager, by configuration alone."""
-    models = _bank("lg", 4, 0)
+    keeps eager, by configuration alone: the gate reads no model, so a DSL
+    bank (no fused kernel) takes its route too. An ``MvNormal`` proposal is
+    admitted here; its route runs its bodies eagerly by the warm-up's eigh
+    rule (``tests/test_torch_route_graphs.py``)."""
     cfg = {"systematic": tsmc.PFConfig(), "residual_systematic": tsmc.PFConfig(
         "residual_systematic"), "stratified": tsmc.PFConfig("stratified"),
         "stratified_ess": tsmc.PFConfig("stratified", 0.5),
@@ -273,32 +282,41 @@ def test_captured_routes(case, captured):
         "apf_stratified": tsmc.PFConfig("stratified", algorithm="apf"),
         "multinomial": tsmc.PFConfig("multinomial"), "residual": tsmc.PFConfig("residual"),
         "metropolis": tsmc.PFConfig("metropolis"), "guided": tsmc.PFConfig(proposal=_guided()),
+        "guided_mvnormal": tsmc.PFConfig(proposal=_mvnormal_guided()),
         "mesh": tsmc.PFConfig(mesh=_Mesh())}.get(case, tsmc.PFConfig())
-    if case == "dsl":
+    device = torch.device("cpu" if case == "cpu" else "cuda")
+    active_n = 32 if case == "active_n" else None
+    assert tbf.captures(cfg, active_n, device) is captured
+    if case == "dsl":  # with the gate answering as on the card, the DSL filter takes a route
         models = tsmc.ssm_model(
             "ar1", params=("a",), init=lambda p: dict(x=tsmc.Normal(0.0, 1.0)),
             transition=lambda p, prev: dict(x=tsmc.Normal(p["a"] * prev["x"], 1.0)),
             observe=lambda p, s: tsmc.Normal(s["x"], 1.0))(torch.full((4, 1), 0.5))
-    device = torch.device("cpu" if case == "cpu" else "cuda")
-    active_n = 32 if case == "active_n" else None
-    assert tbf.captures(models, cfg, active_n, device) is captured
+        gate = tbf.captures
+        monkeypatch.setattr(tbf, "captures", lambda config, active_n, device: gate(
+            config, active_n, torch.device("cuda")))
+        graphs.clear_graphs()
+        tbf.batched_log_likelihood(torch.Generator().manual_seed(0), models, 16, 4,
+                                   torch.from_numpy(_series(6)), cfg)
+        assert [key[0] for key in graphs._cache] == ["masked"]
+        graphs.clear_graphs()
 
 
 def test_disable_graphs_nests_and_restores():
     """``disable_graphs`` turns every route eager inside the block, nests,
     and restores the setting before it, also on an exception."""
     models, cfg, cuda = _bank("ucsv", 4, 0), tsmc.PFConfig(), torch.device("cuda")
-    assert tbf.captures(models, cfg, None, cuda)
+    assert tbf.captures(cfg, None, cuda)
     with tsmc.disable_graphs():
-        assert not tbf.captures(models, cfg, None, cuda)
+        assert not tbf.captures(cfg, None, cuda)
         with tsmc.disable_graphs():
-            assert not tbf.captures(models, cfg, None, cuda)
-        assert not tbf.captures(models, cfg, None, cuda)
-    assert tbf.captures(models, cfg, None, cuda)
+            assert not tbf.captures(cfg, None, cuda)
+        assert not tbf.captures(cfg, None, cuda)
+    assert tbf.captures(cfg, None, cuda)
     with pytest.raises(KeyError):
         with tsmc.disable_graphs():
             raise KeyError("inside")
-    assert tbf.captures(models, cfg, None, cuda)
+    assert tbf.captures(cfg, None, cuda)
     tsmc.clear_graphs()  # no CUDA: drops the (empty) cache only
     assert not graphs._cache
 

@@ -49,8 +49,8 @@ def routed(monkeypatch):
     """``captures`` as on the card: the loops take their routes on the CPU
     (the bodies run eagerly through the buffers)."""
     captures = tbf.captures
-    monkeypatch.setattr(tbf, "captures", lambda models, config, active_n, device: captures(
-        models, config, active_n, torch.device("cuda")))
+    monkeypatch.setattr(tbf, "captures", lambda config, active_n, device: captures(
+        config, active_n, torch.device("cuda")))
     graphs.clear_graphs()
     yield
     graphs.clear_graphs()

@@ -60,8 +60,8 @@ def routed(monkeypatch):
     """``captures`` as on the card: the loops take their routes on the CPU
     (the bodies run eagerly through the buffers)."""
     captures = tbf.captures
-    monkeypatch.setattr(tbf, "captures", lambda models, config, active_n, device: captures(
-        models, config, active_n, torch.device("cuda")))
+    monkeypatch.setattr(tbf, "captures", lambda config, active_n, device: captures(
+        config, active_n, torch.device("cuda")))
     graphs.clear_graphs()
     yield
     graphs.clear_graphs()
@@ -292,8 +292,8 @@ def test_routed_pg_posterior_matches_jax():
     cfg = dict(n_particles=128, sweeps=400, chain=3)
     with pytest.MonkeyPatch.context() as mp:
         captures = tbf.captures
-        mp.setattr(tbf, "captures", lambda models, config, active_n, device: captures(
-            models, config, active_n, torch.device("cuda")))
+        mp.setattr(tbf, "captures", lambda config, active_n, device: captures(
+            config, active_n, torch.device("cuda")))
         graphs.clear_graphs()
         gen = torch.Generator().manual_seed(11)
         res = _particle_gibbs_bank(gen, tsmc.lg_model, prior, torch.from_numpy(y),

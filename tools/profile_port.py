@@ -8,7 +8,9 @@ T=100, chain=3) with (a) the systematic inner filter at every step and
 (b) the stratified one triggered at ESS < N/2; 512 parallel LG filters at θ*
 (config 3); online SMC² on UC-SV at 512 × 1024 (bench.py) and at the
 flagship 512 × 8192; the 512 × 1024 SMC² and the LG filters with the
-auxiliary particle filter inside; one θ's UC-SV filter_sequence at N=8192
+auxiliary particle filter inside; the LG filters with the residual and
+metropolis schemes and with the guided proposal (the transition widened
+1.5-fold); one θ's UC-SV filter_sequence at N=8192
 with a quantile summary, smoothed_marginals on UC-SV at N=8192 (the blocked
 backward pass), posterior_smoothed_paths (8 θ × 64 paths, N=8192, from a
 512-θ cloud at chip_smoke.JAX_MEAN), 10 sweeps of particle Gibbs on UC-SV at
@@ -23,12 +25,16 @@ cell once to warm up, once unprofiled for the wall-clock, and once under
 peak of allocated device memory. Each cell runs ``graphed`` (the default
 path: the masked filter, SMC²'s online step, ``filter_sequence``, the
 forward bank, and particle Gibbs's and conditional SMC's sweeps replay
-their captured CUDA graphs where the route is captured, ``ops/graphs.py``),
-then ``eager`` (inside ``disable_graphs()``).
+their captured CUDA graphs where the route is captured, ``ops/graphs.py``:
+every route without a mesh or ``active_n``, the DSL's plain propagate
+route, a guided proposal, residual and metropolis included), then
+``eager`` (inside ``disable_graphs()``).
 Prints one JSON line per cell and mode and writes them all to ``--out``;
 ``--cells`` picks cells by name. Needs a CUDA device.
 
     python3 tools/profile_port.py --cells smc2_ucsv_512x8192   # the flagship
+    python3 tools/profile_port.py --cells smc2_ucsv_dsl_512x1024 filters_lg_residual_512 \
+        filters_lg_metropolis_512 filters_lg_guided_512   # the DSL and the other inner routes
 """
 from __future__ import annotations
 
@@ -68,6 +74,10 @@ def _cells(torch):
             "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed),
             "smc2_ucsv_512x8192": lambda seed: cs.run_slice(torch, 8192, seed),
             "filters_lg_apf_512": filters(cs.APF),
+            "filters_lg_residual_512": filters(("residual", 1.0)),
+            "filters_lg_metropolis_512": filters(("metropolis", 1.0)),
+            "filters_lg_guided_512": filters(("systematic", 1.0,
+                                              cs.widened_proposal(smc, torch))),
             "smc2_ucsv_apf_512x1024": lambda seed: cs.run_apf_smc2(
                 torch, smc.ucsv_model, cs.PRIOR_SPEC, cs.series(torch, "cuda"), cs.CHAIN, seed),
             **_smoothing_cells(torch, smc, prior_from_spec),
