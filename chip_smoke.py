@@ -71,7 +71,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
      (a) "grow" through step + maybe_exchange (K1 + K2-UC-SV at N = 1024 …
      8192), (b) "full" padding (arrays 512×8192 from the init; K3 on the
      live-prefix grid + K6 raw, the dead tail at exactly −inf), (c)
-     run_segmented with a collect_fn: N doubling to 8192 and never above,
+     run_segmented with a collect_fn (captured into the replayed step, t and
+     the pending flag device tensors): N doubling to 8192 and never above,
      launch counts equal to the schedule's, posteriors against the JAX
      package's bootstrap mean; (d) K3 on the elastic grid at 512×8192 against
      its plain version; walls per inner step printed, and of (a) and (b)
@@ -85,7 +86,9 @@ Phases, one line each or more; any failure raises and exits non-zero:
      components), bootstrap (K1 + K2-lgX) and APF (K1 + K2-lgX raw), against
      the Kalman log Z;
  17. ibis   — IBIS (no kernel) on the dt phase's prior and series, M=512,
-     chain=3, against the exact prior-IS posterior mean;
+     chain=3, replayed (its online route, one flag read a step, and each
+     rejuvenation's Kalman passes on the live route, their graph launches
+     held against the count), against the exact prior-IS posterior mean;
  18. routes — 512 LG filters at θ*, N=1024, T=100, with the
      residual_systematic (K1), multinomial and residual inner schemes and a
      guided proposal (the transition widened 1.5-fold; K1, no propagate
@@ -248,7 +251,16 @@ Phases, one line each or more; any failure raises and exits non-zero:
      GRAPH_APF_T observations; the DSL UC-SV bank at 512×1024, bootstrap
      and APF; the residual, metropolis and guided LG banks at 512×1024,
      T=100; particle Gibbs on the DSL AR(1), 8 chains at 60×128, cut to
-     GRAPH_PG_DSL_SWEEPS sweeps.
+     GRAPH_PG_DSL_SWEEPS sweeps. Then IBIS (phase 17's run: its online route
+     and the rejuvenations' Kalman passes) and kalman_filter at a 512-θ bank
+     (the Kalman store route), each against its eager twin the same way; the
+     inflation collector's run_segmented (UC 512×1024, captured collector)
+     and the same run without a collector under the profiler with the host's
+     activity: the same graph launches and the same host launches between
+     each two (no collector launch between replays); and phase 17's run under
+     the profiler: its graph launches one an online step plus the Kalman
+     passes' ⌊t/S⌋ + t mod S each, its host syncs one an online step plus a
+     rejuvenation's own, and a Kalman pass alone none.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -1497,10 +1509,10 @@ def run_exchange(torch, pad: str, via: str, seed: int = SEED):
     t0 = time.perf_counter()
     if via == "segmented":
         # per step, before a doubling's service: the posterior mean, and t
-        # and the pending flag, which give the doublings' refilters
+        # and the pending flag, which give the doublings' refilters (device
+        # tensors: the collector runs inside the replayed step)
         def collect(st):
-            return (smc.expected_parameters(st), torch.tensor(st.t),
-                    torch.tensor(st.exchange_pending))
+            return smc.expected_parameters(st), st.t, st.exchange_pending
 
         state, (infos, (series_out, ts, pending)) = sampler.run_segmented(
             gen, y, segment_size=16, collect_fn=collect)
@@ -1764,16 +1776,39 @@ def check_lg_dx(torch, shapes, gen):
     return res, total
 
 
-def check_ibis(torch):
-    """IBIS on the dt phase's prior and series (M=512, chain=3, T=100): the
-    posterior mean against the exact prior-IS oracle, within the dt phase's
-    tolerance; no kernel launches."""
+def ibis_sampler(torch):
+    """The ibis phase's sampler (M=512, chain=3, ESS threshold 0.5, the dt
+    phase's prior) and series (T=100)."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
 
-    ibis = smc.IBIS(smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device="cuda"),
-                    smc.SMCConfig(n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5))
-    y = torch.tensor(lg_series(), device="cuda")
+    return (smc.IBIS(smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device="cuda"),
+                     smc.SMCConfig(n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5)),
+            torch.tensor(lg_series(), device="cuda"))
+
+
+def kalman_graph_launches(infos, chain: int) -> int:
+    """The Kalman route's graph launches of an IBIS run: at each
+    rejuvenation at t, ``chain`` passes over y[0:t], ⌊t/S⌋ + t mod S each."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    s = graphs.STEPS_PER_GRAPH
+    # step i runs at t = i + 1
+    ts = [i + 1 for i, fired in enumerate(infos.rejuvenated.tolist()) if fired]
+    return sum(chain * (t // s + t % s) for t in ts)
+
+
+def check_ibis(torch):
+    """IBIS on the dt phase's prior and series (M=512, chain=3, T=100),
+    replayed (its online route and its rejuvenations' Kalman passes): the
+    posterior mean against the exact prior-IS oracle, within the dt phase's
+    tolerance; no kernel launches; one replay and one flag read an online
+    step, and the Kalman route's replays as counted."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    ibis, y = ibis_sampler(torch)
+    smc.clear_graphs()  # so that the cache's routes of these kinds are this run's
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1781,13 +1816,21 @@ def check_ibis(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_counts("ibis", launch_counts(), {})
+    (route,) = [r for key, r in graphs._cache.items() if key[0] == "ibis"]
+    online, reads = route.replays, route.buffers.reads
+    kalman = sum(r.replays for key, r in graphs._cache.items() if key[0] == "kalman")
+    want = kalman_graph_launches(infos, DT_CHAIN)
+    if not (online == reads == DT_T - 1 and kalman == want):
+        raise AssertionError(f"ibis: {online} online replays and {reads} flag reads for"
+                             f" {DT_T - 1} steps, {kalman} Kalman replays for {want}")
     mean = smc.expected_parameters(state).cpu().numpy()
     oracle, _ = kalman_is_oracle(torch)
     tol = TOL_Z * np.asarray(DT_JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
     if not np.all(np.abs(mean - oracle) <= tol):
         raise AssertionError(f"ibis: posterior mean {mean} vs the oracle {oracle} beyond {tol}")
     say("ibis", shape=f"{DT_M} θ", T=DT_T, chain=DT_CHAIN, wall_s=round(wall, 4),
-        rejuvenations=int(infos.rejuvenated.sum()), posterior_mean=np.round(mean, 5).tolist(),
+        rejuvenations=int(infos.rejuvenated.sum()), online_replays=online, flag_reads=reads,
+        kalman_replays=kalman, posterior_mean=np.round(mean, 5).tolist(),
         oracle=np.round(oracle, 5).tolist(), tolerance=np.round(tol, 5).tolist())
     return state
 
@@ -3980,6 +4023,9 @@ def check_graphs(torch, flagship):
             lambda out: {"fused_propagate_lg1_raw": (CSMC_T - 1) * GRAPH_CSMC_SWEEPS},
             lambda out: (CSMC_T - 1) * GRAPH_CSMC_SWEEPS, profile=True, routes=("csmc",))
     rows.update(inner_route_cells(torch, smc, paired, smc2_same))
+    rows.update(ibis_cells(torch, smc, paired))
+    rows["collector_launches"] = collector_launches(torch, smc)
+    rows["ibis_replays_and_reads"] = ibis_replays_and_reads(torch, smc)
     rows["replays_and_reads"] = replays_and_reads(torch, smc)
     rows["pg_replays_and_reads"] = pg_replays_and_reads(torch, smc)
     rows["replay_split"] = replay_split(torch, smc)
@@ -4058,11 +4104,12 @@ def inner_route_cells(torch, smc, paired, smc2_same) -> dict:
     return rows
 
 
-def _runtime_calls(torch, fn) -> dict:
-    """(fn()'s result, counts of the CUDA runtime calls it made, by name),
-    under torch.profiler with the host's activity, the trace taken whole
-    (:func:`_profiled`): the calls that lie inside its RUN_SPAN annotation,
-    so neither the window's markers nor its synchronizes."""
+def _runtime_trace(torch, fn) -> tuple:
+    """(fn()'s result, the names of the CUDA API calls (``cuda*``, ``cu*``)
+    it made, in the order made), under torch.profiler with the host's
+    activity, the trace taken whole (:func:`_profiled`): the calls that lie
+    inside its RUN_SPAN annotation, so neither the window's markers nor its
+    synchronizes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -4070,9 +4117,154 @@ def _runtime_calls(torch, fn) -> dict:
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CPU]
     (span,) = [e for e in events if e.name() == RUN_SPAN]
-    return out, collections.Counter(
-        e.name() for e in events if e.name().startswith("cuda")
-        and span.start_ns() <= e.start_ns() and e.end_ns() <= span.end_ns())
+    return out, [e.name() for e in sorted(events, key=lambda e: e.start_ns())
+                 if e.name().startswith("cu") and span.start_ns() <= e.start_ns()
+                 and e.end_ns() <= span.end_ns()]
+
+
+def _runtime_calls(torch, fn) -> dict:
+    """(fn()'s result, counts of the CUDA runtime calls it made, by name;
+    :func:`_runtime_trace`)."""
+    out, names = _runtime_trace(torch, fn)
+    return out, collections.Counter(name for name in names if name.startswith("cuda"))
+
+
+def _launch_gaps(names) -> list:
+    """The host's launches (kernels, copies, fills) between consecutive
+    graph launches of a trace's calls: one count before the first, one
+    after each."""
+    gaps = [0]
+    for name in names:
+        if name == "cudaGraphLaunch":
+            gaps.append(0)
+        elif any(k in name for k in ("LaunchKernel", "Memcpy", "Memset")):
+            gaps[-1] += 1
+    return gaps
+
+
+def ibis_cells(torch, smc, paired) -> dict:
+    """Phase 30's IBIS cells through ``paired`` (graphed, then its eager
+    twin, bit for bit, launch counts — none: IBIS runs no kernel of the
+    port —, walls, busy share, graph pool, capture seconds): the ibis
+    phase's run (LG, 512 θ, T=100, chain 3; its online route and the
+    rejuvenations' Kalman passes on the live route), and kalman_filter at a
+    512-θ bank of prior draws over the same series (the store route)."""
+    ibis, y = ibis_sampler(torch)
+    fields = ("theta", "log_omega", "mean", "cov", "log_z", "ess", "acc_ratio")
+
+    def run_ibis():
+        return _counted(torch, lambda: ibis.run(torch.Generator(device="cuda").manual_seed(SEED),
+                                                y))
+
+    def ibis_same(a, b):
+        (sa, ia), (sb, ib) = a, b
+        same = {k: bool(torch.equal(getattr(sa, k), getattr(sb, k))) for k in fields}
+        same.update({f"info_{k}": bool(torch.equal(getattr(ia, k), getattr(ib, k)))
+                     for k in ia._fields})
+        return same
+
+    def kalman_steps(out):
+        ts = [i + 1 for i, fired in enumerate(out[1].rejuvenated.tolist()) if fired]
+        return (DT_T - 1) + sum(DT_CHAIN * t for t in ts)
+
+    rows = {"ibis": paired(f"ibis lg {DT_M} θ, T={DT_T}, chain {DT_CHAIN}", run_ibis, ibis_same,
+                           lambda out: {}, kalman_steps, profile=True, routes=("ibis", "kalman"))}
+    models = smc.lg_model(ibis.prior.sample(torch.Generator(device="cuda").manual_seed(77),
+                                            (DT_M,)))
+
+    def run_kalman_filter():
+        return _counted(torch, lambda: smc.kalman_filter(models, y))
+
+    rows["kalman_filter"] = paired(
+        f"kalman_filter lg {DT_M} θ, T={DT_T}", run_kalman_filter,
+        lambda a, b: {f"out{i}": bool(torch.equal(x, z)) for i, (x, z) in enumerate(zip(a, b))},
+        lambda out: {}, lambda out: DT_T, profile=True, routes=("kalman",))
+    return rows
+
+
+def collector_launches(torch, smc) -> dict:
+    """``run_segmented`` on the UC model at the inflation example's FULL
+    size (512×1024, chain 3, the PCE series), graphed, with the example's
+    collector and without one, each under torch.profiler with the host's
+    activity, its routes captured before: the same graph launches, and the
+    host's launches between consecutive graph launches (the flag reads and
+    the rejuvenations) the same gap for gap — the captured collector adds
+    none between replays; only the series' copy-out after the last differs."""
+    from sequential_monte_carlo_tpu_torch.examples import inflation as ex
+
+    y = ex.load_pce("cuda")[1]
+    n, m, chain = ex.FULL_SIZES["uc"]
+    sampler = smc.SMC2(smc.uc_model, ex.uc_prior("cuda"), smc.SMCConfig(
+        n_particles=n, n_theta=m, chain=chain, ess_threshold=ex.ESS_THRESHOLD))
+    row, gaps = {"run": f"run_segmented uc {m}x{n}, collector launches, graphed"}, {}
+    for name, collect in (("collector", ex.online_collector(y)), ("none", None)):
+        def run(collect=collect):
+            out = sampler.run_segmented(torch.Generator(device="cuda").manual_seed(SEED), y,
+                                        segment_size=16, collect_fn=collect)
+            torch.cuda.synchronize()
+            return out
+        run()  # the captures
+        _, names = _runtime_trace(torch, run)
+        gaps[name] = _launch_gaps(names)
+        row[name] = {"graph_launches": len(gaps[name]) - 1,
+                     "host_launches_between_replays": sum(gaps[name][1:-1]),
+                     "host_launches_before_first": gaps[name][0],
+                     "host_launches_after_last": gaps[name][-1]}
+    row["gaps_equal"] = gaps["collector"][:-1] == gaps["none"][:-1]
+    say("graphs", **row)
+    if not row["gaps_equal"]:
+        diff = [i for i, (a, b) in enumerate(zip(gaps["collector"], gaps["none"])) if a != b]
+        raise AssertionError(f"graphs (collector launches): the gaps differ at {diff[:10]}:"
+                             f" {row}")
+    return row
+
+
+def ibis_replays_and_reads(torch, smc) -> dict:
+    """The ibis phase's run, graphed, under torch.profiler with the host's
+    activity: its graph launches one an online step plus, per rejuvenation
+    at t, ``chain`` Kalman passes of ⌊t/S⌋ + t mod S; its host syncs one an
+    online step (the flag read) plus a rejuvenation's own (one counted
+    alone) each, and one Kalman pass alone none but its closing
+    synchronize."""
+    from sequential_monte_carlo_tpu_torch.ops import kalman
+
+    ibis, y = ibis_sampler(torch)
+
+    def run():
+        out = ibis.run(torch.Generator(device="cuda").manual_seed(SEED), y)
+        torch.cuda.synchronize()
+        return out
+
+    run()  # the captures
+    (state, infos), calls = _runtime_calls(torch, run)
+    n_rejuv = int(infos.rejuvenated.sum())
+    launches = (DT_T - 1) + kalman_graph_launches(infos, DT_CHAIN)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    _, one = _runtime_calls(torch, lambda: ibis._rejuvenate(
+        gen, ibis._resample_theta(gen, state), y, DT_T))
+    models = ibis.model_fn(state.theta)
+
+    def kalman_pass():
+        out = kalman.live_log_likelihood(models, y, DT_T, True)
+        torch.cuda.synchronize()
+        return out
+
+    _, passed = _runtime_calls(torch, kalman_pass)
+    syncs = sum(calls[k] for k in SYNC_CALLS)
+    per_rejuv = sum(one[k] for k in SYNC_CALLS)
+    want = (DT_T - 1) + n_rejuv * per_rejuv + 1  # and run()'s own synchronize
+    row = {"run": f"ibis lg {DT_M} θ, graphed", "online_steps": DT_T - 1,
+           "rejuvenations": n_rejuv, "graph_launches": calls["cudaGraphLaunch"],
+           "graph_launches_expected": launches, "host_syncs": syncs, "host_syncs_expected": want,
+           "syncs_per_rejuvenation": per_rejuv,
+           "kalman_pass_host_syncs": sum(passed[k] for k in SYNC_CALLS),
+           "kalman_pass_graph_launches": passed["cudaGraphLaunch"],
+           "sync_calls": {k: calls[k] for k in SYNC_CALLS}}
+    say("graphs", **row)
+    if (calls["cudaGraphLaunch"] != launches or syncs != want
+            or row["kalman_pass_host_syncs"] != 1):
+        raise AssertionError(f"graphs (ibis replays and reads): {row}")
+    return row
 
 
 # the runtime calls by which the host waits for the device: a host read

@@ -107,6 +107,19 @@ def ucsv_prior(device="cuda"):
     ])
 
 
+def online_collector(y):
+    """The online run's collector over the series y: the per-t trend
+    quantiles, the cycle quantiles and the trend's variance. SMC²'s replayed
+    step captures it (t is a device tensor there, as JAX traces it), so y_t
+    is taken on the device, not indexed from the host."""
+    def collect(state):
+        xq = state_quantiles(state, PS)
+        # cycle quantiles without a second sort: q_p(y − x) = y − q_{1−p}(x)
+        return {"xq": xq, "cq": torch.take(y, state.t - 1) - xq.flip(0),
+                "var": state_variance(state)}
+    return collect
+
+
 def run_online(name, model_fn, prior, y, n, m, chain, outdir, dates=None, figures=True,
                seed=1998):
     """Online SMC² collecting per-t trend and cycle quantiles and variances
@@ -117,15 +130,11 @@ def run_online(name, model_fn, prior, y, n, m, chain, outdir, dates=None, figure
     cfg = smc.SMCConfig(n_particles=n, n_theta=m, chain=chain, ess_threshold=ESS_THRESHOLD)
     sampler = smc.SMC2(model_fn, prior, cfg)
 
-    def collect(state):
-        xq = state_quantiles(state, PS)
-        # cycle quantiles without a second sort: q_p(y − x) = y − q_{1−p}(x)
-        return {"xq": xq, "cq": y[state.t - 1] - xq.flip(0), "var": state_variance(state)}
-
     gen = torch.Generator(device=y.device).manual_seed(seed)
     _sync(y.device)
     t0 = time.perf_counter()
-    state, (infos, series) = sampler.run_segmented(gen, y, segment_size=16, collect_fn=collect)
+    state, (infos, series) = sampler.run_segmented(gen, y, segment_size=16,
+                                                   collect_fn=online_collector(y))
     _sync(y.device)
     wall = time.perf_counter() - t0
     theta_hat = smc.expected_parameters(state)

@@ -16,7 +16,13 @@ of the JAX package's compiled loops, in the L2.5 batched-filter layer:
   ``ops/smoothing.py:273``);
 - a particle-Gibbs sweep (:func:`pg_chain`, for ``particle_gibbs`` and the
   chain bank), the body of JAX's scan over sweeps
-  (``samplers/particle_gibbs.py:175-178``) with the MH chain's scan inside.
+  (``samplers/particle_gibbs.py:175-178``) with the MH chain's scan inside;
+- the Kalman bank's loops (:func:`kalman_live`, :func:`kalman_masked`,
+  :func:`kalman_stored`, for ``ops/kalman.py``'s functions and IBIS's
+  rejuvenations), JAX's scans in ``ops/kalman.py:74-108``;
+- IBIS's online step (:func:`ibis_route`, for ``IBIS.step`` and ``run``),
+  JAX's ``_step_jit`` and the scan of ``_run_jit``
+  (``samplers/ibis.py:113-148, 214-225``).
 
 An eager inner step issues ~15 launches from Python: 0.3–0.4 ms of the
 host's time for 25–150 µs of device work at 512 θ (PERF.md §5). Here a step
@@ -66,14 +72,27 @@ its buffers (``_Route.graphed`` False), with the same bits.
   filters), also :data:`STEPS_PER_GRAPH` consecutive steps from buffer 0
   (an even count: it ends in buffer 0). L steps are ⌊L/S⌋ launches of it,
   then L mod S one-step launches.
-- Online SMC²: the body is the online step after the decision (the inner
-  step into the other buffer, log ω and log Z, the θ-ESS, the flag
-  ESS < ess_min, the StepInfo fields into stores at the position counter).
-  Before each replay the host reads the flag of the step before through a
-  pinned buffer — the run's one host read a step — and, where it is set,
-  runs the rejuvenation (the θ-resample, ``chain`` masked filters on their
-  own replays, the exchange test) eagerly between replays and loads its
-  result into the buffers.
+- Online SMC² and IBIS: the body is the online step after the decision
+  (the inner step — the filter's, or the Kalman update — into the other
+  buffer, log ω and log Z, the θ-ESS, the flag ESS < ess_min, the StepInfo
+  fields into stores at the position counter). Before each replay the host
+  reads the flag of the step before through a pinned buffer — the run's one
+  host read a step — and, where it is set, runs the rejuvenation (the
+  θ-resample, ``chain`` masked filters or Kalman passes on their own
+  replays, the exchange test) eagerly between replays and loads its result
+  into the buffers. SMC²'s ``collect_fn`` runs inside its step, as JAX
+  traces it into its scan (:class:`_Collector`): on the state the step
+  wrote, ``t`` the position counter and ``exchange_pending`` a flag buffer
+  as device tensors, its outputs stored at t; one that reads the host
+  raises :class:`CaptureError`, naming it. The route is keyed by it
+  (:class:`_Same`).
+- Kalman loops: a bank's (mean, cov) in two buffers, log Z, y and the
+  position counter; the live loop runs a prefix of L steps (IBIS's t, a
+  host int) as the masked filter does, ⌊L/S⌋ S-step launches and L mod S
+  one-step launches; the masked loop runs all T steps, each a
+  ``torch.where`` on the mask's buffer (JAX's ``jnp.where``), so the mask
+  is never read on the host; the stored loop writes each step's mean, cov
+  and log-likelihood into (T, …) stores.
 - Stored filters: the body also writes each step's outputs (``emit``'s
   tree: ``filter_sequence``'s log-mean, ESS and ``summarize``'s outputs; the
   forward bank's cloud and log-weights) into (T, …) stores at the live time
@@ -100,7 +119,8 @@ its buffers (``_Route.graphed`` False), with the same bits.
   (``CUDAGraph.register_generator_state``). The caller's generator state
   (seed, Philox offset) is moved into it before the replays and back after
   them, so the replays draw at the eager loop's offsets and a run with a
-  new generator replays without a new capture.
+  new generator replays without a new capture. The Kalman and IBIS routes
+  draw nothing and take no generator.
 - Launch counts: the capture records the increase of every counter in the
   kernels' registry (``kernels/_build.py``) a graph and restores them; each
   replay adds its graph's increase, so the counts are the eager loop's.
@@ -133,12 +153,15 @@ import collections
 import contextlib
 import dataclasses
 import time
+import types
 
 import torch
 
 from ..distributions.mvnormal import eigh
 from ..kernels._build import add_launch_counts, launch_counts, set_launch_counts
+from ..utils.struct import replace
 from . import batched_filter as _bf
+from . import kalman as _kf
 from .particle_filter import Proposal
 from .weights import ess_from_log_weights
 
@@ -321,21 +344,16 @@ class StepBuffers:
         return _bf.from_cloud(self.clouds[k].clone()), self.log_w[k].clone(), self.log_z.clone()
 
 
-class OnlineBuffers:
-    """Everything SMC²'s captured online step reads and writes: the θ bank's
-    model and kernel parameters, two clouds and two log-weight planes, log ω,
-    log Z, the θ-ESS and its flag ESS < ``ess_min``, the acceptance rate, y,
-    the position counter (the state's t) and the StepInfo stores (ESS,
-    acceptance rate, evidence increment, by t). Built like the state
-    ``state`` it first holds, with ``capacity`` ≥ len(y)."""
+class _ThetaBuffers:
+    """The θ-level part of an online step's buffers (SMC²'s and IBIS's): log
+    ω, log Z, the θ-ESS and its flag ESS < ``ess_min``, the acceptance rate,
+    y, the position counter (the state's t), the StepInfo stores (ESS,
+    acceptance rate, evidence increment, by t) and the pinned buffer of the
+    host's flag read. Built like the state ``state`` it first holds, with
+    ``capacity`` ≥ len(y)."""
 
-    def __init__(self, models, params, state, y, capacity: int, ess_min: float):
+    def __init__(self, state, y, capacity: int, ess_min: float):
         device = state.theta.device
-        cloud = _bf.as_cloud(state.particles)
-        self.model = _tree_buffers(models)
-        self.params = None if params is None else torch.empty_like(params)
-        self.clouds = (torch.empty_like(cloud), torch.empty_like(cloud))
-        self.log_w = (torch.empty_like(state.log_w), torch.empty_like(state.log_w))
         self.log_omega = torch.empty_like(state.log_omega)
         self.log_z = torch.empty_like(state.log_z)
         self.ess = torch.empty_like(state.ess)
@@ -352,13 +370,9 @@ class OnlineBuffers:
         self.read_done = torch.cuda.Event() if cuda else None
         self.reads = 0
 
-    def load(self, models, params, state, y=None) -> None:
-        """Copy the state in (its clouds into buffer 0, its bank's fields and
-        kernel parameters, t into the position counter, its ESS flag), and
-        y where given."""
-        _load_model(self, models, params)
-        self.clouds[0].copy_(_bf.as_cloud(state.particles))
-        self.log_w[0].copy_(state.log_w)
+    def _load_theta(self, state, y) -> None:
+        """Copy the state's θ-level tensors in, t into the position counter,
+        its ESS flag, and y where given."""
         self.log_omega.copy_(state.log_omega)
         self.log_z.copy_(state.log_z)
         self.ess.copy_(state.ess)
@@ -368,18 +382,20 @@ class OnlineBuffers:
         if y is not None:
             self.y[:y.shape[0]].copy_(y)
 
-    def step(self, generator, config, k: int) -> None:
-        """The online step after the rejuvenation decision, from buffer k
-        into buffer 1 − k ≡ ``SMC2.step``'s: the body a graph captures."""
+    def y_t(self) -> torch.Tensor:
+        """The observation at the position counter (0-dim)."""
+        return self.y.index_select(0, self.pos).reshape(())
+
+    def _account(self, log_mean) -> None:
+        """The θ-level part of a step whose per-θ evidence is ``log_mean``:
+        log ω and log Z, the θ-ESS and its flag, the StepInfo fields into
+        the stores at t; t advanced."""
         t = self.pos
-        out = _bf.batched_pf_step(generator, self.model, _bf.from_cloud(self.clouds[k]),
-                                  self.log_w[k], self.y.index_select(0, t).reshape(()), config,
-                                  self.params, out=(self.clouds[1 - k], self.log_w[1 - k]))
         prev_lse = torch.logsumexp(self.log_omega, dim=0)
-        self.log_omega.add_(out.log_mean)
+        self.log_omega.add_(log_mean)
         ess = ess_from_log_weights(self.log_omega)
         self.ess.copy_(ess)
-        self.log_z.add_(out.log_mean)
+        self.log_z.add_(log_mean)
         torch.lt(ess, self.ess_min, out=self.flag)
         incr = torch.logsumexp(self.log_omega, dim=0) - prev_lse
         for name, value in (("ess", ess), ("acc_ratio", self.acc_ratio),
@@ -399,14 +415,130 @@ class OnlineBuffers:
         self.reads += 1
         return bool(self.flag_host[0])
 
+    def infos(self, first: int, last: int) -> dict:
+        """The StepInfo stores of the steps at t ∈ [first, last), as copies."""
+        return {name: store[first:last].clone() for name, store in self.stores.items()}
+
+
+class OnlineBuffers(_ThetaBuffers):
+    """Everything SMC²'s captured online step reads and writes: the θ-level
+    buffers (:class:`_ThetaBuffers`), θ and the exchange's pending flag (a
+    collector's state holds them), the θ bank's model and kernel
+    parameters, two clouds and two log-weight planes, and with ``collect``
+    (a :class:`_Collector`) the collector's stores."""
+
+    def __init__(self, models, params, state, y, capacity: int, ess_min: float):
+        super().__init__(state, y, capacity, ess_min)
+        cloud = _bf.as_cloud(state.particles)
+        self.theta = torch.empty_like(state.theta)
+        self.pending = torch.zeros((), dtype=torch.bool, device=cloud.device)
+        self.model = _tree_buffers(models)
+        self.params = None if params is None else torch.empty_like(params)
+        self.clouds = (torch.empty_like(cloud), torch.empty_like(cloud))
+        self.log_w = (torch.empty_like(state.log_w), torch.empty_like(state.log_w))
+        self.collect = None
+
+    def load(self, models, params, state, y=None) -> None:
+        """Copy the state in (its clouds into buffer 0, θ, its θ-level
+        tensors, its pending flag, its bank's fields and kernel parameters),
+        and y where given: the same with a collector or without."""
+        _load_model(self, models, params)
+        self.clouds[0].copy_(_bf.as_cloud(state.particles))
+        self.log_w[0].copy_(state.log_w)
+        self.theta.copy_(state.theta)
+        self.pending.fill_(state.exchange_pending)
+        self._load_theta(state, y)
+
+    def step(self, generator, config, k: int) -> None:
+        """The online step after the rejuvenation decision, from buffer k
+        into buffer 1 − k ≡ ``SMC2.step``'s, then the collector: the body a
+        graph captures."""
+        out = _bf.batched_pf_step(generator, self.model, _bf.from_cloud(self.clouds[k]),
+                                  self.log_w[k], self.y_t(), config, self.params,
+                                  out=(self.clouds[1 - k], self.log_w[1 - k]))
+        self._account(out.log_mean)
+        if self.collect is not None:
+            self.collect(self, 1 - k)
+
     def fields(self, k: int) -> dict:
         """The state's tensors that the step writes, as views of buffer k."""
         return {"particles": _bf.from_cloud(self.clouds[k]), "log_w": self.log_w[k],
                 "log_omega": self.log_omega, "log_z": self.log_z, "ess": self.ess}
 
-    def infos(self, first: int, last: int) -> dict:
-        """The StepInfo stores of the steps at t ∈ [first, last), as copies."""
-        return {name: store[first:last].clone() for name, store in self.stores.items()}
+
+class IBISBuffers(_ThetaBuffers):
+    """Everything IBIS's captured online step reads and writes: the θ-level
+    buffers (:class:`_ThetaBuffers`), the θ bank's model and two Kalman
+    (mean, cov) banks."""
+
+    def __init__(self, models, state, y, capacity: int, ess_min: float):
+        super().__init__(state, y, capacity, ess_min)
+        self.model = _tree_buffers(models)
+        self.mean = (torch.empty_like(state.mean), torch.empty_like(state.mean))
+        self.cov = (torch.empty_like(state.cov), torch.empty_like(state.cov))
+
+    def load(self, models, state, y=None) -> None:
+        """Copy the state in (its Kalman bank into buffer 0, its θ-level
+        tensors, its bank's fields), and y where given."""
+        _tree_load(self.model, models)
+        self.mean[0].copy_(state.mean)
+        self.cov[0].copy_(state.cov)
+        self._load_theta(state, y)
+
+    def step(self, k: int) -> None:
+        """IBIS's online step after the rejuvenation decision, from buffer k
+        into buffer 1 − k ≡ ``IBIS.step``'s: the Kalman update at y_t, then
+        the θ-level part. The body a graph captures."""
+        out = _kf.kalman_step(self.model, _kf.KalmanState(self.mean[k], self.cov[k]), self.y_t())
+        self.mean[1 - k].copy_(out.state.mean)
+        self.cov[1 - k].copy_(out.state.cov)
+        self._account(out.log_lik)
+
+    def fields(self, k: int) -> dict:
+        """The state's tensors that the step writes, as views of buffer k."""
+        return {"mean": self.mean[k], "cov": self.cov[k], "log_omega": self.log_omega,
+                "log_z": self.log_z, "ess": self.ess}
+
+
+class _Collector:
+    """SMC²'s ``collect_fn`` inside the online step, as JAX traces it into
+    its scan: called on the state the step just wrote — views of the
+    buffers, ``t`` the position counter as a 0-dim int64 tensor and
+    ``exchange_pending`` the pending flag as a 0-dim bool tensor (the
+    arrays JAX traces), ``active_n`` the route's — its outputs' leaves
+    written into (capacity, …) stores at the step's t. The stores take
+    their leaves' shapes from the first call (the route's warm-up). One
+    that reads the host raises :class:`CaptureError` naming it, as does a
+    leaf that is not a tensor on the route's device."""
+
+    def __init__(self, fn, template, capacity: int, device):
+        self.fn, self.template, self.capacity, self.device = fn, template, capacity, device
+        self.name = f"collect_fn {_name(fn)!r}"
+        self.tree = self.stores = None
+
+    def __call__(self, b: OnlineBuffers, k: int) -> None:
+        view = replace(self.template, theta=b.theta, acc_ratio=b.acc_ratio, t=b.pos.reshape(()),
+                       exchange_pending=b.pending, **b.fields(k))
+        try:
+            out = self.fn(view)
+        except RuntimeError as err:
+            refusal = capture_error(err, self.name, self.device)
+            if refusal is None:
+                raise
+            raise refusal from err
+        leaves = _leaves(out)
+        if self.stores is None:
+            _on_device(leaves, self.device, self.name)
+            self.tree = out
+            self.stores = [torch.empty((self.capacity,) + tuple(x.shape), dtype=x.dtype,
+                                       device=self.device) for x in leaves]
+        t = b.pos - 1
+        for store, value in zip(self.stores, leaves, strict=True):
+            store.index_copy_(0, t, value.unsqueeze(0))
+
+    def series(self, first: int, last: int) -> list:
+        """The stored leaves of the steps at t ∈ [first, last), as copies."""
+        return [store[first:last].clone() for store in self.stores]
 
 
 class _Route:
@@ -451,7 +583,8 @@ class _Route:
         its errors on the host (a capture refuses it): such a route, as
         every route on the CPU, runs its bodies eagerly."""
         cuda = self.device.type == "cuda"
-        before, drawn, eighs = launch_counts(), generator.get_state(), eigh.calls
+        before, eighs = launch_counts(), eigh.calls
+        drawn = None if generator is None else generator.get_state()
         t0 = time.perf_counter()
         if cuda:
             side, main = torch.cuda.Stream(device=self.device), torch.cuda.current_stream()
@@ -463,7 +596,8 @@ class _Route:
         else:
             self.body(generator, 0)
         timing = {"warmup_s": time.perf_counter() - t0, "capture_s": 0.0, "instantiate_s": 0.0}
-        generator.set_state(drawn)
+        if drawn is not None:
+            generator.set_state(drawn)
         set_launch_counts(before)
         self.runs_eigh, eigh.calls = eigh.calls != eighs, eighs
         reload()
@@ -526,15 +660,17 @@ class _Route:
         """``steps`` steps (a sweep route's: sweeps) from buffer ``self.k``
         with the caller's generator state: ⌊steps/S⌋ launches of the S-step
         graph (from buffer 0, on the routes that have one), then one launch
-        a step."""
-        if self.graphed:
+        a step. A route that draws nothing (a Kalman loop, IBIS's step)
+        takes no generator (None)."""
+        moved = self.graphed and generator is not None
+        if moved:
             self.generator.set_state(generator.get_state())
         if self.multi and STEPS_PER_GRAPH > 1 and self.k == 0 and steps >= STEPS_PER_GRAPH:
             self._launch(generator, STEPS_PER_GRAPH, steps // STEPS_PER_GRAPH)
             steps %= STEPS_PER_GRAPH
         for _ in range(steps):
             self._launch(generator, 1, 1)
-        if self.graphed:
+        if moved:
             generator.set_state(self.generator.get_state())
 
 
@@ -586,6 +722,17 @@ def filter_live(generator, models, init, params, y, live, config):
     return route.buffers.result(route.k)
 
 
+def _on_device(leaves, device, what: str) -> None:
+    """Raise :class:`CaptureError` naming ``what`` where a leaf of its
+    outputs is not a tensor on ``device``: a replayed step cannot store it."""
+    for leaf in leaves:
+        if not (isinstance(leaf, torch.Tensor) and leaf.device == device):
+            kind = (f"a tensor on {leaf.device}" if isinstance(leaf, torch.Tensor)
+                    else f"a {type(leaf).__name__}")
+            raise CaptureError(f"{what} returned {kind}, not a tensor on {device}: a"
+                               " replayed step cannot store it")
+
+
 def filter_stored(generator, models, init, params, y, config, emit, tag):
     """The filter over all of y (T ≥ 2) from the init ``init``, replayed,
     with ``emit(out)``'s tree of tensors (``out`` a ``BatchedPFOut``) stored
@@ -596,12 +743,7 @@ def filter_stored(generator, models, init, params, y, config, emit, tag):
     first = emit(init)
     leaves = _leaves(first)
     device = init.log_weights.device
-    for leaf in leaves:
-        if not (isinstance(leaf, torch.Tensor) and leaf.device == device):
-            what = (f"a tensor on {leaf.device}" if isinstance(leaf, torch.Tensor)
-                    else f"a {type(leaf).__name__}")
-            raise CaptureError(f"{tag[-1]!r} returned {what}, not a tensor on {device}: a"
-                               " replayed step cannot store it")
+    _on_device(leaves, device, repr(tag[-1]))
     capacity = _capacity(y.shape[0])
 
     def record_for(buffers):
@@ -631,41 +773,189 @@ def filter_stored(generator, models, init, params, y, config, emit, tag):
     return route.buffers.result(route.k) + (series,)
 
 
-def online_route(generator, sampler, state, y) -> _Route:
+def online_route(generator, sampler, state, y, collect_fn=None) -> _Route:
     """SMC²'s online route for the sampler's configuration at the state's
     shapes, with the state and y loaded (captured first where the cache has
-    none)."""
+    none); with ``collect_fn`` the collector runs inside the step
+    (:class:`_Collector`), and the route is keyed by it."""
     cfg = sampler.config
     models = sampler.model_fn(state.theta)
     params = _bf.kernel_params(models, cfg.inner)
     cloud = _bf.as_cloud(state.particles)
     capacity = _capacity(y.shape[0])
-    key = ("online", cfg.ess_min) + _key(models, params, cloud, y, cfg.inner, capacity)
+    key = (("online", cfg.ess_min, None if collect_fn is None else _Same(collect_fn))
+           + _key(models, params, cloud, y, cfg.inner, capacity))
 
     def make():
         buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min)
+        if collect_fn is not None:
+            template = replace(state, theta=buffers.theta, acc_ratio=buffers.acc_ratio,
+                               **buffers.fields(0))
+            buffers.collect = _Collector(collect_fn, template, capacity, cloud.device)
         inner = _guarded(cfg.inner, cloud.device)
         return _Route(buffers, lambda gen, k: buffers.step(gen, inner, k), cloud.device, False)
 
     return _ready(key, make, lambda route: route.load(models, params, state, y), generator)
 
 
+def ibis_route(sampler, state, y) -> _Route:
+    """IBIS's online route for the sampler's configuration at the state's
+    shapes, with the state and y loaded (captured first where the cache has
+    none). Its step draws nothing: it takes no generator."""
+    models = sampler.model_fn(state.theta)
+    capacity = _capacity(y.shape[0])
+    key = ("ibis", sampler.config.ess_min, _tree_key(models), tuple(state.mean.shape),
+           tuple(state.cov.shape), state.mean.dtype, state.mean.device, y.dtype, capacity)
+
+    def make():
+        buffers = IBISBuffers(models, state, y, capacity, sampler.config.ess_min)
+        return _Route(buffers, lambda gen, k: buffers.step(k), state.mean.device, False)
+
+    return _ready(key, make, lambda route: route.load(models, state, y), None)
+
+
+def _meta(obj):
+    """A tree's tensors as tensors on the meta device (shapes only)."""
+    if isinstance(obj, torch.Tensor):
+        return torch.empty_like(obj, device="meta")
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _meta(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return type(obj)(_meta(v) for v in obj)
+    return obj
+
+
+class KalmanBuffers:
+    """Everything a captured Kalman step reads and writes: the bank's model
+    fields, two (mean, cov) banks, log Z, y and, for the masked loop, the
+    mask (mask > 0, as bool), at ``capacity`` ≥ len(y); the position
+    counter; with ``stored``, the (capacity, …) stores of each step's mean,
+    cov and log-likelihood. The banks' shapes are a step's outputs', from
+    the step on the meta device."""
+
+    def __init__(self, model, y, capacity: int, masked: bool, stored: bool):
+        device = y.device
+        meta = _meta(model)
+        out = _kf.kalman_step(meta, _kf.kalman_init(meta), torch.empty((), dtype=y.dtype,
+                                                                       device="meta"))
+        mean, cov, ll = out.state.mean, out.state.cov, out.log_lik
+        self.model = _tree_buffers(model)
+        self.mean = tuple(torch.empty(mean.shape, dtype=mean.dtype, device=device)
+                          for _ in range(2))
+        self.cov = tuple(torch.empty(cov.shape, dtype=cov.dtype, device=device) for _ in range(2))
+        self.log_z = torch.empty(torch.broadcast_shapes(model.R.shape, ll.shape), dtype=y.dtype,
+                                 device=device)
+        self.y = torch.zeros(capacity, device=device, dtype=y.dtype)
+        self.mask = torch.zeros(capacity, device=device, dtype=torch.bool) if masked else None
+        self.pos = torch.zeros(1, device=device, dtype=torch.int64)
+        self.stores = ([torch.empty((capacity,) + tuple(x.shape), dtype=x.dtype, device=device)
+                        for x in (mean, cov, ll)] if stored else None)
+
+    def load(self, model, y, mask=None) -> None:
+        """The bank's fields, (x0, Σ0) into buffer 0, log Z = 0, y, the
+        mask (on y's device) where the loop has one, and the position back
+        to the first."""
+        _tree_load(self.model, model)
+        init = _kf.kalman_init(model)
+        self.mean[0].copy_(init.mean)
+        self.cov[0].copy_(init.cov)
+        self.log_z.zero_()
+        self.y[:y.shape[0]].copy_(y)
+        if self.mask is not None:
+            torch.gt(mask, 0, out=self.mask[:mask.shape[0]])
+        self.pos.zero_()
+
+    def step(self, k: int) -> None:
+        """One Kalman step at the position from buffer k into buffer 1 − k
+        (``kalman.masked_step``: where the mask is False, the identity with
+        ℓ = 0), ℓ added to log Z and stored where the route stores: the
+        body a graph captures."""
+        t = self.pos
+        live = None if self.mask is None else self.mask.index_select(0, t).reshape(())
+        mean, cov, ll = _kf.masked_step(self.model, self.mean[k], self.cov[k],
+                                        self.y.index_select(0, t).reshape(()), live)
+        self.mean[1 - k].copy_(mean)
+        self.cov[1 - k].copy_(cov)
+        self.log_z.add_(ll)
+        if self.stores is not None:
+            for store, value in zip(self.stores, (mean, cov, ll)):
+                store.index_copy_(0, t, value.unsqueeze(0))
+        self.pos.add_(1)
+
+    def result(self, k: int):
+        """((mean, cov), log Z) of buffer k, as copies: the next call
+        overwrites the buffers."""
+        return _kf.KalmanState(self.mean[k].clone(), self.cov[k].clone()), self.log_z.clone()
+
+
+def _kalman_route(kind: str, model, y, mask=None) -> _Route:
+    capacity = _capacity(y.shape[0])
+    key = ("kalman", kind, _tree_key(model), y.dtype, y.device, capacity)
+
+    def make():
+        buffers = KalmanBuffers(model, y, capacity, kind == "masked", kind == "stored")
+        return _Route(buffers, lambda gen, k: buffers.step(k), y.device, True)
+
+    return _ready(key, make, lambda route: route.load(model, y, mask), None)
+
+
+def kalman_live(model, y, live: int):
+    """The Kalman bank over y[0:live] (a host count), replayed: ⌊live/S⌋
+    launches of the S-step graph and live mod S of one step. Returns
+    ((mean, cov), log Z)."""
+    route = _kalman_route("live", model, y)
+    route.replay(None, live)
+    return route.buffers.result(route.k)
+
+
+def kalman_masked(model, y, mask):
+    """The Kalman bank over all of y, the steps where ``mask`` (on y's
+    device) is ≤ 0 the identity, replayed; the mask is not read on the
+    host. Returns ((mean, cov), log Z)."""
+    route = _kalman_route("masked", model, y, mask)
+    route.replay(None, y.shape[0])
+    return route.buffers.result(route.k)
+
+
+def kalman_stored(model, y):
+    """The Kalman bank over all of y, replayed, each step's mean, cov and
+    log-likelihood stored: (means (T, …), covs (T, …), log-likelihoods
+    (T, …)), as copies."""
+    route = _kalman_route("stored", model, y)
+    route.replay(None, y.shape[0])
+    return tuple(store[:y.shape[0]].clone() for store in route.buffers.stores)
+
+
 class _Same:
     """A key's part that equals only another of the same object (a
     function), which it holds alive: a graph reads the tensors that object
     built or holds at capture. A wrapper made by ``functools.wraps`` stands
-    for the function it wraps (``__wrapped__``)."""
+    for the function it wraps (``__wrapped__``); a closure made again by the
+    same ``def`` over the same objects (its code, globals, defaults and
+    cells' contents, each by identity: ``examples/inflation.py``'s
+    collector, made a run) stands for the first."""
 
-    __slots__ = ("obj",)
+    __slots__ = ("obj", "parts")
 
     def __init__(self, obj):
         self.obj = getattr(obj, "__wrapped__", obj)
+        self.parts = (self.obj,)
+        fn = self.obj
+        if isinstance(fn, types.FunctionType) and fn.__closure__:
+            try:
+                self.parts = ((fn.__code__, fn.__globals__) + (fn.__defaults__ or ())
+                              + tuple((fn.__kwdefaults__ or {}).values())
+                              + tuple(c.cell_contents for c in fn.__closure__))
+            except ValueError:  # a cell not yet filled
+                pass
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, _Same) and other.obj is self.obj
+        return (isinstance(other, _Same) and len(other.parts) == len(self.parts)
+                and all(a is b for a, b in zip(self.parts, other.parts)))
 
     def __hash__(self) -> int:
-        return id(self.obj)
+        return hash(tuple(id(p) for p in self.parts))
 
 
 def _name(obj) -> str:

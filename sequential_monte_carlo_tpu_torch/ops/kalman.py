@@ -10,6 +10,15 @@ Per step, from the filtered (x, P) — the first from (x0, Σ0):
   ℓ  = −½ (log 2π + log s + Δ²/s)
 
 The univariate observation makes every inversion a scalar divide.
+
+The loops over t (:func:`kalman_filter`, :func:`kalman_log_likelihood`,
+:func:`kalman_log_likelihood_masked`, and IBIS's rejuvenations through
+:func:`live_log_likelihood`) are the JAX package's ``lax.scan``\\ s: on a
+CUDA device, outside ``disable_graphs()`` and without a mesh
+(``batched_filter.captures``' rule), they replay CUDA graphs of
+``graphs.STEPS_PER_GRAPH`` steps and of one (``ops/graphs.py::kalman_route``),
+bit for bit the eager loop here, which runs inside ``disable_graphs()`` and
+on the CPU. Neither reads the host.
 """
 from __future__ import annotations
 
@@ -17,6 +26,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from . import batched_filter as _bf
+from . import graphs
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -54,31 +66,75 @@ def kalman_step(model, state: KalmanState, y) -> KalmanStep:
     return KalmanStep(KalmanState(x, P), log_lik, predicted)
 
 
+def masked_step(model, mean, cov, y, live=None):
+    """One step of the loops: (mean, cov, ℓ) after y, or with ``live`` (a
+    0-dim bool tensor) where it is False the step is the identity and ℓ is
+    0 (JAX's per-step ``jnp.where``)."""
+    out = kalman_step(model, KalmanState(mean, cov), y)
+    if live is None:
+        return out.state.mean, out.state.cov, out.log_lik
+    return (torch.where(live, out.state.mean, mean), torch.where(live, out.state.cov, cov),
+            torch.where(live, out.log_lik, 0.0))
+
+
+def _captured(device) -> bool:
+    """Whether the Kalman loops replay on ``device`` (``captures``' rule)."""
+    return _bf.captures(_bf.PFConfig(), None, device)
+
+
+def _loop(model, y, steps: int, mask=None, store: bool = False):
+    """The eager loop over y[0:steps] from (x0, Σ0): ((mean, cov), log Z),
+    and with ``store`` the per-step (means, covs, ℓ) lists."""
+    mean, cov = kalman_init(model)
+    logz = torch.zeros(model.R.shape, dtype=y.dtype, device=y.device)
+    means, covs, lls = [], [], []
+    for t in range(steps):
+        live = None if mask is None else mask[t] > 0
+        mean, cov, ll = masked_step(model, mean, cov, y[t], live)
+        logz = logz + ll
+        if store:
+            means.append(mean)
+            covs.append(cov)
+            lls.append(ll)
+    return KalmanState(mean, cov), logz, (means, covs, lls)
+
+
 def kalman_filter(model, y):
     """Filter the whole sequence y (T,): returns (means (T, ..., dx),
     covs (T, ..., dx, dx), per-step log-likelihoods (T, ...), log Z)."""
-    state, means, covs, logliks = kalman_init(model), [], [], []
-    for t in range(y.shape[0]):
-        out = kalman_step(model, state, y[t])
-        state = out.state
-        means.append(state.mean)
-        covs.append(state.cov)
-        logliks.append(out.log_lik)
-    logliks = torch.stack(logliks)
-    return torch.stack(means), torch.stack(covs), logliks, torch.sum(logliks, dim=0)
+    if _captured(y.device):
+        means, covs, logliks = graphs.kalman_stored(model, y)
+    else:
+        _, _, (means, covs, logliks) = _loop(model, y, y.shape[0], store=True)
+        means, covs, logliks = torch.stack(means), torch.stack(covs), torch.stack(logliks)
+    return means, covs, logliks, torch.sum(logliks, dim=0)
+
+
+def live_log_likelihood(model, y, live: int, graphed: bool):
+    """The final (mean, cov) and log Z over the first ``live`` observations
+    (a host int: IBIS's t), replayed where ``graphed`` (⌊live/S⌋ launches
+    of the S-step graph, then one a step), else the eager loop."""
+    if graphed:
+        return graphs.kalman_live(model, y, live)
+    state, logz, _ = _loop(model, y, live)
+    return state, logz
 
 
 def kalman_log_likelihood(model, y):
     """Returns the final (mean, cov) and log Z of y (T,)."""
-    return kalman_log_likelihood_masked(model, y, torch.ones_like(y))
+    return live_log_likelihood(model, y, y.shape[0], _captured(y.device))
 
 
 def kalman_log_likelihood_masked(model, y, mask):
-    """As :func:`kalman_log_likelihood`, over the steps with mask > 0 only
-    (the others are the identity). ``mask`` is read on the host."""
-    state = kalman_init(model)
-    logz = torch.zeros(model.R.shape, dtype=y.dtype, device=y.device)
-    for t in torch.nonzero(torch.as_tensor(mask).cpu() > 0).flatten().tolist():
-        out = kalman_step(model, state, y[t])
-        state, logz = out.state, logz + out.log_lik
+    """As :func:`kalman_log_likelihood`, over the steps with mask > 0 only:
+    all T steps run, and where mask ≤ 0 a step is the identity with ℓ = 0
+    (JAX's per-step ``jnp.where``), so the mask, on the device or not, is
+    never read on the host."""
+    mask = torch.as_tensor(mask)
+    if mask.device != y.device:
+        # pinned, so the copy does not wait for the device
+        mask = (mask.pin_memory() if y.is_cuda else mask).to(y.device, non_blocking=True)
+    if _captured(y.device):
+        return graphs.kalman_masked(model, y, mask)
+    state, logz, _ = _loop(model, y, y.shape[0], mask)
     return state, logz

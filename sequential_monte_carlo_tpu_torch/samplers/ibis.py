@@ -7,7 +7,18 @@ Linear-Gaussian models only.
 
 The M Kalman filters are one batched bank (``ops/kalman.py``): a step is a
 few (M, dx, dx) products. Like the port's SMC², a host loop with an explicit
-``torch.Generator``; it runs no kernel.
+``torch.Generator``; it runs no kernel. On the card, where
+``batched_filter.captures`` admits the configuration (no mesh), the step
+after the rejuvenation decision is a CUDA-graph replay
+(``ops/graphs.py::ibis_route``, the counterpart of the JAX package's
+jitted scan): ``run`` keeps the state in the route's buffers, reads one
+flag a step through a pinned buffer, runs a rejuvenation eagerly between
+replays — the θ-resample, the RW proposals, ``model_fn`` and the accept,
+each proposal's Kalman pass over y[0:t] replayed on its own route
+(``ops/kalman.py::live_log_likelihood``), with no host read — and copies
+the state out at the end; ``step`` loads the state, replays and returns a
+state that owns its arrays. Inside ``disable_graphs()`` every step is the
+eager loop, bit for bit the same.
 
 θ-sharding (``config.inner.mesh``, ``parallel.ShardedIBIS``): as SMC²'s, θ,
 log ω, log Z, the ESS and t are whole on every rank and the Kalman bank's
@@ -24,14 +35,16 @@ from typing import Callable
 
 import torch
 
-from ..ops.kalman import KalmanState, kalman_init, kalman_log_likelihood_masked, kalman_step
+from ..ops import batched_filter as _bf
+from ..ops import graphs
+from ..ops.kalman import KalmanState, kalman_init, kalman_step, live_log_likelihood
 from ..ops.resampling import get_resampler
 from ..ops.sharding import all_gather_rows, local_model, local_rows, theta_rows
 from ..ops.weights import ess_from_log_weights
 from ..utils.struct import replace
 from .base import IBISState, SMCConfig, StepInfo
 from .kernels import anneal_scales, kernel_chol, propose, rw_kernel_cov
-from .smc2 import _stack, expected_parameters  # re-exported for IBIS states too
+from .smc2 import expected_parameters  # re-exported for IBIS states too
 
 __all__ = ["IBIS", "expected_parameters"]
 
@@ -78,20 +91,28 @@ class IBIS:
                        cov=all_gather_rows(state.cov, self._rows)[mine],
                        log_z=state.log_z[a], log_omega=torch.zeros_like(state.log_omega))
 
-    def _rejuvenate(self, generator, state: IBISState, y, mask) -> IBISState:
+    def _graphed(self, device) -> bool:
+        """Whether the online steps and the rejuvenations' Kalman passes
+        replay captured routes (``batched_filter.captures``: on the card,
+        outside ``disable_graphs()``, no mesh)."""
+        return _bf.captures(self.config.inner, None, device)
+
+    def _rejuvenate(self, generator, state: IBISState, y, live: int) -> IBISState:
         """``chain`` PMMH moves with annealed RW proposals, each with the
-        exact masked Kalman log-likelihood of all M proposals."""
+        exact Kalman log-likelihood of all M proposals over y[0:live] (JAX's
+        masked pass over the prefix)."""
         cfg = self.config
         m = cfg.n_theta
         theta, mean, cov, log_z = state.theta, state.mean, state.cov, state.log_z
         accepted = torch.zeros(m, dtype=torch.bool, device=theta.device)
         chol = kernel_chol(rw_kernel_cov(theta, cfg))
+        graphed = self._graphed(theta.device)
         for scale in anneal_scales(cfg):
             theta_prop = propose(generator, theta, chol, scale)
             ok = self.prior.in_support(theta_prop)
             theta_safe = torch.where(ok[:, None], theta_prop, theta)
-            (mean_prop, cov_prop), logz_prop = kalman_log_likelihood_masked(
-                self._models(theta_safe), y, mask)
+            (mean_prop, cov_prop), logz_prop = live_log_likelihood(
+                self._models(theta_safe), y, live, graphed)
             logz_prop = all_gather_rows(logz_prop, self._rows)
             lp_prop = self.prior.log_prob(theta_prop)
             lp_curr = self.prior.log_prob(theta)
@@ -107,18 +128,42 @@ class IBIS:
             accepted = accepted | accept
         return replace(state, theta=theta, mean=mean, cov=cov, log_z=log_z,
                        log_omega=torch.zeros_like(state.log_omega),
-                       ess=torch.tensor(float(m), device=theta.device),
+                       # filled on the device: a tensor made from a host
+                       # number there would wait for the device
+                       ess=torch.full((), float(m), device=theta.device),
                        acc_ratio=torch.mean(accepted.to(theta.dtype)))
 
-    def step(self, generator, state: IBISState, y):
-        """One online step: rejuvenate over y[0:t] when the θ-ESS fell below
-        ``ess_min``, then the exact Kalman update with y[t]. Returns
-        (state, StepInfo)."""
+    @staticmethod
+    def _owned(state: IBISState) -> IBISState:
+        """The state with copies of the tensors that a later replay
+        overwrites (views of the route's buffers)."""
+        return replace(state, mean=state.mean.clone(), cov=state.cov.clone(),
+                       log_omega=state.log_omega.clone(), log_z=state.log_z.clone(),
+                       ess=state.ess.clone())
+
+    def _online_step(self, generator, route, state: IBISState, y):
+        """One online step on the captured route whose buffers hold
+        ``state``: the host's one read (the flag ESS < ess_min of the step
+        or load before), the rejuvenation eagerly where it is set, its result
+        loaded into the buffers, then one replay. Returns (the state after
+        it, its stepped tensors views of the route's buffers; whether it
+        rejuvenated)."""
+        degenerate = route.buffers.read_flag()
+        if degenerate:
+            state = self._rejuvenate(generator, self._resample_theta(generator, state), y,
+                                     state.t)
+            route.load(self.model_fn(state.theta), state)
+        route.replay(None, 1)
+        return replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate
+
+    def _step(self, generator, state: IBISState, y):
+        """The eager step: (state, whether it rejuvenated, the evidence
+        increment)."""
         cfg = self.config
         degenerate = bool(state.ess < cfg.ess_min)  # host sync
         if degenerate:
-            mask = torch.arange(y.shape[0]) < state.t
-            state = self._rejuvenate(generator, self._resample_theta(generator, state), y, mask)
+            state = self._rejuvenate(generator, self._resample_theta(generator, state), y,
+                                     state.t)
         out = kalman_step(self._models(state.theta), KalmanState(state.mean, state.cov),
                           y[state.t])
         log_lik = all_gather_rows(out.log_lik, self._rows)
@@ -127,17 +172,46 @@ class IBIS:
         ess = ess_from_log_weights(log_omega)
         state = replace(state, mean=out.state.mean, cov=out.state.cov, log_omega=log_omega,
                         log_z=state.log_z + log_lik, ess=ess, t=state.t + 1)
-        info = StepInfo(ess=ess, rejuvenated=torch.tensor(degenerate),
-                        acc_ratio=state.acc_ratio,
-                        log_evidence_incr=torch.logsumexp(log_omega, dim=0) - prev_lse)
-        return state, info
+        return state, degenerate, torch.logsumexp(log_omega, dim=0) - prev_lse
+
+    def step(self, generator, state: IBISState, y):
+        """One online step: rejuvenate over y[0:t] when the θ-ESS fell below
+        ``ess_min``, then the exact Kalman update with y[t]. On a captured
+        route (:meth:`_graphed`) the step after the decision is a graph
+        replay, and the state returned owns its arrays. Returns (state,
+        StepInfo)."""
+        if self._graphed(state.theta.device):
+            t = state.t
+            route = graphs.ibis_route(self, state, y)
+            state, degenerate = self._online_step(generator, route, state, y)
+            state = self._owned(state)
+            incr = route.buffers.infos(t, t + 1)["log_evidence_incr"][0]
+        else:
+            state, degenerate, incr = self._step(generator, state, y)
+        return state, StepInfo(ess=state.ess, rejuvenated=torch.tensor(degenerate),
+                               acc_ratio=state.acc_ratio, log_evidence_incr=incr)
 
     def run(self, generator, y):
         """Whole-sequence online IBIS: (final state, StepInfo stacked over
-        the T − 1 steps)."""
+        the T − 1 steps; ``rejuvenated`` one tensor from the host's flags).
+        On a captured route the state stays in its buffers between steps."""
         state = self.init(generator, y)
-        infos = []
-        for _ in range(y.shape[0] - 1):
-            state, info = self.step(generator, state, y)
-            infos.append(info)
-        return state, _stack(infos)
+        fired = []
+        if self._graphed(state.theta.device):
+            route, first = graphs.ibis_route(self, state, y), state.t
+            while state.t < y.shape[0]:
+                state, degenerate = self._online_step(generator, route, state, y)
+                fired.append(degenerate)
+            state = self._owned(state)
+            stores = route.buffers.infos(first, state.t)
+            return state, StepInfo(ess=stores["ess"], rejuvenated=torch.tensor(fired),
+                                   acc_ratio=stores["acc_ratio"],
+                                   log_evidence_incr=stores["log_evidence_incr"])
+        steps = []
+        while state.t < y.shape[0]:
+            state, degenerate, incr = self._step(generator, state, y)
+            fired.append(degenerate)
+            steps.append((state.ess, state.acc_ratio, incr))
+        ess, acc_ratio, incr = (torch.stack(list(f)) for f in zip(*steps))
+        return state, StepInfo(ess=ess, rejuvenated=torch.tensor(fired), acc_ratio=acc_ratio,
+                               log_evidence_incr=incr)

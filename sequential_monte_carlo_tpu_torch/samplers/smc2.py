@@ -18,11 +18,12 @@ buffers between steps, read one flag a step through a pinned buffer, run a
 rejuvenation eagerly between replays (its masked filters replay their own
 graphs) and copy the state out at the end, at a ``max_steps`` bound and
 where a doubling changes N; ``step`` loads the state, replays and returns a
-state that owns its arrays. ``collect_fn`` runs eagerly after each step
-(its outputs copied), as ``state.t`` stays a host int that a capture would
-freeze. Inside ``disable_graphs()`` every step is the eager loop, bit for
-bit the same. Randomness comes from one explicit ``torch.Generator`` on the
-device of the data.
+state that owns its arrays. ``collect_fn`` is captured into the replayed
+step, as JAX traces it into its scan: it sees ``t`` and
+``exchange_pending`` as device tensors (on both paths), and its outputs
+are stored on the device at each step. Inside ``disable_graphs()`` every
+step is the eager loop, bit for bit the same. Randomness comes from one
+explicit ``torch.Generator`` on the device of the data.
 
 The exchange step (``acc_threshold > 0``, ≡ the reference's ``exchange!``):
 right after a rejuvenation whose acceptance rate fell below
@@ -106,16 +107,6 @@ def _stack(items: list):
     if isinstance(items[0], tuple):
         return _tuple_like(items[0], [_stack(list(f)) for f in zip(*items)])
     return torch.stack([torch.as_tensor(x) for x in items])
-
-
-def _copied(tree):
-    """A collector's outputs with their tensors copied: on a captured
-    route they may view its buffers, which the next replay overwrites."""
-    if isinstance(tree, dict):
-        return {k: _copied(v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return _tuple_like(tree, [_copied(f) for f in tree])
-    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _first(tree, k: int):
@@ -412,6 +403,16 @@ class SMC2:
             return self._service_exchange(generator, state, y)
         return state
 
+    @staticmethod
+    def _collected(state: SMC2State) -> SMC2State:
+        """The state a collector sees on the eager path: ``t`` and
+        ``exchange_pending`` as 0-dim device tensors (int64, bool), as on
+        the captured route and as JAX traces them."""
+        device = state.theta.device
+        return replace(state, t=torch.full((), state.t, dtype=torch.int64, device=device),
+                       exchange_pending=torch.full((), state.exchange_pending, dtype=torch.bool,
+                                                   device=device))
+
     def run(self, generator, y, collect_fn: Callable | None = None):
         """Whole-sequence online run: ``init`` then ``step`` over y[1:],
         servicing the doublings in "grow" mode (:meth:`run_segmented`
@@ -438,7 +439,20 @@ class SMC2:
         series)) over the steps run in this call (zero of them past the
         bound). ``segment_size`` (≥ 1) sets the JAX package's dispatch
         segments; the port's host loop has no segments and does not read
-        it beyond the check."""
+        it beyond the check.
+
+        ``collect_fn(state)`` → a tensor or a dict / (named) tuple of
+        tensors, called after each step. As JAX traces it into its scan, the
+        state's ``t`` and ``exchange_pending`` reach it as 0-dim tensors on
+        the state's device (int64, bool), on the eager path too, so one
+        collector serves both (index y with ``torch.take(y, state.t - 1)``,
+        not ``y[state.t - 1]``, which reads t on the host). On a captured
+        route (:meth:`_graphed`) it runs inside the replayed step, its
+        outputs' leaves stored on the device at each step and copied out at
+        the end: a collector that reads the host (``.item()``, a branch on
+        a tensor, a tensor made from host values) or returns a leaf that is
+        not a tensor on the state's device raises ``graphs.CaptureError``
+        naming it, and is never run eagerly in its place."""
         if segment_size < 1:
             raise ValueError(f"segment_size must be ≥ 1, got {segment_size}")
         T = y.shape[0]
@@ -452,7 +466,7 @@ class SMC2:
                                           acc_ratio=state.acc_ratio,
                                           log_evidence_incr=torch.zeros_like(state.ess))]), 0)
             return state, (out if collect_fn is None
-                           else (out, _first(_stack([collect_fn(state)]), 0)))
+                           else (out, _first(_stack([collect_fn(self._collected(state))]), 0)))
         if self._graphed(state):
             state, out, series = self._run_graphed(generator, state, y, target, collect_fn)
             return state, (out if collect_fn is None else (out, series))
@@ -461,7 +475,7 @@ class SMC2:
             state, info = self.step(generator, state, y)
             infos.append(info)
             if collect_fn is not None:
-                series.append(collect_fn(state))
+                series.append(collect_fn(self._collected(state)))
             mid_bound = state.t >= target and target < T
             if self._grow and state.exchange_pending and not mid_bound:
                 state = self._service_exchange(generator, state, y)
@@ -470,29 +484,36 @@ class SMC2:
 
     def _run_graphed(self, generator, state: SMC2State, y, target: int, collect_fn):
         """:meth:`run_segmented`'s steps up to ``target`` on the captured
-        online route: the state stays in the route's buffers (a new route
-        where a doubling changes N) and is copied out at the end. Returns
-        (state, StepInfo of the steps' stacked tensors, the collector's
-        outputs, copied and stacked, or None)."""
+        online route, the collector inside its step: the state stays in the
+        route's buffers (a new route where a doubling changes N) and is
+        copied out at the end. Returns (state, StepInfo of the steps'
+        stacked tensors, the collector's outputs stacked, or None)."""
         T = y.shape[0]
-        route, first, chunks, fired, series = None, state.t, [], [], []
+        route, first, chunks, fired = None, state.t, [], []
+
+        def chunk(last):
+            b = route.buffers
+            chunks.append((b.infos(first, last), None if b.collect is None
+                           else (b.collect.tree, b.collect.series(first, last))))
+
         while state.t < target:
             if route is None:
-                route, first = graphs.online_route(generator, self, state, y), state.t
+                route, first = graphs.online_route(generator, self, state, y, collect_fn), state.t
             state, degenerate = self._online_step(generator, route, state, y)
             fired.append(degenerate)
-            if collect_fn is not None:
-                series.append(_copied(collect_fn(state)))
             mid_bound = state.t >= target and target < T
             if self._grow and state.exchange_pending and not mid_bound:
-                chunks.append(route.buffers.infos(first, state.t))
+                chunk(state.t)
                 state = self._service_exchange(generator, state, y)  # new arrays at 2N
                 route = None
         if route is not None:
-            chunks.append(route.buffers.infos(first, state.t))
+            chunk(state.t)
             state = self._owned(state)
-        stores = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        stores = {k: torch.cat([c[0][k] for c in chunks]) for k in chunks[0][0]}
         infos = StepInfo(ess=stores["ess"], rejuvenated=torch.tensor(fired),
                          acc_ratio=stores["acc_ratio"],
                          log_evidence_incr=stores["log_evidence_incr"])
-        return state, infos, (_stack(series) if collect_fn is not None else None)
+        if collect_fn is None:
+            return state, infos, None
+        leaves = [torch.cat(parts) for parts in zip(*(c[1][1] for c in chunks))]
+        return state, infos, graphs._rebuild(chunks[0][1][0], iter(leaves))

@@ -1,6 +1,7 @@
 """The port's compiled loops (``ops/graphs.py``) beyond the masked filter's
-one-step replays: SMC²'s online step, the masked filter's S steps to a
-launch, and ``filter_sequence`` and the forward bank on their store routes.
+one-step replays: SMC²'s online step (its collector captured inside it),
+the masked filter's S steps to a launch, and ``filter_sequence`` and the
+forward bank on their store routes.
 
 On the CPU nothing is captured: with ``batched_filter.captures`` answering
 as it would on the card (the ``routed`` fixture), every loop runs through
@@ -220,16 +221,16 @@ def test_step_returns_a_state_that_owns_its_arrays(routed, inner):
 
 def test_run_segmented_with_a_collector_equals_eager(routed):
     """``run_segmented`` with a collector split by ``max_steps`` and resumed:
-    the collector runs eagerly on the route's state after each step, its
-    outputs copied (one returns a buffer's view itself), bitwise the eager
-    loop's, infos and series."""
+    the collector runs inside the route's step on the state it just wrote,
+    its outputs stored on the route at each t (one returns a buffer's view
+    itself), bitwise the eager loop's, infos and series."""
     from sequential_monte_carlo_tpu_torch.analysis import state_quantiles, state_variance
 
     sampler, y = _sampler("systematic"), _series(14)
 
     def collect(state):
         return {"xq": state_quantiles(state, [0.25, 0.5, 0.75]), "var": state_variance(state),
-                "log_z": state.log_z, "yt": y[state.t - 1]}
+                "log_z": state.log_z, "yt": torch.take(y, state.t - 1)}
 
     def drive(gen):
         state, (infos1, s1) = sampler.run_segmented(gen, y, collect_fn=collect, max_steps=6)
@@ -237,6 +238,8 @@ def test_run_segmented_with_a_collector_equals_eager(routed):
         return state, infos1, infos2, s1, s2
 
     got = drive(torch.Generator().manual_seed(0))
+    (route,) = _routes("online")
+    assert route.buffers.collect is not None and route.replays == len(y) - 1
     with tsmc.disable_graphs():
         ref = drive(torch.Generator().manual_seed(0))
     _assert_states_equal(got[0], ref[0])
@@ -247,6 +250,79 @@ def test_run_segmented_with_a_collector_equals_eager(routed):
         assert torch.equal(a, b)
     assert got[3]["log_z"].shape == (6, 16) and not torch.equal(got[3]["log_z"][0],
                                                                 got[3]["log_z"][-1])
+    assert torch.equal(got[4]["yt"], y[7:])
+
+
+def _pending_collector(state):
+    """The exchange phase's collector: the posterior mean, t and the
+    exchange's pending flag, which a captured collector sees as device
+    tensors."""
+    return tsmc.expected_parameters(state), state.t, state.exchange_pending
+
+
+def test_captured_collector_across_an_exchange_grow(routed):
+    """``run_segmented`` with a collector in "grow" mode, split by
+    ``max_steps`` and resumed: the collector inside the online route at
+    each N, its series bitwise the eager loop's across each doubling onto a
+    new route; t and the pending flag as int64 and bool tensors on both
+    paths."""
+    y = _series(16)
+    grow = _sampler("systematic", m=16, n=32, acc_threshold=1.1, exchange_max_n=64)
+
+    def drive(gen):
+        state, (i1, s1) = grow.run_segmented(gen, y, collect_fn=_pending_collector,
+                                             max_steps=7)
+        state, (i2, s2) = grow.run_segmented(gen, y, collect_fn=_pending_collector, state=state)
+        return state, i1, i2, s1, s2
+
+    got = drive(torch.Generator().manual_seed(1))
+    routes = _routes("online")
+    assert all(r.buffers.collect is not None for r in routes)
+    assert {r.buffers.clouds[0].shape[-1] for r in routes} == {32, 64, 128}
+    with tsmc.disable_graphs():
+        ref = drive(torch.Generator().manual_seed(1))
+    _assert_states_equal(got[0], ref[0])
+    for a, b in zip(got[1:3], ref[1:3]):
+        _assert_infos_equal(a, b)
+    for a, b in zip(graphs._leaves(got[3:]), graphs._leaves(ref[3:]), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ts = torch.cat([got[3][1], got[4][1]])
+    assert ts.dtype == torch.int64 and torch.equal(ts, torch.arange(2, len(y) + 1))
+    assert got[3][2].dtype == torch.bool and bool(torch.cat([got[3][2], got[4][2]]).any())
+
+
+def test_collector_closure_made_again_keeps_its_route(routed):
+    """A collector made anew by the same ``def`` over the same objects (the
+    inflation example's, made a run) replays the route captured for the
+    first; one over another series gets a route of its own."""
+    sampler, y = _sampler("systematic"), _series(8)
+
+    def collector(series):
+        def collect(state):
+            return torch.take(series, state.t - 1) + state.log_z
+        return collect
+
+    first = sampler.run(torch.Generator().manual_seed(0), y, collect_fn=collector(y))
+    sampler.run(torch.Generator().manual_seed(0), y, collect_fn=collector(y))
+    assert len(_routes("online")) == 1
+    again = sampler.run(torch.Generator().manual_seed(0), y, collect_fn=collector(y))
+    assert torch.equal(first[1][1], again[1][1])
+    sampler.run(torch.Generator().manual_seed(0), y, collect_fn=collector(y.clone()))
+    assert len(_routes("online")) == 2
+
+
+def test_collector_that_is_not_a_tensor_raises(routed):
+    """A collector leaf that is not a tensor on the state's device cannot be
+    stored by a replayed step: ``CaptureError`` naming the collector, which
+    never runs eagerly in its place."""
+    sampler, y = _sampler("systematic"), _series(6)
+
+    def as_number(state):
+        return float(state.ess)
+
+    with pytest.raises(graphs.CaptureError, match="as_number"):
+        sampler.run(torch.Generator().manual_seed(0), y, collect_fn=as_number)
+    assert not _routes("online")
 
 
 def test_exchange_grow_doubles_onto_a_new_route(routed):
@@ -396,6 +472,57 @@ def test_store_replays_equal_eager_on_the_card(cuda, entry):
                     strict=True):
         assert torch.equal(a, b)
     assert runs["graphed"][1] == runs["eager"][1]
+
+
+@pytest.mark.gpu
+def test_collector_replays_equal_eager_on_the_card(cuda):
+    """The inflation example's UC run (512×1024, chain 3, its collector
+    captured into the online step) over 60 observations of its series:
+    state, StepInfo, series and launch counts equal the eager run's; one
+    replay and one flag read a step."""
+    from sequential_monte_carlo_tpu_torch.examples import inflation as ex
+
+    y = _series(60).to(cuda)
+    sampler = tsmc.SMC2(tsmc.uc_model, ex.uc_prior("cuda"),
+                        tsmc.SMCConfig(n_particles=1024, n_theta=512, chain=3,
+                                       ess_threshold=0.5))
+    runs = {}
+    for mode in ("graphed", "eager"):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        with (tsmc.disable_graphs() if mode == "eager" else contextlib.nullcontext()):
+            runs[mode] = _counted(lambda: sampler.run_segmented(
+                gen, y, segment_size=16, collect_fn=ex.online_collector(y)))
+    (online,) = _routes("online")
+    assert online.graphed and online.replays == online.buffers.reads == len(y) - 1
+    (sg, (ig, series_g)), cg = runs["graphed"]
+    (se, (ie, series_e)), ce = runs["eager"]
+    _assert_states_equal(sg, se)
+    _assert_infos_equal(ig, ie)
+    assert cg == ce and sorted(series_g) == ["cq", "var", "xq"]
+    for k in series_g:
+        assert torch.equal(series_g[k], series_e[k]), k
+
+
+@pytest.mark.gpu
+def test_collector_reading_the_host_raises_at_capture(cuda):
+    """A collector that reads the host (Python indexing with the device t,
+    which calls ``.item()``) cannot be captured into the replayed step:
+    ``CaptureError`` naming it, at capture, never run eagerly in its place;
+    ``disable_graphs()`` runs it."""
+    sampler = tsmc.SMC2(tsmc.ucsv_model, prior_from_spec(BENCH_PRIOR, device="cuda"),
+                        tsmc.SMCConfig(n_particles=256, n_theta=64, chain=2))
+    y = _series(12).to(cuda)
+
+    def indexes_on_host(state):
+        return y[state.t - 1] + state.log_z
+
+    with pytest.raises(graphs.CaptureError, match="indexes_on_host"):
+        sampler.run(torch.Generator(device=cuda).manual_seed(0), y, collect_fn=indexes_on_host)
+    assert not _routes("online")
+    with tsmc.disable_graphs():
+        _, (infos, series) = sampler.run(torch.Generator(device=cuda).manual_seed(0), y,
+                                         collect_fn=indexes_on_host)
+    assert series.shape == (11, 64)
 
 
 @pytest.mark.gpu

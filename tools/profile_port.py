@@ -18,14 +18,18 @@ backward pass), posterior_smoothed_paths (8 θ × 64 paths, N=8192, from a
 chain at T=60, N=128; online SMC² on UC-SV written with the model DSL (no
 fused propagate kernel) at 512 × 1024; the inflation example at --full sizes
 without figures (UC 512 × 1024 chain 3, UC-SV 512 × 8192 chain 5, each with
-its filter at θ̂, FFBS and posterior mixture) — it runs the
+its filter at θ̂, FFBS and posterior mixture); IBIS on LG at 512 θ, T=100,
+chain 3 (chip_smoke.py's ibis phase); the inflation example's online UC run
+(``run_segmented``, 512 × 1024, chain 3, the PCE series) with its collector
+and without one — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock), the host's CPU time and the unprofiled run's
 peak of allocated device memory. Each cell runs ``graphed`` (the default
-path: the masked filter, SMC²'s online step, ``filter_sequence``, the
-forward bank, and particle Gibbs's and conditional SMC's sweeps replay
-their captured CUDA graphs where the route is captured, ``ops/graphs.py``:
+path: the masked filter, SMC²'s online step (its collector inside),
+``filter_sequence``, the forward bank, particle Gibbs's and conditional
+SMC's sweeps, IBIS's online step and the Kalman loops replay their
+captured CUDA graphs where the route is captured, ``ops/graphs.py``:
 every route without a mesh or ``active_n``, the DSL's plain propagate
 route, a guided proposal, residual and metropolis included), then
 ``eager`` (inside ``disable_graphs()``).
@@ -35,6 +39,8 @@ Prints one JSON line per cell and mode and writes them all to ``--out``;
     python3 tools/profile_port.py --cells smc2_ucsv_512x8192   # the flagship
     python3 tools/profile_port.py --cells smc2_ucsv_dsl_512x1024 filters_lg_residual_512 \
         filters_lg_metropolis_512 filters_lg_guided_512   # the DSL and the other inner routes
+    python3 tools/profile_port.py --cells ibis_lg_512 online_uc_512x1024_collector \
+        online_uc_512x1024   # IBIS and the captured collector
 """
 from __future__ import annotations
 
@@ -94,9 +100,21 @@ def _dsl_inflation_cells(torch, smc, prior_from_spec):
     dsl = smc.SMC2(cs.ucsv_dsl(smc, torch), prior_from_spec(cs.PRIOR_SPEC, device="cuda"), cfg)
     y = cs.series(torch, "cuda")
     outdir = tempfile.mkdtemp(prefix="profile_inflation_")
+    ibis, y_lg = cs.ibis_sampler(torch)
+    y_pce = inflation.load_pce("cuda")[1]
+    n, m, chain = inflation.FULL_SIZES["uc"]
+    uc = smc.SMC2(smc.uc_model, inflation.uc_prior("cuda"), smc.SMCConfig(
+        n_particles=n, n_theta=m, chain=chain, ess_threshold=inflation.ESS_THRESHOLD))
+    collect = inflation.online_collector(y_pce)
     return {
         "smc2_ucsv_dsl_512x1024": lambda seed: dsl.run(
             torch.Generator(device="cuda").manual_seed(seed), y),
+        "ibis_lg_512": lambda seed: ibis.run(torch.Generator(device="cuda").manual_seed(seed),
+                                             y_lg),
+        "online_uc_512x1024_collector": lambda seed: uc.run_segmented(
+            torch.Generator(device="cuda").manual_seed(seed), y_pce, collect_fn=collect),
+        "online_uc_512x1024": lambda seed: uc.run_segmented(
+            torch.Generator(device="cuda").manual_seed(seed), y_pce),
         # the example's seeds are its own: every run is the same run
         "inflation_full": lambda seed: inflation.run_example(
             inflation.FULL_SIZES, outdir, figures=False, device="cuda"),
