@@ -70,7 +70,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
      N from 1024, T=241, chain=5, acc_threshold 1.1, exchange_max_n 4096):
      (a) "grow" through step + maybe_exchange (K1 + K2-UC-SV at N = 1024 …
      8192), (b) "full" padding (arrays 512×8192 from the init; K3 on the
-     live-prefix grid + K6 raw, the dead tail at exactly −inf), (c)
+     live-prefix grid + K6 raw, the dead tail at exactly −inf; replayed
+     from the online and masked routes of each live count), (c)
      run_segmented with a collect_fn (captured into the replayed step, t and
      the pending flag device tensors): N doubling to 8192 and never above,
      launch counts equal to the schedule's, posteriors against the JAX
@@ -211,8 +212,8 @@ Phases, one line each or more; any failure raises and exits non-zero:
      on (1, 2) over its first P_STEPS observations, bit for bit the
      one-process run.
  30. graphs — the compiled loops (``ops/graphs.py``; every phase above
-     replays them where its route is captured: no mesh, no active_n; any
-     model, proposal and scheme): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
+     replays them where its route is captured: no mesh; any model,
+     proposal, scheme and live count): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
      step (one replay and one flag read a step), filter_sequence and the
      forward bank (store routes), each against its eager loop under
      ``disable_graphs()`` from the same seeds: the slice's SMC² at 512×1024
@@ -260,7 +261,14 @@ Phases, one line each or more; any failure raises and exits non-zero:
      each two (no collector launch between replays); and phase 17's run under
      the profiler: its graph launches one an online step plus the Kalman
      passes' ⌊t/S⌋ + t mod S each, its host syncs one an online step plus a
-     rejuvenation's own, and a Kalman pass alone none.
+     rejuvenation's own, and a Kalman pass alone none. Then "full" padding
+     (the exchange phase's run (b), the live count 1024 → 8192 in arrays
+     512×8192, driven by run): against its eager twin the same way (K3 and
+     K6 launches equal to the schedule with each doubling's refilter), and
+     from cleared graphs once more graphed and through run_segmented with a
+     captured collector, graphed and eager: one capture per (kind,
+     collector, live count), the series (the live count at every step, the
+     dead tail exactly −inf) bit for bit.
 The line before the last but one is the kernels' JSON line, the line before
 the last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
@@ -1485,6 +1493,19 @@ def _schedule(infos, chain: int, doubled_at) -> int:
     return len(infos.ess) + sum(chain * (t - 1) for t in rejuv_t) + sum(t - 1 for t in doubled_at)
 
 
+def exchange_sampler(torch, pad: str):
+    """The exchange phase's SMC² (UC-SV, M=512, N from 1024, chain=5, the
+    exchange armed with acc_threshold 1.1 and exchange_max_n 4096, a
+    systematic inner filter) with ``elastic_pad=pad``."""
+    import sequential_monte_carlo_tpu_torch as smc
+    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+
+    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
+                        acc_threshold=EXCHANGE_ACC, exchange_max_n=EXCHANGE_MAX_N,
+                        elastic_pad=pad, inner=smc.PFConfig("systematic", 1.0))
+    return smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+
+
 def run_exchange(torch, pad: str, via: str, seed: int = SEED):
     """Online SMC² on UC-SV (M=512, N from 1024, T=241, chain=5) with the
     exchange step armed, ``elastic_pad=pad``, driven by ``step`` +
@@ -1494,13 +1515,9 @@ def run_exchange(torch, pad: str, via: str, seed: int = SEED):
     collected series, wall-clock s, launch counts, a step's state with
     0 < active_n < N under "full" padding)."""
     import sequential_monte_carlo_tpu_torch as smc
-    from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
     from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
 
-    cfg = smc.SMCConfig(n_particles=DT_N, n_theta=DT_M, chain=CHAIN, ess_threshold=0.5,
-                        acc_threshold=EXCHANGE_ACC, exchange_max_n=EXCHANGE_MAX_N,
-                        elastic_pad=pad, inner=smc.PFConfig("systematic", 1.0))
-    sampler = smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device="cuda"), cfg)
+    sampler = exchange_sampler(torch, pad)
     y = series(torch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sizes, doubled_at, partial, series_out = [], [], None, None
@@ -4024,6 +4041,7 @@ def check_graphs(torch, flagship):
             lambda out: (CSMC_T - 1) * GRAPH_CSMC_SWEEPS, profile=True, routes=("csmc",))
     rows.update(inner_route_cells(torch, smc, paired, smc2_same))
     rows.update(ibis_cells(torch, smc, paired))
+    rows.update(elastic_cells(torch, smc, paired, smc2_same))
     rows["collector_launches"] = collector_launches(torch, smc)
     rows["ibis_replays_and_reads"] = ibis_replays_and_reads(torch, smc)
     rows["replays_and_reads"] = replays_and_reads(torch, smc)
@@ -4179,6 +4197,121 @@ def ibis_cells(torch, smc, paired) -> dict:
         f"kalman_filter lg {DT_M} θ, T={DT_T}", run_kalman_filter,
         lambda a, b: {f"out{i}": bool(torch.equal(x, z)) for i, (x, z) in enumerate(zip(a, b))},
         lambda out: {}, lambda out: DT_T, profile=True, routes=("kalman",))
+    return rows
+
+
+def elastic_doublings(infos) -> list:
+    """The t at which an exchange-phase run's live count doubled: those of
+    its first three rejuvenations (acc_threshold 1.1 fires the exchange
+    after every one while the live count is ≤ 4096)."""
+    return (infos.rejuvenated.nonzero().flatten() + 1).tolist()[:3]
+
+
+def _elastic_collect(state):
+    """The elastic cell's collector: the posterior mean, t, the live count
+    (a fill of the route's host int), and whether the dead tail is exactly
+    −inf and the live slots finite on every row."""
+    import sequential_monte_carlo_tpu_torch as smc
+
+    lw = state.log_w
+    return (smc.expected_parameters(state), state.t, lw.new_full((), state.active_n, dtype=int),
+            (lw[:, state.active_n:] == -math.inf).all(),
+            lw[:, :state.active_n].isfinite().all())
+
+
+def elastic_cells(torch, smc, paired, smc2_same) -> dict:
+    """Phase 30's "full"-padding cell, the exchange phase's configuration
+    (UC-SV, M=512, the arrays 512×8192 from the init, the live count 1024 →
+    8192, T=241, chain 5, acc_threshold 1.1, exchange_max_n 4096): ``run``
+    through ``paired`` (graphed on the online and masked routes of each
+    live count, then its eager twin: θ, log ω, log Z, particles,
+    log-weights, the final live count and every StepInfo bit for bit; K3's
+    and K6's launches equal to the schedule; walls, busy share with the
+    profiler's K3 and K6 events held against their counters, the graph
+    pool); then, from cleared graphs, ``run`` graphed once and
+    ``run_segmented`` with a captured collector (:func:`_elastic_collect`)
+    graphed and eager: one capture per (kind, collector, live count) and no
+    more, the routes graphed, the collector's series (the live count at
+    every step among them) bitwise, the dead tail exactly −inf and the live
+    slots finite after every step."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    sampler, y = exchange_sampler(torch, "full"), series(torch, "cuda")
+    live_counts = [DT_N, 2 * DT_N, 4 * DT_N, N_CAP]
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run():
+        return _counted(torch, lambda: sampler.run(gen(), y))
+
+    def steps(out):
+        return _schedule(out[1], CHAIN, elastic_doublings(out[1]))
+
+    def same(a, b):
+        return {**smc2_same(a, b), "active_n": a[0].active_n == b[0].active_n == N_CAP,
+                "doublings": len(elastic_doublings(a[1])) == 3}
+
+    label = f"smc2 ucsv full padding {DT_M}x{N_CAP}, live {DT_N}..{N_CAP}"
+    rows = {"elastic_full": paired(label, run, same, lambda out: {
+        "resample_sorted": steps(out), "ucsv_propagate": steps(out)}, steps, profile=True)}
+
+    captured, capture = [], graphs._Route.capture
+
+    def counting(route, *args):
+        captured.append(route)
+        return capture(route, *args)
+
+    smc.clear_graphs()
+    graphs._Route.capture = counting
+    try:
+        got, wall_g, _ = run()
+        collected_g, wall_cg, counts_cg = _counted(torch, lambda: sampler.run_segmented(
+            gen(), y, collect_fn=_elastic_collect))
+    finally:
+        graphs._Route.capture = capture
+    routes = list(graphs._cache.values())
+    pairs = {(type(r.buffers).__name__, getattr(r.buffers, "collect", None) is not None,
+              r.buffers.active_n) for r in routes}
+    want = {(kind, c, n) for kind, c in (("StepBuffers", False), ("OnlineBuffers", False),
+                                         ("OnlineBuffers", True)) for n in live_counts}
+    if not (len(captured) == len(routes) == len(pairs) and pairs == want
+            and all(r.graphed for r in routes)):
+        raise AssertionError(f"graphs ({label}): {len(captured)} captures, routes"
+                             f" {sorted(pairs, key=str)}, expected one each of"
+                             f" {sorted(want, key=str)}")
+    with smc.disable_graphs():
+        collected_e, wall_ce, counts_ce = _counted(torch, lambda: sampler.run_segmented(
+            gen(), y, collect_fn=_elastic_collect))
+    (sg, (ig, series_g)), (se, (ie, series_e)) = collected_g, collected_e
+    same_c = {**smc2_same((sg, ig), (se, ie)),
+              **{f"series{i}": bool(torch.equal(a, b))
+                 for i, (a, b) in enumerate(zip(series_g, series_e, strict=True))}}
+    if not all(same_c.values()) or counts_cg != counts_ce:
+        raise AssertionError(f"graphs ({label}, collector): graphed and eager runs differ:"
+                             f" {same_c}, launches {counts_cg} graphed, {counts_ce} eager")
+    _, ts, sizes, tails, finite = series_g
+    seen = sorted(set(sizes.tolist()))
+    if not (bool(tails.all()) and bool(finite.all()) and seen[-1] == N_CAP
+            and set(seen) <= set(live_counts) and bool((sizes[1:] >= sizes[:-1]).all())
+            and torch.equal(ts.cpu(), torch.arange(2, y.shape[0] + 1))):
+        raise AssertionError(f"graphs ({label}, collector): live counts {seen}, dead tails"
+                             f" −inf {bool(tails.all())}, live slots finite {bool(finite.all())}")
+    if not all(torch.equal(getattr(sg, k), getattr(got[0], k)) for k in ("theta", "log_z")):
+        raise AssertionError(f"graphs ({label}): run_segmented with a collector and run differ")
+    timing = collections.defaultdict(float)
+    for r in routes:
+        for k, v in r.timing.items():
+            timing[f"{type(r.buffers).__name__}_{k}"] += v
+    rows["elastic_collector"] = {
+        "run": f"{label}, routes and run_segmented with a collector", "captures": len(captured),
+        "routes": len(routes), "live_counts_stepped": seen, "bitwise": True,
+        "launches_equal": True, "inner_steps": _schedule(ig, CHAIN, elastic_doublings(ig)),
+        "wall_s": {"run_graphed_first": round(wall_g, 4), "collector_graphed_first":
+                   round(wall_cg, 4), "collector_eager": round(wall_ce, 4)},
+        "capture_s": {k: round(v, 4) for k, v in sorted(timing.items())},
+        "graph_pool_mb": round(_graph_pool_mb(torch), 1)}
+    say("graphs", **rows["elastic_collector"])
     return rows
 
 

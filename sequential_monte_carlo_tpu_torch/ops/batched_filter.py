@@ -107,8 +107,10 @@ is captured (:func:`captures`; :mod:`.graphs`: the port's form of the JAX
 package's jitted masked scan), several steps a launch; so do SMC²'s online
 step, ``filter_sequence`` and the smoothers' forward bank on the same
 routes: every model (the plain propagate route of a DSL model too), proposal
-and scheme, without a mesh or ``active_n``. The eager loops run on those and
-inside :func:`.graphs.disable_graphs`. Both give the same bits.
+and scheme, and the elastic ``active_n`` (one route per live count, which
+the captured step holds as a host int), without a mesh. The eager loops run
+under a mesh and inside :func:`.graphs.disable_graphs`. Both give the same
+bits.
 
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
 GPU, one Philox seed for the propagate kernel (which draws its normals), on
@@ -310,7 +312,8 @@ def _log_normalize(log_w, cols, log_n: float | None = None, out=None):
 
 
 def _active(active_n):
-    """The live count as a host int (it sets the step's shapes of work)."""
+    """The live count as a host int: a scalar of the step's glue (the grid's
+    divisor, the live mask, log active_n), which a captured step holds."""
     return None if active_n is None else int(active_n)
 
 
@@ -464,8 +467,8 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     bank; ``active_n`` the elastic live count. Under particle sharding the
     particles and log-weights are the rank's slice of its rows, and u and
     the normals as :func:`_draws` keeps them. ``out``: on the routes the
-    loops capture (no mesh, no ``active_n``), the (M, dx, N) cloud and
-    (M, N) log-weight buffers that the step writes (the kernel in place)."""
+    loops capture (no mesh), the (M, dx, N) cloud and (M, N) log-weight
+    buffers that the step writes (the kernel in place)."""
     rows = _rows(config, particles.shape[0])
     cols = _cols(config, particles.shape[1])
     n = particles.shape[1] if cols is None else cols.n
@@ -600,15 +603,16 @@ def captures(config: PFConfig, active_n, device) -> bool:
     ``filter_sequence`` and the forward bank; at the multinomial scheme also
     conditional SMC's and particle Gibbs's sweeps. On a CUDA device, outside
     :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
-    captured) and no ``active_n`` (its live count is a host int that sets
-    the step's shapes): any model (a fused kernel's or the plain propagate
-    route of a DSL model; its tensor fields become the route's buffers, its
-    other leaves key it, :mod:`.graphs`), bootstrap, guided or auxiliary,
-    and every resampling scheme. A route whose step runs ``torch.linalg.eigh`` (an
+    captured): any model (a fused kernel's or the plain propagate route of a
+    DSL model; its tensor fields become the route's buffers, its other
+    leaves key it, :mod:`.graphs`), bootstrap, guided or auxiliary, every
+    resampling scheme, and any ``active_n``: the live count is a host int
+    that the captured step holds (the grid's divisor, the live mask, log
+    active_n), so each live count keys a route of its own and the gate does
+    not read it. A route whose step runs ``torch.linalg.eigh`` (an
     ``MvNormal`` with ``allow_singular``), which checks its errors on the
     host, runs its step bodies eagerly instead (:mod:`.graphs`)."""
-    return (graphs.enabled() and device.type == "cuda" and config.mesh is None
-            and active_n is None)
+    return graphs.enabled() and device.type == "cuda" and config.mesh is None
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
@@ -619,9 +623,10 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     all T: on the card, on the routes :func:`captures` names, by
     replaying captured CUDA graphs, ``graphs.STEPS_PER_GRAPH`` live times a
     launch and the rest one a launch (:mod:`.graphs`; eager inside
-    :func:`.graphs.disable_graphs`), else by a Python loop over them.
-    ``mask`` is read on the host; the model's kernel parameters are packed
-    once, outside the loop.
+    :func:`.graphs.disable_graphs`), else by a Python loop over them; with
+    ``active_n``, on the route of that live count. The init runs eagerly
+    before the replays. ``mask`` is read on the host; the model's kernel
+    parameters are packed once, outside the loop.
 
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,)), this rank's
     rows of them (and its particles of each) under ``config.mesh``."""
@@ -630,7 +635,8 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     params = kernel_params(models, config)
     live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
     if live.numel() and captures(config, active_n, particles.device):
-        return graphs.filter_live(generator, models, init, params, y, live, config)
+        return graphs.filter_live(generator, models, init, params, y, live, config,
+                                  _active(active_n))
     for t in live.tolist():
         out = batched_pf_step(generator, models, particles, log_w, y[t], config,
                               params, active_n)

@@ -32,7 +32,7 @@ bit: the same kernels and glue on the same inputs, the same Philox offsets,
 the same launch counts.
 
 Captured routes (:func:`~.batched_filter.captures`): on a CUDA device, no
-mesh, no ``active_n``; any model — a fused kernel's (K2, K6), or a DSL
+mesh; any model — a fused kernel's (K2, K6), or a DSL
 model's plain propagate route (its draw from the transition and the
 observation density, ~50 small launches a step, all captured) — whose
 tensor fields become buffers and whose other leaves (name, state names,
@@ -48,9 +48,14 @@ sweep is captured where its bank's filter would be at the multinomial
 scheme; a PG sweep too, unless the model's kernel parameters read the host
 (``params_read_host``: an LG model at dx > 1), where the sweeps loop
 eagerly, each CSMC sweep on its route (its parameters packed outside the
-graph). The eager loop runs, chosen by the configuration, under a mesh (its
-collectives cannot be captured) and the elastic ``active_n`` (so SMC²'s
-"full" padding). One rule is read from the warm-up (below): a step that
+graph). The elastic ``active_n`` (SMC²'s "full" padding) is captured too,
+one route per live count: every tensor of an elastic step has the padded
+shape, and the live count enters only as host scalars of its glue (the
+live-prefix grid's divisor, the live mask, log active_n), which the graph
+holds as they were at capture, so the count keys the route
+(:func:`_key`). The eager loop runs, chosen by the configuration, under a
+mesh (its collectives cannot be captured). One rule is read from the
+warm-up (below): a step that
 runs ``torch.linalg.eigh`` (``distributions/mvnormal.py::eigh``: an
 ``MvNormal`` with ``allow_singular``, the default, as an LG model's
 transition at dx > 1, so a guided proposal or a smoother's backward draw
@@ -80,7 +85,10 @@ its buffers (``_Route.graphed`` False), with the same bits.
   host read a step — and, where it is set, runs the rejuvenation (the
   θ-resample, ``chain`` masked filters or Kalman passes on their own
   replays, the exchange test) eagerly between replays and loads its result
-  into the buffers. SMC²'s ``collect_fn`` runs inside its step, as JAX
+  into the buffers; under "full" padding, where the exchange doubled the
+  live count, into the route of the new count (the doubled refilter's
+  masked filter replays that count's route too). SMC²'s ``collect_fn``
+  runs inside its step, as JAX
   traces it into its scan (:class:`_Collector`): on the state the step
   wrote, ``t`` the position counter and ``exchange_pending`` a flag buffer
   as device tensors, its outputs stored at t; one that reads the host
@@ -135,8 +143,10 @@ its buffers (``_Route.graphed`` False), with the same bits.
 - Cache: captured routes share one memory pool and sit in an LRU of
   :data:`CACHE_SIZE`, keyed by the kind of route, the configuration (its
   proposal's functions by identity), the model's tree (:func:`_tree_key`),
-  the cloud's (M, dx, N) and dtype and
-  the observations' buffer size (a CSMC sweep's: the kind, the method,
+  the cloud's (M, dx, N) and dtype, the observations' buffer size and the
+  live count (None without ``active_n``; every live count of a padded run
+  has the same buffer shapes, so a key without it would replay another
+  count's graph) (a CSMC sweep's: the kind, the method,
   the bank's class and fields' shapes, (M, N, T, dx) and dtype; a PG
   sweep's also ``model_fn`` by identity, the prior's structure and the
   PG configuration); :func:`clear_graphs` frees them.
@@ -167,7 +177,10 @@ from .weights import ess_from_log_weights
 
 __all__ = ["CaptureError", "clear_graphs", "disable_graphs"]
 
-CACHE_SIZE = 16  # captured routes kept: every route of a chip_smoke.py phase 30 cell
+# captured routes kept: every route of a chip_smoke.py phase 30 cell; a
+# "full"-padding SMC² run from N to 8N holds 4 live counts × (masked,
+# online), and 4 online routes more with a collector
+CACHE_SIZE = 16
 STEPS_PER_GRAPH = 8  # S: consecutive steps in one graph of the loops without a host decision
 _Y_MIN = 256  # least capacity of the observation, live-time and store buffers
 
@@ -296,11 +309,14 @@ class StepBuffers:
     Built like one filter's inputs: the θ bank ``models``, its kernel
     ``params`` (None without), the init's (M, dx, N) ``cloud`` and (M, N)
     ``log_w``, the observations ``y``; ``capacity`` ≥ len(y) observations
-    and live times. ``record(t, out)``, where given, writes a step's outputs
-    (``out``, a ``BatchedPFOut`` of buffer views) at its live time t (a (1,)
-    int64 tensor) into stores of its own."""
+    and live times; ``active_n`` the route's live count (None without).
+    ``record(t, out)``, where given, writes a step's outputs (``out``, a
+    ``BatchedPFOut`` of buffer views) at its live time t (a (1,) int64
+    tensor) into stores of its own."""
 
-    def __init__(self, models, params, cloud, log_w, y, capacity: int, record=None):
+    def __init__(self, models, params, cloud, log_w, y, capacity: int, active_n=None,
+                 record=None):
+        self.active_n = active_n
         self.model = _tree_buffers(models)
         self.params = None if params is None else torch.empty_like(params)
         self.clouds = (torch.empty_like(cloud), torch.empty_like(cloud))
@@ -327,12 +343,13 @@ class StepBuffers:
 
     def step(self, generator, config, k: int) -> None:
         """One inner step at the next live time from buffer k into buffer
-        1 − k, adding its evidence to log Z: the body a graph captures."""
+        1 − k at the route's live count, adding its evidence to log Z: the
+        body a graph captures."""
         t = self.times.index_select(0, self.pos)
         y_t = self.y.index_select(0, t).reshape(())
         self.pos.add_(1)
         out = _bf.batched_pf_step(generator, self.model, _bf.from_cloud(self.clouds[k]),
-                                  self.log_w[k], y_t, config, self.params,
+                                  self.log_w[k], y_t, config, self.params, self.active_n,
                                   out=(self.clouds[1 - k], self.log_w[1 - k]))
         self.log_z.add_(out.log_mean)
         if self.record is not None:
@@ -425,10 +442,12 @@ class OnlineBuffers(_ThetaBuffers):
     buffers (:class:`_ThetaBuffers`), θ and the exchange's pending flag (a
     collector's state holds them), the θ bank's model and kernel
     parameters, two clouds and two log-weight planes, and with ``collect``
-    (a :class:`_Collector`) the collector's stores."""
+    (a :class:`_Collector`) the collector's stores; ``active_n`` the
+    route's live count (None outside "full" padding)."""
 
-    def __init__(self, models, params, state, y, capacity: int, ess_min: float):
+    def __init__(self, models, params, state, y, capacity: int, ess_min: float, active_n=None):
         super().__init__(state, y, capacity, ess_min)
+        self.active_n = active_n
         cloud = _bf.as_cloud(state.particles)
         self.theta = torch.empty_like(state.theta)
         self.pending = torch.zeros((), dtype=torch.bool, device=cloud.device)
@@ -451,10 +470,10 @@ class OnlineBuffers(_ThetaBuffers):
 
     def step(self, generator, config, k: int) -> None:
         """The online step after the rejuvenation decision, from buffer k
-        into buffer 1 − k ≡ ``SMC2.step``'s, then the collector: the body a
-        graph captures."""
+        into buffer 1 − k at the route's live count ≡ ``SMC2.step``'s, then
+        the collector: the body a graph captures."""
         out = _bf.batched_pf_step(generator, self.model, _bf.from_cloud(self.clouds[k]),
-                                  self.log_w[k], self.y_t(), config, self.params,
+                                  self.log_w[k], self.y_t(), config, self.params, self.active_n,
                                   out=(self.clouds[1 - k], self.log_w[1 - k]))
         self._account(out.log_mean)
         if self.collect is not None:
@@ -674,11 +693,14 @@ class _Route:
             generator.set_state(self.generator.get_state())
 
 
-def _key(models, params, cloud, y, config, capacity: int) -> tuple:
+def _key(models, params, cloud, y, config, capacity: int, active_n) -> tuple:
+    """A filter step's part of a route's key; ``active_n`` the live count
+    (None without): the graph holds it, and the buffers' shapes do not show
+    it."""
     return (config.algorithm, config.resampling, config.ess_threshold,
             _tree_key(config.proposal), _tree_key(models),
             None if params is None else tuple(params.shape), tuple(cloud.shape), cloud.dtype,
-            cloud.device, y.dtype, capacity)
+            cloud.device, y.dtype, capacity, active_n)
 
 
 def _ready(key, make, load, generator) -> _Route:
@@ -697,13 +719,14 @@ def _ready(key, make, load, generator) -> _Route:
     return route
 
 
-def _filter_route(kind, generator, models, init, params, y, live, config, record_for=None):
+def _filter_route(kind, generator, models, init, params, y, live, config, active_n=None,
+                  record_for=None):
     cloud = _bf.as_cloud(init.particles)
     capacity = _capacity(y.shape[0])
-    key = kind + _key(models, params, cloud, y, config, capacity)
+    key = kind + _key(models, params, cloud, y, config, capacity, active_n)
 
     def make():
-        buffers = StepBuffers(models, params, cloud, init.log_weights, y, capacity)
+        buffers = StepBuffers(models, params, cloud, init.log_weights, y, capacity, active_n)
         if record_for is not None:
             buffers.record = record_for(buffers)
         cfg = _guarded(config, cloud.device)
@@ -712,12 +735,14 @@ def _filter_route(kind, generator, models, init, params, y, live, config, record
     return _ready(key, make, lambda route: route.load(models, params, init, y, live), generator)
 
 
-def filter_live(generator, models, init, params, y, live, config):
+def filter_live(generator, models, init, params, y, live, config, active_n=None):
     """The masked filter's steps at the live times ``live`` (a non-empty
-    CPU int64 tensor), from the init ``init``, by replaying the route's
-    captured graphs (capturing them first where the cache has none).
-    Returns (particles (M, N, dx), log_w (M, N), log Z (M,))."""
-    route = _filter_route(("masked",), generator, models, init, params, y, live, config)
+    CPU int64 tensor), from the init ``init``, at the live count
+    ``active_n`` (a host int, or None), by replaying the route's captured
+    graphs (capturing them first where the cache has none). Returns
+    (particles (M, N, dx), log_w (M, N), log Z (M,))."""
+    route = _filter_route(("masked",), generator, models, init, params, y, live, config,
+                          active_n)
     route.replay(generator, live.shape[0])
     return route.buffers.result(route.k)
 
@@ -764,7 +789,7 @@ def filter_stored(generator, models, init, params, y, config, emit, tag):
 
     live = torch.arange(1, y.shape[0])
     route = _filter_route(("stored",) + tuple(tag), generator, models, init, params, y, live,
-                          config, record_for)
+                          config, record_for=record_for)
     for store, leaf in zip(route.buffers.stores, leaves):
         store[0].copy_(leaf)
     route.replay(generator, live.shape[0])
@@ -775,19 +800,21 @@ def filter_stored(generator, models, init, params, y, config, emit, tag):
 
 def online_route(generator, sampler, state, y, collect_fn=None) -> _Route:
     """SMC²'s online route for the sampler's configuration at the state's
-    shapes, with the state and y loaded (captured first where the cache has
-    none); with ``collect_fn`` the collector runs inside the step
-    (:class:`_Collector`), and the route is keyed by it."""
+    shapes and, under "full" padding, its live count, with the state and y
+    loaded (captured first where the cache has none); with ``collect_fn``
+    the collector runs inside the step (:class:`_Collector`, which sees the
+    route's live count), and the route is keyed by it."""
     cfg = sampler.config
     models = sampler.model_fn(state.theta)
     params = _bf.kernel_params(models, cfg.inner)
     cloud = _bf.as_cloud(state.particles)
     capacity = _capacity(y.shape[0])
+    active_n = sampler._active(state)
     key = (("online", cfg.ess_min, None if collect_fn is None else _Same(collect_fn))
-           + _key(models, params, cloud, y, cfg.inner, capacity))
+           + _key(models, params, cloud, y, cfg.inner, capacity, active_n))
 
     def make():
-        buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min)
+        buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min, active_n)
         if collect_fn is not None:
             template = replace(state, theta=buffers.theta, acc_ratio=buffers.acc_ratio,
                                **buffers.fields(0))

@@ -11,14 +11,19 @@ host: one ``step`` per observation, which reads the θ-ESS flag on the host
 to decide on a rejuvenation (and the acceptance rate, after one, to decide
 on an exchange), and rejuvenations that filter the consumed prefix y[0:t]
 only. On the card, where the inner filter's route is captured
-(``batched_filter.captures``; not under "full" padding), the step after the
-decision is a CUDA-graph replay (``ops/graphs.py``, the counterpart of
+(``batched_filter.captures``: without a mesh), the step after the decision
+is a CUDA-graph replay (``ops/graphs.py``, the counterpart of
 ``_step_jit``): ``run`` / ``run_segmented`` keep the state in the route's
 buffers between steps, read one flag a step through a pinned buffer, run a
 rejuvenation eagerly between replays (its masked filters replay their own
 graphs) and copy the state out at the end, at a ``max_steps`` bound and
 where a doubling changes N; ``step`` loads the state, replays and returns a
-state that owns its arrays. ``collect_fn`` is captured into the replayed
+state that owns its arrays. Under "full" padding each live count has its
+own routes (the graph holds the count): where the exchange doubles
+``active_n`` inside a step, its refilter replays the new count's masked
+route, and the step loads the state into the new count's online route
+before it replays — the counterpart of the ``lax.cond`` that JAX traces
+into its compiled step. ``collect_fn`` is captured into the replayed
 step, as JAX traces it into its scan: it sees ``t`` and
 ``exchange_pending`` as device tensors (on both paths), and its outputs
 are stored on the device at each step. Inside ``disable_graphs()`` every
@@ -307,10 +312,9 @@ class SMC2:
 
     def _graphed(self, state: SMC2State) -> bool:
         """Whether the online steps replay a captured route: the inner
-        filter's route is captured (``batched_filter.captures``) and the
-        arrays carry no live count ("full" padding keeps the eager step)."""
-        return not self._use_active and _bf.captures(self.config.inner, None,
-                                                     state.theta.device)
+        filter's route is captured (``batched_filter.captures``), at the
+        state's live count under "full" padding."""
+        return _bf.captures(self.config.inner, self._active(state), state.theta.device)
 
     @staticmethod
     def _owned(state: SMC2State) -> SMC2State:
@@ -320,34 +324,41 @@ class SMC2:
                        log_omega=state.log_omega.clone(), log_z=state.log_z.clone(),
                        ess=state.ess.clone())
 
-    def _online_step(self, generator, route, state: SMC2State, y):
+    def _online_step(self, generator, route, state: SMC2State, y, collect_fn=None):
         """One online step on the captured route whose buffers hold
         ``state``: the step's one host read (the flag ESS < ess_min of the
         step or load before), the rejuvenation and the exchange test eagerly
-        where it is set, their result loaded into the buffers, then one
-        replay. Returns (the state after it, its stepped tensors views of the
-        route's buffers; whether it rejuvenated)."""
+        where it is set, their result loaded into the buffers — into the
+        online route of the new live count (``collect_fn``'s), where the
+        exchange doubled it under "full" padding — then one replay. Returns
+        (the state after it, its stepped tensors views of the route's
+        buffers; whether it rejuvenated; the route that stepped)."""
         degenerate = route.buffers.read_flag()
         if degenerate:
             mask = torch.arange(y.shape[0]) < state.t
             state = self._resample_move(generator, state, y, mask)
             if self._elastic:
                 state = self._exchange(generator, state, y, mask)
-            models = self.model_fn(state.theta)
-            route.load(models, _bf.kernel_params(models, self.config.inner), state)
+            if self._active(state) != route.buffers.active_n:
+                route = graphs.online_route(generator, self, state, y, collect_fn)
+            else:
+                models = self.model_fn(state.theta)
+                route.load(models, _bf.kernel_params(models, self.config.inner), state)
         route.replay(generator, 1)
-        return replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate
+        return (replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate,
+                route)
 
     def step(self, generator, state: SMC2State, y):
         """One online assimilation step of y[state.t]; rejuvenates first
         when the θ-ESS fell below ``ess_min`` (then, with the exchange step
         on, the exchange). On a captured route (:meth:`_graphed`) the step
-        after the decision is a graph replay, and the state returned owns
-        its arrays. Returns (state, StepInfo)."""
+        after the decision is a graph replay — on the route of the live
+        count after the exchange, under "full" padding — and the state
+        returned owns its arrays. Returns (state, StepInfo)."""
         if self._graphed(state):
             t = state.t
             route = graphs.online_route(generator, self, state, y)
-            state, degenerate = self._online_step(generator, route, state, y)
+            state, degenerate, route = self._online_step(generator, route, state, y)
             state = self._owned(state)
             incr = route.buffers.infos(t, t + 1)["log_evidence_incr"]
             return state, StepInfo(ess=state.ess, rejuvenated=torch.tensor(degenerate),
@@ -485,9 +496,12 @@ class SMC2:
     def _run_graphed(self, generator, state: SMC2State, y, target: int, collect_fn):
         """:meth:`run_segmented`'s steps up to ``target`` on the captured
         online route, the collector inside its step: the state stays in the
-        route's buffers (a new route where a doubling changes N) and is
-        copied out at the end. Returns (state, StepInfo of the steps'
-        stacked tensors, the collector's outputs stacked, or None)."""
+        route's buffers (a new route where a doubling changes N, or the live
+        count under "full" padding) and is copied out at the end. Each
+        route's stores hold the steps it ran: a doubling closes a chunk of
+        them (the "full" doubling's own step is the new route's). Returns
+        (state, StepInfo of the steps' stacked tensors, the collector's
+        outputs stacked, or None)."""
         T = y.shape[0]
         route, first, chunks, fired = None, state.t, [], []
 
@@ -499,7 +513,12 @@ class SMC2:
         while state.t < target:
             if route is None:
                 route, first = graphs.online_route(generator, self, state, y, collect_fn), state.t
-            state, degenerate = self._online_step(generator, route, state, y)
+            t = state.t
+            state, degenerate, stepped = self._online_step(generator, route, state, y,
+                                                           collect_fn)
+            if stepped is not route:  # "full": the live count doubled inside the step at t
+                chunk(t)
+                route, first = stepped, t
             fired.append(degenerate)
             mid_bound = state.t >= target and target < T
             if self._grow and state.exchange_pending and not mid_bound:

@@ -265,13 +265,14 @@ def _mvnormal_guided():
     ("systematic", True), ("residual_systematic", True), ("stratified", True),
     ("stratified_ess", True), ("systematic_ess", True), ("apf", True), ("apf_stratified", True),
     ("multinomial", True), ("residual", True), ("metropolis", True), ("guided", True),
-    ("guided_mvnormal", True), ("active_n", False), ("mesh", False), ("dsl", True),
+    ("guided_mvnormal", True), ("active_n", True), ("mesh", False), ("dsl", True),
     ("cpu", False),
 ])
 def test_captured_routes(case, captured, monkeypatch):
     """The routes the masked filter replays on the card, and the ones it
     keeps eager, by configuration alone: the gate reads no model, so a DSL
-    bank (no fused kernel) takes its route too. An ``MvNormal`` proposal is
+    bank (no fused kernel) takes its route too, nor the live count, which
+    keys a route of its own. An ``MvNormal`` proposal is
     admitted here; its route runs its bodies eagerly by the warm-up's eigh
     rule (``tests/test_torch_route_graphs.py``)."""
     cfg = {"systematic": tsmc.PFConfig(), "residual_systematic": tsmc.PFConfig(

@@ -328,8 +328,10 @@ def test_collector_that_is_not_a_tensor_raises(routed):
 def test_exchange_grow_doubles_onto_a_new_route(routed):
     """The exchange step in "grow" mode: each doubling refilters eagerly
     (its masked filters replayed) and the steps after it run on the online
-    route at the new N, bitwise the eager loop; "full" padding keeps the
-    eager step (no online route)."""
+    route at the new N, bitwise the eager loop; under "full" padding the
+    arrays keep their padded N and each live count steps on an online route
+    of its own (``tests/test_torch_elastic_graphs.py`` holds those runs
+    bitwise)."""
     y = _series(16)
     grow = _sampler("systematic", m=16, n=32, acc_threshold=1.1, exchange_max_n=64)
     got = grow.run(torch.Generator().manual_seed(1), y)
@@ -343,7 +345,8 @@ def test_exchange_grow_doubles_onto_a_new_route(routed):
     full = _sampler("systematic", m=16, n=32, acc_threshold=1.1, exchange_max_n=64,
                     elastic_pad="full")
     full.run(torch.Generator().manual_seed(1), y)
-    assert not _routes("online")
+    assert {r.buffers.clouds[0].shape[-1] for r in _routes("online")} == {128}
+    assert sorted(r.buffers.active_n for r in _routes("online")) == [32, 64, 128]
 
 
 def test_summarize_that_is_not_a_tensor_raises(routed):

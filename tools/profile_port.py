@@ -21,7 +21,9 @@ without figures (UC 512 × 1024 chain 3, UC-SV 512 × 8192 chain 5, each with
 its filter at θ̂, FFBS and posterior mixture); IBIS on LG at 512 θ, T=100,
 chain 3 (chip_smoke.py's ibis phase); the inflation example's online UC run
 (``run_segmented``, 512 × 1024, chain 3, the PCE series) with its collector
-and without one — it runs the
+and without one; online SMC² on UC-SV with the exchange armed in "full"
+padding (chip_smoke.py's exchange phase (b): the arrays 512 × 8192 from the
+init, the live count 1024 → 8192, T=241, chain 5) — it runs the
 cell once to warm up, once unprofiled for the wall-clock, and once under
 ``torch.profiler`` for the device time by kernel, the device's busy share
 (Σ device time / wall-clock), the host's CPU time and the unprofiled run's
@@ -30,8 +32,9 @@ path: the masked filter, SMC²'s online step (its collector inside),
 ``filter_sequence``, the forward bank, particle Gibbs's and conditional
 SMC's sweeps, IBIS's online step and the Kalman loops replay their
 captured CUDA graphs where the route is captured, ``ops/graphs.py``:
-every route without a mesh or ``active_n``, the DSL's plain propagate
-route, a guided proposal, residual and metropolis included), then
+every route without a mesh, the DSL's plain propagate route, a guided
+proposal, residual and metropolis and each live count of "full" padding
+included), then
 ``eager`` (inside ``disable_graphs()``).
 Prints one JSON line per cell and mode and writes them all to ``--out``;
 ``--cells`` picks cells by name. Needs a CUDA device.
@@ -41,6 +44,7 @@ Prints one JSON line per cell and mode and writes them all to ``--out``;
         filters_lg_metropolis_512 filters_lg_guided_512   # the DSL and the other inner routes
     python3 tools/profile_port.py --cells ibis_lg_512 online_uc_512x1024_collector \
         online_uc_512x1024   # IBIS and the captured collector
+    python3 tools/profile_port.py --cells smc2_ucsv_full_512x1024   # "full" padding
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ def _cells(torch):
 
     y_lg = torch.tensor(cs.lg_series(), device="cuda")
     theta = torch.tensor(cs.LG_THETA, device="cuda").expand(cs.DT_M, 3)
+    full = cs.exchange_sampler(torch, "full")
 
     def dt(inner):
         sampler = smc.SMC2(smc.lg_model, prior_from_spec(cs.LG_PRIOR_SPEC, device="cuda"),
@@ -79,6 +84,8 @@ def _cells(torch):
             "filters_lg_512": filters(("systematic", 1.0)),
             "smc2_ucsv_512x1024": lambda seed: cs.run_slice(torch, 1024, seed),
             "smc2_ucsv_512x8192": lambda seed: cs.run_slice(torch, 8192, seed),
+            "smc2_ucsv_full_512x1024": lambda seed: full.run(
+                torch.Generator(device="cuda").manual_seed(seed), cs.series(torch, "cuda")),
             "filters_lg_apf_512": filters(cs.APF),
             "filters_lg_residual_512": filters(("residual", 1.0)),
             "filters_lg_metropolis_512": filters(("metropolis", 1.0)),
