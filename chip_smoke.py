@@ -160,9 +160,17 @@ Phases, one line each or more; any failure raises and exits non-zero:
      the ibis phase's configuration; two NCCL ranks on the one card are
      refused at initialization with the remedy named. Every rank's θ, log ω,
      log Z and ESS equal the one-process run's of phases 7, 14 and 17 bit for
-     bit; the
-     wall per inner step against one rank's, the collectives' calls, bytes
-     and host seconds, and the θ-resample's cloud gather timed alone;
+     bit. Every run replays the mesh's routes (``ops/graphs.py``:
+     the masked filter uncut, S steps a launch; the online step as two
+     segments around the θ group's gather, run eagerly between them — with
+     NCCL in (a)) and is held against its ``disable_graphs()`` twin on the
+     same ranks bit for bit (the same launches and collectives); each line
+     adds the graph and segment launches (held against the schedule), the
+     cuts a step of each route, the graph pool of the rank and the wall per
+     inner step graphed against eager (two gloo ranks time-slice one card:
+     no multi-card figure); the wall per inner step against one rank's, the
+     collectives' calls, bytes and host seconds, and the θ-resample's cloud
+     gather timed alone;
  27. animations — the two animation programs at their defaults (SV T=150,
      N=4096; UC-SV on the PCE series at θ̂, N=4096), 4 seeds each, without
      figures: launch counts of T − 1 a run for K1 and K2-SV or K2-UC-SV, the
@@ -193,7 +201,14 @@ Phases, one line each or more; any failure raises and exits non-zero:
      (f) phase 13's UC-SV SMC² with the APF inside on (1, 2) over its first
      P_STEPS observations (K1 on the cloud with the lookahead plane, K6 raw
      with particle_offset), bit for bit the one-process run (both normalize
-     in torch).
+     in torch). Every run replays, its inner step as segments
+     around the particle group's gathers (cuts), one step a launch; each
+     is split at P_TWIN_T observations (a split run is bitwise the whole)
+     and held there bit for bit against its ``disable_graphs()`` twin run
+     eagerly to P_TWIN_T (the twin's depth cut, never the replayed run's);
+     IBIS's twin runs whole. Each line adds graph and segment launches (the
+     schedule's), cuts a step, the graph pool and the wall per inner step
+     graphed against eager.
  29. dt_mesh — (a) K6 on particle slices of 512×1000 rows off a multiple
      of 16 (particles 0.. and 500.. of 500, 8.. of 992) at their
      particle_offset, on a contiguous slice, the sharded APF's split-off
@@ -210,10 +225,15 @@ Phases, one line each or more; any failure raises and exits non-zero:
      (1, 2), the whole T (K6 at 512×500, particle_offset 0 and 500),
      posterior against JAX_MEAN; (d) phase 13's UC-SV APF SMC² at 512×1000
      on (1, 2) over its first P_STEPS observations, bit for bit the
-     one-process run.
+     one-process run. Every run replays; DT's warm-up over the
+     first DT_TWIN_T observations, replayed, is held bit for bit against
+     its ``disable_graphs()`` twin on every mesh, (c) and (d) as phase 28's
+     runs (split at P_TWIN_T, the twin eager to there); the lines add what
+     phase 28's do.
  30. graphs — the compiled loops (``ops/graphs.py``; every phase above
-     replays them where its route is captured: no mesh; any model,
-     proposal, scheme and live count): the masked filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
+     replays them where its route is captured: any model, proposal, scheme,
+     live count and mesh (phases 26, 28, 29)): the masked
+     filter (STEPS_PER_GRAPH steps a launch), SMC²'s online
      step (one replay and one flag read a step), filter_sequence and the
      forward bank (store routes), each against its eager loop under
      ``disable_graphs()`` from the same seeds: the slice's SMC² at 512×1024
@@ -375,6 +395,13 @@ PARALLEL_WORKER = "--parallel-worker"
 # exchange armed in full padding, N from P_LG_N to the cap 4·P_LG_N, and a
 # stratified inner filter at ESS < N/2.
 P_STEPS, P_SEEDS, P_LG_N = 60, 8, 256
+# The mesh runs' disable_graphs() twins (phases 28-29): a run held against
+# the one-process runs statistically, or whose whole eager twin would cost
+# the gather-bound eager loop again, replays split at P_TWIN_T observations
+# (run_segmented's split is bitwise the whole run) and its twin runs eagerly
+# to P_TWIN_T only; density-tempered SMC's twin is its warm-up run over the
+# first DT_TWIN_T observations, replayed and eager.
+P_TWIN_T, DT_TWIN_T = 20, 20
 P_SLICE_B, P_SLICE_C = (512, 8192), (512, 1024)  # (M, N) of (b) and (c)
 # The dt_mesh phase: N of its UC-SV runs on (1, 2), which splits into two
 # slices of 500 particles (no multiple of 16), and K6's slices, (first
@@ -2811,6 +2838,64 @@ def _theta_fields(state) -> dict:
     return {k: getattr(state, k).cpu().numpy() for k in ("theta", "log_omega", "log_z", "ess")}
 
 
+def _routes_now() -> dict:
+    """Every cached route (kept alive, so no id is reused) with its kind,
+    graph launches, segment launches and cuts a step."""
+    from sequential_monte_carlo_tpu_torch.ops import graphs
+
+    return {id(r): (r, key[0], r.replays, r.segment_replays, r.cuts)
+            for key, r in graphs._cache.items()}
+
+
+def _routes_since(before: dict) -> dict:
+    """The graph and segment launches of the routes since ``before``
+    (:func:`_routes_now`), and the cuts a step of each kind of route that
+    launched."""
+    graph = segment = 0
+    cuts: dict = {}
+    for rid, (_, kind, replays, segments, cut) in _routes_now().items():
+        _, _, r0, s0, _ = before.get(rid, (None, None, 0, 0, 0))
+        graph, segment = graph + replays - r0, segment + segments - s0
+        if replays > r0:
+            cuts.setdefault(kind, set()).add(cut)
+    return {"graph_launches": graph, "segment_launches": segment,
+            "cuts": {k: sorted(v) for k, v in sorted(cuts.items())}}
+
+
+def mesh_graph_launches(rec: dict, online_steps: int, rejuv_t, chain: int, doubled_at=(),
+                        filters: int = 0, live: int = 0) -> tuple:
+    """(graph, segment) launches of a replayed mesh run: one an online step,
+    each masked filter's over its live steps — ⌊L/S⌋ + L mod S where the
+    step has no cut, L where it has (one step a launch) — ``chain`` filters
+    over t − 1 steps at each rejuvenation at t, one over t − 1 at each
+    doubling, and ``filters`` more over ``live`` (density-tempered SMC's);
+    each launch one segment more than its cuts."""
+    cuts = rec["cuts"]
+    masked_cut, online_cut = cuts.get("masked", [0])[0], cuts.get("online", [0])[0]
+    per = (lambda n: n) if masked_cut else filter_graph_launches
+    masked = (sum(chain * per(t - 1) for t in rejuv_t) + sum(per(t - 1) for t in doubled_at)
+              + filters * per(live))
+    return (online_steps + masked,
+            online_steps * (online_cut + 1) + masked * (masked_cut + 1))
+
+
+def _twin(label: str, got: dict, want: dict, rec: dict, erec: dict) -> None:
+    """Fail unless a replayed run's fields equal its disable_graphs()
+    twin's bit for bit, with the same kernel launches and collectives
+    (calls and bytes; where the twin ran the whole run)."""
+    for k, v in want.items():
+        if not np.array_equal(got[k], v):
+            raise AssertionError(f"{label}: {k} differs between the replayed run and its "
+                                 "disable_graphs() twin")
+    if rec is not None:
+        plain = {k: v for k, v in rec["collectives"].items() if not k.endswith("_s")}
+        if rec["counts"] != erec["counts"] or plain != {
+                k: v for k, v in erec["collectives"].items() if not k.endswith("_s")}:
+            raise AssertionError(f"{label}: launches or collectives {rec['counts']} "
+                                 f"{rec['collectives']} differ from the twin's "
+                                 f"{erec['counts']} {erec['collectives']}")
+
+
 def parallel_worker(argv) -> int:
     """One rank of the parallel phase: ``chip_smoke.py --parallel-worker
     JOBS RANK WORLD BACKEND STORE OUT``. Runs the comma-separated JOBS on
@@ -2822,6 +2907,7 @@ def parallel_worker(argv) -> int:
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch import parallel
     from sequential_monte_carlo_tpu_torch.interop import prior_from_spec
+    from sequential_monte_carlo_tpu_torch.ops import graphs
     from sequential_monte_carlo_tpu_torch.ops.batched_filter import as_cloud
     from sequential_monte_carlo_tpu_torch.ops.sharding import (
         all_gather_rows,
@@ -2840,19 +2926,47 @@ def parallel_worker(argv) -> int:
     arrays, meta = {}, {"device": str(device), "info": parallel.process_info()}
     y = series(torch, device)
 
-    def timed(fn):
+    def timed(fn, eager=False):
+        """fn() replayed (or, with ``eager``, inside disable_graphs()): its
+        wall, launch counts, the shards seen since the job began, the
+        collectives, the routes' graph and segment launches and cuts, and
+        the graph pool after it."""
         torch.cuda.synchronize()
         reset_counts()
         collective_stats.clear()
-        seen.clear()
+        before = _routes_now()
         t0 = time.perf_counter()
-        res = fn()
+        with smc.disable_graphs() if eager else contextlib.nullcontext():
+            res = fn()
         torch.cuda.synchronize()
         return res, {"wall_s": time.perf_counter() - t0, "counts": launch_counts(),
                      "seen": sorted(map(list, seen), key=str),
-                     "collectives": {k: round(v, 6) for k, v in collective_stats.items()}}
+                     "collectives": {k: round(v, 6) for k, v in collective_stats.items()},
+                     **_routes_since(before), "pool_mb": round(_graph_pool_mb(torch), 1)}
+
+    def split_run(sh, gen, cut):
+        """run_segmented to P_TWIN_T, then on to the bound ``cut`` (None: the
+        whole T), bitwise the unsplit run. Returns (state, infos, the θ-level
+        fields at P_TWIN_T)."""
+        st, infos = sh.run_segmented(gen, y, max_steps=P_TWIN_T - 1)
+        mid = _theta_fields(st)
+        st, rest = sh.run_segmented(gen, y, state=st,
+                                    max_steps=None if cut is None else cut - (P_TWIN_T - 1))
+        return st, type(infos)(*(torch.cat([a, b]) for a, b in zip(infos, rest))), mid
+
+    def twin_to(sh, job, mid):
+        """The disable_graphs() twin of a split run to P_TWIN_T: bitwise its
+        fields there; its record (``<job>_eager``)."""
+        (st, infos), erec = timed(lambda: sh.run_segmented(
+            torch.Generator(device=device).manual_seed(SEED), y, max_steps=P_TWIN_T - 1),
+            eager=True)
+        _twin(f"{job} rank {rank}", _theta_fields(st), mid, None, None)
+        erec["inner_steps"], erec["t"] = _schedule(infos, CHAIN, []), st.t
+        meta[f"{job}_eager"] = erec
 
     for job in jobs:
+        seen.clear()
+        graphs.clear_graphs()  # the pool a job reports holds its own routes
         if job.startswith("mesh"):  # the jobs after it run on a (θ, particle) mesh
             mesh = parallel.make_mesh(*map(int, job[len("mesh"):].split("x")))
             meta["mesh"] = list(mesh.shape)
@@ -2872,42 +2986,64 @@ def parallel_worker(argv) -> int:
             rec["inner_steps"] = _schedule(infos, CHAIN, [])
             meta[f"{job}_first"] = rec
             gen = torch.Generator(device=device).manual_seed(SEED)
-            (state, infos), rec = timed(lambda: sh.run_segmented(gen, y, max_steps=cut))
+            (state, infos, mid), rec = timed(lambda: split_run(sh, gen, cut))
             rec["inner_steps"] = _schedule(infos, CHAIN, [])
             rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
             rec["t"] = state.t
             meta[job] = rec
             arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+            twin_to(sh, job, mid)
         elif job.startswith("papf"):  # papf[<N>]: the APF's SMC² on UC-SV, cut at P_STEPS
             sh = parallel.ShardedSMC2(particle_apf_sampler(
                 torch, device, int(job[len("papf"):] or DT_N)), mesh)
-            (state, infos), rec = timed(lambda: sh.run_segmented(
-                torch.Generator(device=device).manual_seed(SEED), y, max_steps=P_STEPS - 1))
+            (state, infos, mid), rec = timed(lambda: split_run(
+                sh, torch.Generator(device=device).manual_seed(SEED), P_STEPS - 1))
             rec["inner_steps"] = _schedule(infos, CHAIN, [])
+            rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
             meta[job] = rec
             arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+            twin_to(sh, job, mid)
         elif job == "plg":
             sh = parallel.ShardedSMC2(particle_lg_sampler(torch, device), mesh)
+            y_lg, mid = torch.tensor(lg_series(), device=device), {}
             (state, infos, doubled_at), rec = timed(lambda: drive_exchange(
-                sh.sampler, torch.Generator(device=device).manual_seed(SEED),
-                torch.tensor(lg_series(), device=device)))
+                sh.sampler, torch.Generator(device=device).manual_seed(SEED), y_lg,
+                keep=(P_TWIN_T, mid)))
             rec["inner_steps"] = _schedule(infos, DT_CHAIN, doubled_at)
+            rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
             rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
             meta[job] = rec
             arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+            # the twin: the same steps to P_TWIN_T (y cut there: the filters
+            # read only the consumed prefix), eagerly
+            (st, infos, doubled_at), erec = timed(lambda: drive_exchange(
+                sh.sampler, torch.Generator(device=device).manual_seed(SEED),
+                y_lg[:P_TWIN_T]), eager=True)
+            _twin(f"plg rank {rank}", _theta_fields(st), mid, None, None)
+            erec["inner_steps"] = _schedule(infos, DT_CHAIN, doubled_at)
+            meta[f"{job}_eager"] = erec
         elif job.startswith("slice"):
             n = int(job[len("slice"):])
             cfg = smc.SMCConfig(n_particles=n, n_theta=512, chain=CHAIN, ess_threshold=0.5,
                                 inner=smc.PFConfig("systematic", 1.0))
             sh = parallel.ShardedSMC2(smc.SMC2(smc.ucsv_model, prior_from_spec(
                 PRIOR_SPEC, device=device), cfg), mesh)
-            for run in ("cold", "warm"):  # the same seed twice: the second is warm
+            # the same seed four times: the second is warm, the last two the
+            # disable_graphs() twin (its first launches compile the eager
+            # path's Triton specializations: the second's wall is the warm one)
+            for run in ("cold", "warm", "eager_cold", "eager"):
                 gen = torch.Generator(device=device).manual_seed(SEED)
-                (state, infos), rec = timed(lambda: sh.run(gen, y))
+                (state, infos), rec = timed(lambda: sh.run(gen, y),
+                                            eager=run.startswith("eager"))
                 rec["inner_steps"] = _schedule(infos, CHAIN, [])
                 rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
                 meta[f"{job}_{run}"] = rec
-            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+                if run.startswith("eager"):
+                    _twin(f"{job} rank {rank}", _theta_fields(state),
+                          {k: arrays[f"{job}/{k}"] for k in ("theta", "log_omega", "log_z")},
+                          meta[f"{job}_warm"], rec)
+                else:
+                    arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
             # the θ-resample's cloud exchange alone: the planar cloud and log_w
             rows = theta_rows(mesh, 512)
             cloud = as_cloud(state.particles)
@@ -2939,37 +3075,68 @@ def parallel_worker(argv) -> int:
                     infos.append(info)
                 return state, infos, doubled_at
 
-            (state, infos, doubled_at), rec = timed(drive)
             from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
 
-            rec["inner_steps"] = _schedule(_stack(infos), CHAIN, doubled_at)
-            rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
-            meta[job] = rec
-            arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
+            for eager in (False, True):  # replayed, then its disable_graphs() twin
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                (state, infos, doubled_at), rec = timed(drive, eager=eager)
+                infos = _stack(infos)
+                rec["inner_steps"] = _schedule(infos, CHAIN, doubled_at)
+                rec["rejuv_t"] = (infos.rejuvenated.nonzero().flatten() + 1).tolist()
+                rec["doubled_at"], rec["final_n"] = doubled_at, state.active_n
+                if eager:
+                    _twin(f"{job} rank {rank}", _theta_fields(state),
+                          {k: arrays[f"{job}/{k}"] for k in ("theta", "log_omega", "log_z")},
+                          meta[job], rec)
+                    meta[f"{job}_eager"] = rec
+                else:
+                    meta[job] = rec
+                    arrays.update({f"{job}/{k}": v for k, v in _theta_fields(state).items()})
         elif job in DT_INNER:  # density-tempered LG at config 4, the JAX idiom's sampler
             sampler = parallel.ShardedSMC2(dt_sampler(DT_INNER[job], device), mesh).sampler
             y_lg = torch.tensor(lg_series(), device=device)
-            # a short run first: the kernels load at this mesh's shapes
-            smc.density_tempered(sampler, torch.Generator(device=device).manual_seed(SEED + 1),
-                                 y_lg[:8])
+            key = f"{job}@{mesh.shape[0]}x{mesh.shape[1]}"
+            # a short run first (the kernels load, the routes are captured at
+            # this mesh's shapes), and its disable_graphs() twin, twice (the
+            # first eager launches compile the eager path's Triton
+            # specializations: the second's wall is the warm one)
+            short = []
+            for eager in (False, True, True):
+                (st, trace), rec = timed(lambda: smc.density_tempered(
+                    sampler, torch.Generator(device=device).manual_seed(SEED + 1),
+                    y_lg[:DT_TWIN_T]), eager=eager)
+                rec["moves"] = sum(stage.xi < 1.0 for stage in trace)
+                rec["inner_steps"] = (DT_TWIN_T - 1) * (1 + DT_CHAIN * rec["moves"])
+                short.append((dt_fields(st, trace), rec))
+                _twin(f"{key} rank {rank}", short[0][0], short[-1][0], short[0][1], rec)
+            meta[f"{key}_short"], meta[f"{key}_eager"] = short[0][1], short[-1][1]
             (state, trace), rec = timed(lambda: smc.density_tempered(
                 sampler, torch.Generator(device=device).manual_seed(SEED), y_lg))
             rec["moves"] = sum(stage.xi < 1.0 for stage in trace)
+            rec["inner_steps"] = (DT_T - 1) * (1 + DT_CHAIN * rec["moves"])
             rec["coords"] = [mesh.get_local_rank(0), mesh.get_local_rank(1)]
-            key = f"{job}@{mesh.shape[0]}x{mesh.shape[1]}"
             meta[key] = rec
             arrays.update({f"{key}/{k}": v for k, v in dt_fields(state, trace).items()})
         elif job == "ibis":
             ibis = parallel.ShardedIBIS(smc.IBIS(
                 smc.lg_model, prior_from_spec(LG_PRIOR_SPEC, device=device),
                 smc.SMCConfig(n_theta=DT_M, chain=DT_CHAIN, ess_threshold=0.5)), mesh)
-            (state, _), rec = timed(lambda: ibis.run(
-                torch.Generator(device=device).manual_seed(SEED),
-                torch.tensor(lg_series(), device=device)))
-            whole = ibis.gather(state)
-            arrays.update({f"ibis/{k}": getattr(whole, k).cpu().numpy()
-                           for k in ("theta", "log_omega", "log_z", "ess", "mean", "cov")})
-            meta["ibis"] = rec
+            for eager in (False, True):  # replayed, then its disable_graphs() twin
+                (state, infos), rec = timed(lambda: ibis.run(
+                    torch.Generator(device=device).manual_seed(SEED),
+                    torch.tensor(lg_series(), device=device)), eager=eager)
+                whole = ibis.gather(state)
+                got = {k: getattr(whole, k).cpu().numpy()
+                       for k in ("theta", "log_omega", "log_z", "ess", "mean", "cov")}
+                rec["kalman_graph_launches"] = kalman_graph_launches(infos, DT_CHAIN)
+                rec["online_steps"] = len(infos.ess)
+                if eager:
+                    _twin(f"ibis rank {rank}", got, {k: arrays[f"ibis/{k}"] for k in got},
+                          meta["ibis"], rec)
+                    meta["ibis_eager"] = rec
+                else:
+                    arrays.update({f"ibis/{k}": v for k, v in got.items()})
+                    meta["ibis"] = rec
         elif job != "init":  # "init": the process group and the mesh only
             raise ValueError(f"unknown job {job!r}")
     torch.distributed.destroy_process_group()
@@ -3021,6 +3188,57 @@ def _expect_equal(label: str, arrays: dict, prefix: str, ref: dict) -> None:
                                  f"run's (max |Δ| {diff})")
 
 
+def _expect_replays(label: str, rec: dict, online_steps: int, rejuv_t, chain: int,
+                    doubled_at=(), theta_only: bool = False, filters: int = 0,
+                    live: int = 0) -> None:
+    """Fail unless a replayed mesh run's graph and segment launches are its
+    schedule's (:func:`mesh_graph_launches`), each kind of route cut its
+    steps one way, and on a θ-only mesh the masked filter not at all and
+    the online step once (the θ group's gather of the evidence)."""
+    want = mesh_graph_launches(rec, online_steps, rejuv_t, chain, doubled_at, filters, live)
+    cuts = rec["cuts"]
+    if (rec["graph_launches"], rec["segment_launches"]) != want or any(
+            len(c) != 1 for c in cuts.values()) or (theta_only and (
+            cuts.get("masked", [0]) != [0] or cuts.get("online", [1]) != [1])):
+        raise AssertionError(f"{label}: {rec['graph_launches']} graph and "
+                             f"{rec['segment_launches']} segment launches, cuts {cuts}; "
+                             f"the schedule's {want}")
+
+
+def _replay_fields(rec: dict, erec: dict) -> dict:
+    """A replayed mesh run's line: its graph and segment launches, cuts a
+    step, the graph pool, and its wall per inner step against its
+    disable_graphs() twin's (over the twin's own inner steps where the twin
+    was cut short)."""
+    def ms(r):
+        return round(1e3 * r["wall_s"] / r["inner_steps"], 4)
+
+    out = {"graph_launches": rec["graph_launches"], "segment_launches": rec["segment_launches"],
+           "cuts_a_step": rec["cuts"], "pool_mb": rec["pool_mb"],
+           "wall_ms_per_inner_step": ms(rec), "eager_wall_ms_per_inner_step": ms(erec)}
+    if erec["inner_steps"] != rec["inner_steps"]:
+        out["eager_twin_inner_steps"] = erec["inner_steps"]
+    return out
+
+
+def _check_ibis_mesh(phase: str, r: int, meta: dict, world: int, **extra) -> None:
+    """ShardedIBIS's replayed run (bitwise its twin, in the worker): no
+    kernel, one online replay a step cut once (its gather), the Kalman
+    passes uncut, S steps a launch; its line."""
+    rec, erec = meta["ibis"], meta["ibis_eager"]
+    expect_counts(f"{phase} ibis rank {r}", rec["counts"], {})
+    steps, kalman = rec["online_steps"], rec["kalman_graph_launches"]
+    if (rec["graph_launches"], rec["segment_launches"]) != (steps + kalman, 2 * steps + kalman) \
+            or rec["cuts"] != {"ibis": [1], "kalman": [0]}:
+        raise AssertionError(f"{phase} ibis rank {r}: {rec['graph_launches']} graph and "
+                             f"{rec['segment_launches']} segment launches, cuts {rec['cuts']}")
+    say(phase, world=world, backend="gloo", rank=r, **extra, ibis=f"{DT_M} θ",
+        bitwise_as_one_process=True, replayed_bitwise_as_eager_twin=True,
+        wall_s=round(rec["wall_s"], 4), eager_wall_s=round(erec["wall_s"], 4),
+        graph_launches=rec["graph_launches"], segment_launches=rec["segment_launches"],
+        cuts_a_step=rec["cuts"], pool_mb=rec["pool_mb"], collectives=rec["collectives"])
+
+
 def check_parallel(torch, refs: dict, one_rank_ms: dict):
     """Phase 26 (see the module docstring). ``refs``: the one-process runs'
     θ-level fields per job; ``one_rank_ms``: phase 7's walls per inner step.
@@ -3052,12 +3270,15 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
                 if isinstance(rec, dict) and "counts" in rec:
                     add(rec["counts"])
             for n in (1024, 8192):
-                for run in ("cold", "warm"):
+                for run in ("cold", "warm", "eager_cold", "eager"):
                     rec = meta[f"slice{n}_{run}"]
                     expected = (T - 1) + sum(CHAIN * (t - 1) for t in rec["rejuv_t"])
                     expect_counts(f"parallel {world} rank(s) slice{n}", rec["counts"],
                                   {"resample_count": expected,
                                    "fused_propagate_ucsv": expected})
+                    if not run.startswith("eager"):
+                        _expect_replays(f"parallel {world} rank(s) slice{n} {run}", rec,
+                                        T - 1, rec["rejuv_t"], CHAIN, theta_only=True)
                     want = {("resample_count", 512 // world, None, 0, n),
                             ("fused_propagate_ucsv", 512 // world, r * 512 // world, 0, n)}
                     if {tuple(x) for x in rec["seen"]} != want:
@@ -3066,12 +3287,12 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
                 g = meta[f"slice{n}_resample_gather"]
                 say("parallel", world=world, backend=meta["info"]["backend"], rank=r,
                     shape=f"512x{n}", T=T, chain=CHAIN, bitwise_as_one_process=True,
+                    replayed_bitwise_as_eager_twin=True,
                     rows=f"{r * 512 // world}..{(r + 1) * 512 // world}",
                     inner_steps=meta[f"slice{n}_warm"]["inner_steps"],
                     wall_s_cold=round(meta[f"slice{n}_cold"]["wall_s"], 4),
                     wall_s_warm=round(meta[f"slice{n}_warm"]["wall_s"], 4),
-                    wall_ms_per_inner_step=round(1e3 * meta[f"slice{n}_warm"]["wall_s"]
-                                                 / meta[f"slice{n}_warm"]["inner_steps"], 4),
+                    **_replay_fields(meta[f"slice{n}_warm"], meta[f"slice{n}_eager"]),
                     one_process_ms_per_inner_step=one_rank_ms[n],
                     collectives=meta[f"slice{n}_warm"]["collectives"],
                     resample_gather_ms=round(g["ms"], 4), resample_gather_bytes=g["bytes"])
@@ -3084,6 +3305,8 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
                                      f"doublings at {rec['doubled_at']}")
             expect_counts(f"parallel {job} rank {r}", rec["counts"],
                           {k: rec["inner_steps"] for k in kernels})
+            _expect_replays(f"parallel {job} rank {r}", rec, T - 1, rec["rejuv_t"], CHAIN,
+                            rec["doubled_at"], theta_only=True)
             offsets = {x[2] for x in rec["seen"]}
             rows = {x[1] for x in rec["seen"]}
             if {x[0] for x in rec["seen"]} != set(kernels) or rows != {256} \
@@ -3091,14 +3314,11 @@ def check_parallel(torch, refs: dict, one_rank_ms: dict):
                 raise AssertionError(f"parallel {job} rank {r}: launches at {rec['seen']}")
             say("parallel", world=2, backend="gloo", rank=r, exchange=job,
                 shape=f"512x{DT_N}..{N_CAP}", bitwise_as_one_process=True,
+                replayed_bitwise_as_eager_twin=True,
                 inner_steps=rec["inner_steps"], doubled_at_t=rec["doubled_at"],
-                wall_s=round(rec["wall_s"], 4),
-                wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+                wall_s=round(rec["wall_s"], 4), **_replay_fields(rec, meta[f"{job}_eager"]),
                 collectives=rec["collectives"])
-        expect_counts(f"parallel ibis rank {r}", meta["ibis"]["counts"], {})
-        say("parallel", world=2, backend="gloo", rank=r, ibis=f"{DT_M} θ",
-            bitwise_as_one_process=True, wall_s=round(meta["ibis"]["wall_s"], 4),
-            collectives=meta["ibis"]["collectives"])
+        _check_ibis_mesh("parallel", r, meta, world=2)
     for job in refs:  # the ranks agree with each other too (implied; checked once more)
         if not np.array_equal(two[0][0][f"{job}/theta"], two[1][0][f"{job}/theta"]):
             raise AssertionError(f"parallel {job}: the ranks' θ differ")
@@ -3133,9 +3353,10 @@ def particle_apf_sampler(torch, device, n: int = DT_N):
     return smc.SMC2(smc.ucsv_model, prior_from_spec(PRIOR_SPEC, device=device), cfg)
 
 
-def drive_exchange(sampler, gen, y):
+def drive_exchange(sampler, gen, y, keep=None):
     """``step`` + ``maybe_exchange`` over the whole series. Returns (state,
-    the stacked infos, the observation counts t at which a refilter ran)."""
+    the stacked infos, the observation counts t at which a refilter ran);
+    ``keep`` = (t, dict): the θ-level fields at t go into the dict."""
     from sequential_monte_carlo_tpu_torch.samplers.smc2 import _stack
 
     state, infos, doubled_at = sampler.init(gen, y), [], []
@@ -3146,6 +3367,8 @@ def drive_exchange(sampler, gen, y):
             doubled_at.append(t0 if state.active_n != n0 else state.t)
         state = sampler.maybe_exchange(gen, state, y, info)
         infos.append(info)
+        if keep is not None and state.t == keep[0]:
+            keep[1].update(_theta_fields(state))
     return state, _stack(infos), doubled_at
 
 
@@ -3347,6 +3570,7 @@ def check_particle(torch, ibis_ref: dict):
                                  f"{rec['rejuv_t']}")
         expect_counts(f"particle (1, 2) rank {r}", rec["counts"],
                       {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
+        _expect_replays(f"particle (1, 2) rank {r}", rec, rec["t"] - 1, rec["rejuv_t"], CHAIN)
         k = nb // 2
         _expect_seen("particle (1, 2)", rec, {("resample_count", mb, None, k * r, k),
                                     ("ucsv_propagate", mb, 0, k * r, k)})
@@ -3358,9 +3582,9 @@ def check_particle(torch, ibis_ref: dict):
         rec, first = meta[job], meta[f"{job}_first"]
         say("particle", mesh="1x2", backend="gloo", rank=r, shape=f"{mb}x{nb}", T=P_STEPS,
             chain=CHAIN, ranks_bitwise_equal=True, slots=f"{nb // 2 * r}..{nb // 2 * (r + 1)}",
+            replayed_bitwise_as_eager_twin_at_t=P_TWIN_T,
             inner_steps=rec["inner_steps"], rejuv_t=rec["rejuv_t"],
-            wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            wall_s=round(rec["wall_s"], 4), **_replay_fields(rec, meta[f"{job}_eager"]),
             first_wall_ms_per_inner_step=round(1e3 * first["wall_s"] / first["inner_steps"], 4),
             one_process_ms_per_inner_step=round(float(np.median(one_ms)), 4),
             collectives=rec["collectives"])
@@ -3379,14 +3603,14 @@ def check_particle(torch, ibis_ref: dict):
         a, b = meta["coords"]
         expect_counts(f"particle (2, 2) rank {r}", rec["counts"],
                       {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
+        _expect_replays(f"particle (2, 2) rank {r}", rec, rec["t"] - 1, rec["rejuv_t"], CHAIN)
         _expect_seen("particle (2, 2)", rec, {("resample_count", rows, None, k * b, k),
                                     ("ucsv_propagate", rows, rows * a, k * b, k)})
         say("particle", mesh="2x2", backend="gloo", rank=r, coords=[a, b], shape=f"{mc}x{nc}",
             T=T, chain=CHAIN, rows=f"{rows * a}..{rows * (a + 1)}",
             slots=f"{k * b}..{k * (b + 1)}", inner_steps=rec["inner_steps"],
-            wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
-            collectives=rec["collectives"])
+            replayed_bitwise_as_eager_twin_at_t=P_TWIN_T, wall_s=round(rec["wall_s"], 4),
+            **_replay_fields(rec, meta[f"{job_c}_eager"]), collectives=rec["collectives"])
     mean = _mean(four[0][0][f"{job_c}/theta"], four[0][0][f"{job_c}/log_omega"])
     if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
         raise AssertionError(f"particle (2, 2): posterior mean {mean} vs JAX {JAX_MEAN} "
@@ -3409,13 +3633,15 @@ def check_particle(torch, ibis_ref: dict):
                                  f"{rec['doubled_at']} (one process {lg_doubled})")
         expect_counts(f"particle plg rank {r}", rec["counts"],
                       {"resample_sorted": want_steps, "fused_propagate_lg1_raw": want_steps})
+        _expect_replays(f"particle plg rank {r}", rec, DT_T - 1, rec["rejuv_t"], DT_CHAIN,
+                        rec["doubled_at"])
         _expect_seen("particle plg", rec, {("resample_sorted", DT_M, None, None, 2 * P_LG_N),
                                  ("fused_propagate_lg", DT_M, 0, 2 * P_LG_N * r, 2 * P_LG_N)})
         say("particle", mesh="1x2", rank=r, run="lg exchange full, stratified ESS<N/2",
             shape=f"{DT_M}x{P_LG_N}..{4 * P_LG_N}", T=DT_T, chain=DT_CHAIN,
-            bitwise_as_one_process=True, doubled_at_t=rec["doubled_at"],
-            inner_steps=rec["inner_steps"], wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
+            bitwise_as_one_process=True, replayed_bitwise_as_eager_twin_at_t=P_TWIN_T,
+            doubled_at_t=rec["doubled_at"], inner_steps=rec["inner_steps"],
+            wall_s=round(rec["wall_s"], 4), **_replay_fields(rec, meta["plg_eager"]),
             collectives=rec["collectives"])
 
     # (f) the APF's SMC² on UC-SV on (1, 2), cut at P_STEPS: bitwise the
@@ -3426,20 +3652,19 @@ def check_particle(torch, ibis_ref: dict):
         _expect_equal(f"particle (1, 2) rank {r}", arrays, "papf", _theta_fields(apf_one))
         expect_counts(f"particle papf rank {r}", rec["counts"],
                       {"resample_count": want_steps, "ucsv_propagate": want_steps})
+        _expect_replays(f"particle papf rank {r}", rec, P_STEPS - 1, rec["rejuv_t"], CHAIN)
         _expect_seen("particle papf", rec, {("resample_count", DT_M, None, DT_N // 2 * r, DT_N // 2),
                                   ("ucsv_propagate", DT_M, 0, DT_N // 2 * r, DT_N // 2)})
         say("particle", mesh="1x2", rank=r, run="ucsv apf", shape=f"{DT_M}x{DT_N}",
-            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True, inner_steps=want_steps,
-            wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / want_steps, 4),
+            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True,
+            replayed_bitwise_as_eager_twin_at_t=P_TWIN_T, inner_steps=want_steps,
+            wall_s=round(rec["wall_s"], 4), **_replay_fields(rec, meta["papf_eager"]),
             collectives=rec["collectives"])
 
     # (e) ShardedIBIS on (1, 2): bitwise phase 17's
     for r, (arrays, meta) in enumerate(two):
         _expect_equal(f"particle (1, 2) rank {r}", arrays, "ibis", ibis_ref)
-        expect_counts(f"particle ibis rank {r}", meta["ibis"]["counts"], {})
-        say("particle", mesh="1x2", rank=r, ibis=f"{DT_M} θ", bitwise_as_one_process=True,
-            wall_s=round(meta["ibis"]["wall_s"], 4), collectives=meta["ibis"]["collectives"])
+        _check_ibis_mesh("particle", r, meta, world=2, mesh="1x2")
     return total
 
 
@@ -3542,6 +3767,9 @@ def check_dt_mesh(torch, dt_refs: dict):
                 steps = (DT_T - 1) * (1 + DT_CHAIN * rec["moves"])
                 expect_counts(f"dt_mesh {key} rank {r}", rec["counts"],
                               {resample: steps, propagate: steps})
+                _expect_replays(f"dt_mesh {key} rank {r}", rec, 0, [], DT_CHAIN,
+                                theta_only=n_particle == 1, filters=1 + DT_CHAIN * rec["moves"],
+                                live=DT_T - 1)
                 _expect_seen(f"dt_mesh {key} rank {r}", rec, {
                     (resample, rows, None, *((k * b, k) if resample == "resample_count"
                                              else (None, k))),
@@ -3555,10 +3783,11 @@ def check_dt_mesh(torch, dt_refs: dict):
                 say("dt_mesh", run=job[-1], inner=list(DT_INNER[job]), mesh=shape, rank=r,
                     coords=[a, b], shape=f"{DT_M}x{DT_N}", rows=f"{rows * a}..{rows * (a + 1)}",
                     slots=f"{k * b}..{k * (b + 1)}", bitwise_as_one_process=n_particle == 1,
+                    replayed_bitwise_as_eager_twin_at_T=DT_TWIN_T,
                     stages=len(arrays[f"{key}/stage_xi"]), one_process_stages=ref["stages"],
                     schedule=np.round(arrays[f"{key}/stage_xi"], 5).tolist(),
                     inner_steps=steps, wall_s=round(rec["wall_s"], 4),
-                    wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / steps, 4),
+                    **_replay_fields(rec, meta[f"{key}_eager"]),
                     one_process_warm_ms_per_inner_step=round(ref["warm_ms_per_inner_step"], 4),
                     posterior_mean=np.round(mean, 5).tolist(), jax_mean=DT_JAX_MEAN,
                     tolerance=np.round(tol, 5).tolist(), collectives=rec["collectives"])
@@ -3575,11 +3804,12 @@ def check_dt_mesh(torch, dt_refs: dict):
                       {"resample_count": rec["inner_steps"], "ucsv_propagate": rec["inner_steps"]})
         _expect_seen(f"dt_mesh {job_c} rank {r}", rec, {("resample_count", DT_M, None, k * r, k),
                                                ("ucsv_propagate", DT_M, 0, k * r, k)})
+        _expect_replays(f"dt_mesh {job_c} rank {r}", rec, T - 1, rec["rejuv_t"], CHAIN)
         say("dt_mesh", run="ucsv smc2", mesh="1x2", rank=r, shape=f"{DT_M}x{MESH_N}", T=T,
             chain=CHAIN, slots=f"{k * r}..{k * (r + 1)}", inner_steps=rec["inner_steps"],
+            replayed_bitwise_as_eager_twin_at_t=P_TWIN_T,
             rejuvenations=len(rec["rejuv_t"]), wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / rec["inner_steps"], 4),
-            collectives=rec["collectives"])
+            **_replay_fields(rec, meta[f"{job_c}_eager"]), collectives=rec["collectives"])
     mean = _mean(two[0][0][f"{job_c}/theta"], two[0][0][f"{job_c}/log_omega"])
     tol = TOL_Z * np.asarray(JAX_SD) * math.sqrt(1.0 + 1.0 / JAX_SEEDS)
     if not np.all(np.abs(mean - np.asarray(JAX_MEAN)) <= tol):
@@ -3599,12 +3829,13 @@ def check_dt_mesh(torch, dt_refs: dict):
         _expect_equal(f"dt_mesh (1, 2) rank {r}", arrays, job, _theta_fields(apf_one))
         expect_counts(f"dt_mesh {job} rank {r}", rec["counts"],
                       {"resample_count": want_steps, "ucsv_propagate": want_steps})
+        _expect_replays(f"dt_mesh {job} rank {r}", rec, P_STEPS - 1, rec["rejuv_t"], CHAIN)
         _expect_seen(f"dt_mesh {job} rank {r}", rec, {("resample_count", DT_M, None, k * r, k),
                                              ("ucsv_propagate", DT_M, 0, k * r, k)})
         say("dt_mesh", run="ucsv apf", mesh="1x2", rank=r, shape=f"{DT_M}x{MESH_N}",
-            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True, inner_steps=want_steps,
-            wall_s=round(rec["wall_s"], 4),
-            wall_ms_per_inner_step=round(1e3 * rec["wall_s"] / want_steps, 4),
+            T=P_STEPS, chain=CHAIN, bitwise_as_one_process=True,
+            replayed_bitwise_as_eager_twin_at_t=P_TWIN_T, inner_steps=want_steps,
+            wall_s=round(rec["wall_s"], 4), **_replay_fields(rec, meta[f"{job}_eager"]),
             collectives=rec["collectives"])
     return total
 

@@ -108,8 +108,10 @@ package's jitted masked scan), several steps a launch; so do SMC²'s online
 step, ``filter_sequence`` and the smoothers' forward bank on the same
 routes: every model (the plain propagate route of a DSL model too), proposal
 and scheme, and the elastic ``active_n`` (one route per live count, which
-the captured step holds as a host int), without a mesh. The eager loops run
-under a mesh and inside :func:`.graphs.disable_graphs`. Both give the same
+the captured step holds as a host int), on a mesh too: a θ-only mesh's step
+has no collective and replays as one process's does, and a particle mesh's
+gathers are cuts between the step's graphs, run eagerly at each replay. The
+eager loops run inside :func:`.graphs.disable_graphs`. Both give the same
 bits.
 
 Randomness: :func:`batched_pf_step` draws the resample's uniforms and, on a
@@ -303,12 +305,18 @@ def _log_normalize(log_w, cols, log_n: float | None = None, out=None):
     """``log_normalize`` along the particles; under particle sharding, of
     the whole rows gathered from the particle group, with this rank's window
     of the normalized log-weights (``log_n`` replaces log N, N the whole
-    row's; ``out``, without particle sharding, a buffer for the normalized
-    log-weights)."""
+    row's; ``out``, a buffer for the normalized log-weights)."""
     if cols is None:
         return log_normalize(log_w, log_n=log_n, out=out)
     log_mean, log_norm, ess = log_normalize(all_gather_cols(log_w, cols), log_n=log_n)
-    return log_mean, local_cols(log_norm, cols).contiguous(), ess
+    return log_mean, _window(log_norm, cols, out), ess
+
+
+def _window(x, cols, out=None):
+    """This rank's particles of whole rows, contiguous: into ``out`` where
+    given (a replayed step's buffer)."""
+    mine = local_cols(x, cols)
+    return mine.contiguous() if out is None else out.copy_(mine)
 
 
 def _active(active_n):
@@ -467,8 +475,10 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
     bank; ``active_n`` the elastic live count. Under particle sharding the
     particles and log-weights are the rank's slice of its rows, and u and
     the normals as :func:`_draws` keeps them. ``out``: on the routes the
-    loops capture (no mesh), the (M, dx, N) cloud and (M, N) log-weight
-    buffers that the step writes (the kernel in place)."""
+    loops capture, the (M, dx, N) cloud and (M, N) log-weight buffers that
+    the step writes (the kernel in place; under particle sharding the
+    kernel writes the raw log-weights there, and the normalize the rank's
+    window of the whole rows over them)."""
     rows = _rows(config, particles.shape[0])
     cols = _cols(config, particles.shape[1])
     n = particles.shape[1] if cols is None else cols.n
@@ -501,11 +511,11 @@ def _pf_step_from_draws(u, seed_or_normals, models, particles, log_w, y,
                 y, xp, carry_logw=carry, params=params, out=out, **draws)
         else:  # the slice's raw log-weights, normalized as whole rows
             new, logw = local.fused_propagate_reweight(y, xp, params=params, normalize=False,
-                                                       **draws)
+                                                       out=out, **draws)
             if carry is not None:
                 logw = logw + carry
             log_norm, lse, ess = normalize_rows(all_gather_cols(logw, cols))
-            log_norm = local_cols(log_norm, cols).contiguous()
+            log_norm = _window(log_norm, cols, None if out is None else out[1])
         log_mean = lse[:, 0] if carry is not None else lse[:, 0] - math.log(n)
         return BatchedPFOut(from_cloud(new), log_norm, log_mean, ess[:, 0])
     if config.proposal is None:
@@ -602,17 +612,19 @@ def captures(config: PFConfig, active_n, device) -> bool:
     :func:`batched_log_likelihood_masked`, SMC²'s online step,
     ``filter_sequence`` and the forward bank; at the multinomial scheme also
     conditional SMC's and particle Gibbs's sweeps. On a CUDA device, outside
-    :func:`.graphs.disable_graphs`, with no mesh (its collectives cannot be
-    captured): any model (a fused kernel's or the plain propagate route of a
-    DSL model; its tensor fields become the route's buffers, its other
-    leaves key it, :mod:`.graphs`), bootstrap, guided or auxiliary, every
-    resampling scheme, and any ``active_n``: the live count is a host int
-    that the captured step holds (the grid's divisor, the live mask, log
-    active_n), so each live count keys a route of its own and the gate does
-    not read it. A route whose step runs ``torch.linalg.eigh`` (an
-    ``MvNormal`` with ``allow_singular``), which checks its errors on the
-    host, runs its step bodies eagerly instead (:mod:`.graphs`)."""
-    return graphs.enabled() and device.type == "cuda" and config.mesh is None
+    :func:`.graphs.disable_graphs`: any model (a fused kernel's or the plain
+    propagate route of a DSL model; its tensor fields become the route's
+    buffers, its other leaves key it, :mod:`.graphs`), bootstrap, guided or
+    auxiliary, every resampling scheme, and any ``active_n``: the live count
+    is a host int that the captured step holds (the grid's divisor, the live
+    mask, log active_n), so each live count keys a route of its own and the
+    gate does not read it. On a mesh too (``config.mesh``, which keys the
+    route with this rank's rows and particles): a step's collectives are
+    cuts between its graphs, run eagerly at each replay (:mod:`.graphs`). A
+    route whose step runs ``torch.linalg.eigh`` (an ``MvNormal`` with
+    ``allow_singular``), which checks its errors on the host, runs its step
+    bodies eagerly instead (:mod:`.graphs`)."""
+    return graphs.enabled() and device.type == "cuda"
 
 
 def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,

@@ -53,9 +53,13 @@ one route per live count: every tensor of an elastic step has the padded
 shape, and the live count enters only as host scalars of its glue (the
 live-prefix grid's divisor, the live mask, log active_n), which the graph
 holds as they were at capture, so the count keys the route
-(:func:`_key`). The eager loop runs, chosen by the configuration, under a
-mesh (its collectives cannot be captured). One rule is read from the
-warm-up (below): a step that
+(:func:`_key`). On a mesh (``config.mesh``) every loop replays too, keyed
+by the mesh, this rank's rows and particles (:func:`_mesh_key`): a
+θ-only mesh's inner step has no collective and replays as one process's
+does, S steps a launch; a step with collectives (a particle mesh's gathers,
+the online steps' gather of the evidence over the θ group) is captured as
+segments with the collectives between them (cuts, below). One rule is read
+from the warm-up (below): a step that
 runs ``torch.linalg.eigh`` (``distributions/mvnormal.py::eigh``: an
 ``MvNormal`` with ``allow_singular``, the default, as an LG model's
 transition at dx > 1, so a guided proposal or a smoother's backward draw
@@ -79,7 +83,8 @@ its buffers (``_Route.graphed`` False), with the same bits.
   then L mod S one-step launches.
 - Online SMC² and IBIS: the body is the online step after the decision
   (the inner step — the filter's, or the Kalman update — into the other
-  buffer, log ω and log Z, the θ-ESS, the flag ESS < ess_min, the StepInfo
+  buffer, on a mesh the θ group's gather of its per-θ evidence, log ω and
+  log Z, the θ-ESS, the flag ESS < ess_min, the StepInfo
   fields into stores at the position counter). Before each replay the host
   reads the flag of the step before through a pinned buffer — the run's one
   host read a step — and, where it is set, runs the rejuvenation (the
@@ -150,6 +155,19 @@ its buffers (``_Route.graphed`` False), with the same bits.
   the bank's class and fields' shapes, (M, N, T, dx) and dtype; a PG
   sweep's also ``model_fn`` by identity, the prior's structure and the
   PG configuration); :func:`clear_graphs` frees them.
+- Cuts: a collective inside a captured body (``ops/sharding.py::_collective``)
+  ends the graph there: the capture records it on the step's tensors
+  without running it (the input holds no values yet; every rank records
+  the same cuts in lockstep) and begins the next segment's graph in the
+  same pool, keeping the collective's input and output alive for the
+  segments. A replayed step is segment 0, collective 0, segment 1, …: the
+  collectives run eagerly through ``_collective``, on gloo (which cannot
+  run inside a graph) and NCCL alike, so ``collective_stats`` counts what
+  the eager loop counts. A route whose step has a cut replays one step a
+  launch; its launch counts and generator carry across the segments as
+  across graphs. On a mesh route a collective that reaches
+  ``torch.distributed`` other than through ``_collective`` raises
+  :class:`CaptureError` naming it.
 - No fallback: a capture or a replay that fails raises; outside
   :func:`disable_graphs` nothing runs the eager loop on a captured route.
 
@@ -166,13 +184,16 @@ import time
 import types
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..distributions.mvnormal import eigh
 from ..kernels._build import add_launch_counts, launch_counts, set_launch_counts
 from ..utils.struct import replace
 from . import batched_filter as _bf
 from . import kalman as _kf
+from . import sharding as _sh
 from .particle_filter import Proposal
+from .sharding import all_gather_rows, collective_stats
 from .weights import ess_from_log_weights
 
 __all__ = ["CaptureError", "clear_graphs", "disable_graphs"]
@@ -198,6 +219,8 @@ def capture_error(err: RuntimeError, what: str, device):
     ``device``'s current stream is capturing; None outside a capture."""
     if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
         return None
+    if isinstance(err, CaptureError):  # a refusal from inside it (a direct collective)
+        return CaptureError(f"{what}: {err}")
     return CaptureError(
         f"{what} cannot be captured into a replayed graph: it reads the host (.item(), .cpu(),"
         " a branch on a tensor, a tensor made from Python numbers on the device, ...). Make it"
@@ -229,6 +252,28 @@ def clear_graphs() -> None:
 def enabled() -> bool:
     """False inside :func:`disable_graphs`."""
     return _enabled
+
+
+class _DirectCollectives(TorchDispatchMode):
+    """Active while a mesh route captures: a collective that reaches
+    ``torch.distributed`` other than through ``ops/sharding.py::_collective``
+    (whose collectives become cuts) raises :class:`CaptureError` naming it —
+    gloo would wait on the host inside the capture, and NCCL would be
+    captured into the graph, out of ``collective_stats``."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d":
+            raise CaptureError(
+                f"torch.distributed's {func} was called inside a replayed step, not through "
+                "ops/sharding.py::_collective (all_gather, all_gather_rows, all_gather_cols, "
+                "all_reduce), whose collectives the replays run between the step's graphs. "
+                "Call those, or run inside disable_graphs().")
+        return func(*args, **(kwargs or {}))
+
+
+def _calls() -> int:
+    """The collectives ``_collective`` has run so far (every kind)."""
+    return sum(v for k, v in collective_stats.items() if k.endswith("_calls"))
 
 
 def _capacity(t: int) -> int:
@@ -443,11 +488,14 @@ class OnlineBuffers(_ThetaBuffers):
     collector's state holds them), the θ bank's model and kernel
     parameters, two clouds and two log-weight planes, and with ``collect``
     (a :class:`_Collector`) the collector's stores; ``active_n`` the
-    route's live count (None outside "full" padding)."""
+    route's live count (None outside "full" padding); ``rows``: this rank's
+    rows of the θ bank on a mesh (None without), whose per-θ evidence the
+    step gathers whole."""
 
-    def __init__(self, models, params, state, y, capacity: int, ess_min: float, active_n=None):
+    def __init__(self, models, params, state, y, capacity: int, ess_min: float, active_n=None,
+                 rows=None):
         super().__init__(state, y, capacity, ess_min)
-        self.active_n = active_n
+        self.active_n, self.rows = active_n, rows
         cloud = _bf.as_cloud(state.particles)
         self.theta = torch.empty_like(state.theta)
         self.pending = torch.zeros((), dtype=torch.bool, device=cloud.device)
@@ -475,7 +523,7 @@ class OnlineBuffers(_ThetaBuffers):
         out = _bf.batched_pf_step(generator, self.model, _bf.from_cloud(self.clouds[k]),
                                   self.log_w[k], self.y_t(), config, self.params, self.active_n,
                                   out=(self.clouds[1 - k], self.log_w[1 - k]))
-        self._account(out.log_mean)
+        self._account(all_gather_rows(out.log_mean, self.rows))
         if self.collect is not None:
             self.collect(self, 1 - k)
 
@@ -488,10 +536,12 @@ class OnlineBuffers(_ThetaBuffers):
 class IBISBuffers(_ThetaBuffers):
     """Everything IBIS's captured online step reads and writes: the θ-level
     buffers (:class:`_ThetaBuffers`), the θ bank's model and two Kalman
-    (mean, cov) banks."""
+    (mean, cov) banks — this rank's rows of them on a mesh (``rows``, None
+    without), whose log-likelihoods the step gathers whole."""
 
-    def __init__(self, models, state, y, capacity: int, ess_min: float):
+    def __init__(self, models, state, y, capacity: int, ess_min: float, rows=None):
         super().__init__(state, y, capacity, ess_min)
+        self.rows = rows
         self.model = _tree_buffers(models)
         self.mean = (torch.empty_like(state.mean), torch.empty_like(state.mean))
         self.cov = (torch.empty_like(state.cov), torch.empty_like(state.cov))
@@ -511,7 +561,7 @@ class IBISBuffers(_ThetaBuffers):
         out = _kf.kalman_step(self.model, _kf.KalmanState(self.mean[k], self.cov[k]), self.y_t())
         self.mean[1 - k].copy_(out.state.mean)
         self.cov[1 - k].copy_(out.state.cov)
-        self._account(out.log_lik)
+        self._account(all_gather_rows(out.log_lik, self.rows))
 
     def fields(self, k: int) -> dict:
         """The state's tensors that the step writes, as views of buffer k."""
@@ -574,17 +624,32 @@ class _Route:
     replays graphs (on the card, unless ``runs_eigh``), else it runs its
     bodies eagerly through the buffers. ``timing``: the seconds of the
     warm-up, of the capture (the body's issue into the graphs) and of the
-    instantiation."""
+    instantiation.
 
-    def __init__(self, buffers, body, device, multi: bool, period: int = 2):
+    Cuts: a collective of the body (``ops/sharding.py::_collective``, a
+    mesh route's gathers) ends a graph. Each graph is a list of segments,
+    the body's launches between two collectives, and the collectives
+    between them, recorded at capture (no collective runs there: the input
+    holds no values yet) with their input and output tensors, which the
+    route keeps alive: the next segment reads the output. A replay runs
+    segment 0, collective 0, segment 1, … through ``_collective``, eagerly,
+    so ``collective_stats`` counts what the eager loop counts. ``cuts``: the
+    collectives a step (those of the warm-up's step; the capture must record
+    as many). A route whose step has a cut replays one step a launch (no
+    S-step graph). ``segment_replays``: the segments launched (where it has
+    no graphs, as the graphs would launch them). ``mesh``: on a mesh route a
+    collective that reaches ``torch.distributed`` other than through
+    ``_collective`` raises :class:`CaptureError` at capture, naming it."""
+
+    def __init__(self, buffers, body, device, multi: bool, period: int = 2, mesh=None):
         self.buffers, self.body, self.device = buffers, body, device
-        self.multi, self.period = multi, period
+        self.multi, self.period, self.mesh = multi, period, mesh is not None
         self.generator = torch.Generator(device=device)
         self.graphs = None
         self.runs_eigh = self.graphed = False
         self.launches = {}
         self.k = 0
-        self.replays = 0
+        self.replays = self.segment_replays = self.cuts = 0
         self.out = None
         self.timing = {}
 
@@ -596,13 +661,15 @@ class _Route:
 
     def capture(self, generator, reload) -> None:
         """The warm-up (the body once eagerly, on the card on a side stream,
-        then undone: the caller's generator state and the counters restored,
-        ``reload()`` loading the buffers again), then, on the card, the
+        then undone: the caller's generator state, the launch counters and
+        ``collective_stats`` restored, ``reload()`` loading the buffers
+        again; its collectives are the step's cuts), then, on the card, the
         graphs — unless the warm-up ran ``torch.linalg.eigh``, which checks
         its errors on the host (a capture refuses it): such a route, as
         every route on the CPU, runs its bodies eagerly."""
         cuda = self.device.type == "cuda"
         before, eighs = launch_counts(), eigh.calls
+        stats, calls = collections.Counter(collective_stats), _calls()
         drawn = None if generator is None else generator.get_state()
         t0 = time.perf_counter()
         if cuda:
@@ -618,6 +685,10 @@ class _Route:
         if drawn is not None:
             generator.set_state(drawn)
         set_launch_counts(before)
+        self.cuts = _calls() - calls
+        collective_stats.clear()  # the warm-up's collectives are not the run's
+        collective_stats.update(stats)
+        self.multi = self.multi and not self.cuts
         self.runs_eigh, eigh.calls = eigh.calls != eighs, eighs
         reload()
         if not cuda or self.runs_eigh:
@@ -632,15 +703,10 @@ class _Route:
         graphs, launches = {}, {}
         try:
             for k, steps in shapes:
-                g = torch.cuda.CUDAGraph()
-                g.register_generator_state(self.generator)
                 start = launch_counts()
                 t0 = time.perf_counter()
                 try:
-                    with torch.cuda.graph(g, pool=_pool, capture_error_mode="global"):
-                        for i in range(steps):
-                            out = self.body(self.generator, (k + i) % 2)
-                        t1 = time.perf_counter()
+                    segments, cuts, out, ends = self._capture_steps(k, steps)
                 except RuntimeError as err:  # the body's own error, where it gave one
                     cause = err
                     while cause is not None and not isinstance(cause, CaptureError):
@@ -648,10 +714,13 @@ class _Route:
                     if cause is None or cause is err:
                         raise
                     raise CaptureError(str(cause)) from err
-                timing["capture_s"] += t1 - t0
-                timing["instantiate_s"] += time.perf_counter() - t1  # capture_end instantiates
+                if len(cuts) != steps * self.cuts:
+                    raise RuntimeError(f"the capture of {steps} step(s) recorded {len(cuts)}"
+                                       f" collectives; the warm-up's step ran {self.cuts}")
+                timing["capture_s"] += time.perf_counter() - t0 - ends
+                timing["instantiate_s"] += ends  # capture_end instantiates
                 launches[(k, steps)] = [a - b for a, b in zip(launch_counts(), start)]
-                graphs[(k, steps)] = g
+                graphs[(k, steps)] = (segments, cuts)
                 if (k, steps) == (0, 1):
                     self.out = out
         finally:
@@ -659,14 +728,64 @@ class _Route:
         self.graphs, self.launches, self.timing = graphs, launches, timing
         self.graphed = True
 
+    def _capture_steps(self, k: int, steps: int):
+        """``steps`` steps from buffer k captured with
+        ``capture_error_mode="global"`` (a host sync inside raises) on a side
+        stream, as segments: at each collective the graph ends, the
+        collective is recorded as a cut (``sharding.capture_cut``) and the
+        next segment's graph begins in the same pool. Returns (the segments'
+        graphs, the cuts' (op, out, x, group, name), the body's last return,
+        the seconds of the graphs' instantiation)."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        segments, cuts, ends = [], [], [0.0]
+
+        def begin():
+            g = torch.cuda.CUDAGraph()
+            g.register_generator_state(self.generator)
+            g.capture_begin(pool=_pool, capture_error_mode="global")
+            return g
+
+        def end(g):
+            t = time.perf_counter()
+            g.capture_end()
+            ends[0] += time.perf_counter() - t
+            segments.append(g)
+
+        def cut(op, out, x, group, name):
+            end(graph[0])
+            cuts.append((op, out, x, group, name))
+            graph[0] = begin()
+            return out
+
+        with torch.cuda.stream(torch.cuda.Stream(device=self.device)):
+            graph = [begin()]
+            _sh.capture_cut = cut
+            try:
+                with _DirectCollectives() if self.mesh else contextlib.nullcontext():
+                    for i in range(steps):
+                        out = self.body(self.generator, (k + i) % 2)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # the capture was invalidated
+                    graph[0].capture_end()
+                raise
+            finally:
+                _sh.capture_cut = None
+            end(graph[0])
+        return segments, cuts, out, ends[0]
+
     def _launch(self, generator, steps: int, times: int) -> None:
         """``times`` launches of the graph of ``steps`` steps from buffer
-        ``self.k`` (with no graphs, its bodies with ``generator``)."""
+        ``self.k``, each its segments with its collectives between them
+        (with no graphs, its bodies with ``generator``)."""
         k = self.k
         if self.graphed:
-            g = self.graphs[(k, steps)]
+            segments, cuts = self.graphs[(k, steps)]
             for _ in range(times):
-                g.replay()
+                segments[0].replay()
+                for collective, g in zip(cuts, segments[1:]):
+                    _sh._collective(*collective)
+                    g.replay()
             add_launch_counts(self.launches[(k, steps)], times)
         else:
             for _ in range(times):
@@ -674,6 +793,7 @@ class _Route:
                     self.out = self.body(generator, (k + i) % 2)
         self.k = (k + steps * times) % self.period
         self.replays += times
+        self.segment_replays += times * (steps * self.cuts + 1)
 
     def replay(self, generator, steps: int) -> None:
         """``steps`` steps (a sweep route's: sweeps) from buffer ``self.k``
@@ -693,14 +813,29 @@ class _Route:
             generator.set_state(self.generator.get_state())
 
 
+def _mesh_key(mesh, rows=None, cols=None):
+    """A route's part of its key for ``mesh`` (None without): the mesh by
+    identity (two meshes never share a route: a cut holds its group), this
+    rank's rows (lo, hi, m, shards) and, where the mesh shards particles,
+    its particles of each row (lo, hi, n, shards)."""
+    if mesh is None:
+        return None
+    return (_Same(mesh), None if rows is None else tuple(rows[:4]),
+            None if cols is None else tuple(cols[:4]))
+
+
 def _key(models, params, cloud, y, config, capacity: int, active_n) -> tuple:
     """A filter step's part of a route's key; ``active_n`` the live count
     (None without): the graph holds it, and the buffers' shapes do not show
-    it."""
+    it (it stays the key's last element). On a mesh, the cloud is this
+    rank's rows (and particles) and the models the whole bank's; the mesh's
+    part (:func:`_mesh_key`) before the live count."""
+    mesh = _mesh_key(config.mesh, _bf._rows(config, cloud.shape[0]),
+                     _bf._cols(config, cloud.shape[2]))
     return (config.algorithm, config.resampling, config.ess_threshold,
             _tree_key(config.proposal), _tree_key(models),
             None if params is None else tuple(params.shape), tuple(cloud.shape), cloud.dtype,
-            cloud.device, y.dtype, capacity, active_n)
+            cloud.device, y.dtype, capacity, mesh, active_n)
 
 
 def _ready(key, make, load, generator) -> _Route:
@@ -730,7 +865,8 @@ def _filter_route(kind, generator, models, init, params, y, live, config, active
         if record_for is not None:
             buffers.record = record_for(buffers)
         cfg = _guarded(config, cloud.device)
-        return _Route(buffers, lambda gen, k: buffers.step(gen, cfg, k), cloud.device, True)
+        return _Route(buffers, lambda gen, k: buffers.step(gen, cfg, k), cloud.device, True,
+                      mesh=config.mesh)
 
     return _ready(key, make, lambda route: route.load(models, params, init, y, live), generator)
 
@@ -803,7 +939,9 @@ def online_route(generator, sampler, state, y, collect_fn=None) -> _Route:
     shapes and, under "full" padding, its live count, with the state and y
     loaded (captured first where the cache has none); with ``collect_fn``
     the collector runs inside the step (:class:`_Collector`, which sees the
-    route's live count), and the route is keyed by it."""
+    route's live count), and the route is keyed by it. On a mesh the step
+    gathers the θ group's evidence increments (a cut) before the θ-level
+    part."""
     cfg = sampler.config
     models = sampler.model_fn(state.theta)
     params = _bf.kernel_params(models, cfg.inner)
@@ -814,13 +952,15 @@ def online_route(generator, sampler, state, y, collect_fn=None) -> _Route:
            + _key(models, params, cloud, y, cfg.inner, capacity, active_n))
 
     def make():
-        buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min, active_n)
+        buffers = OnlineBuffers(models, params, state, y, capacity, cfg.ess_min, active_n,
+                                sampler._rows)
         if collect_fn is not None:
             template = replace(state, theta=buffers.theta, acc_ratio=buffers.acc_ratio,
                                **buffers.fields(0))
             buffers.collect = _Collector(collect_fn, template, capacity, cloud.device)
         inner = _guarded(cfg.inner, cloud.device)
-        return _Route(buffers, lambda gen, k: buffers.step(gen, inner, k), cloud.device, False)
+        return _Route(buffers, lambda gen, k: buffers.step(gen, inner, k), cloud.device, False,
+                      mesh=cfg.inner.mesh)
 
     return _ready(key, make, lambda route: route.load(models, params, state, y), generator)
 
@@ -828,15 +968,20 @@ def online_route(generator, sampler, state, y, collect_fn=None) -> _Route:
 def ibis_route(sampler, state, y) -> _Route:
     """IBIS's online route for the sampler's configuration at the state's
     shapes, with the state and y loaded (captured first where the cache has
-    none). Its step draws nothing: it takes no generator."""
-    models = sampler.model_fn(state.theta)
+    none). Its step draws nothing: it takes no generator. On a mesh the
+    bank's model is this rank's rows, and the step gathers the θ group's
+    log-likelihoods (a cut) before the θ-level part."""
+    models = sampler._models(state.theta)
     capacity = _capacity(y.shape[0])
+    mesh = sampler.config.inner.mesh
     key = ("ibis", sampler.config.ess_min, _tree_key(models), tuple(state.mean.shape),
-           tuple(state.cov.shape), state.mean.dtype, state.mean.device, y.dtype, capacity)
+           tuple(state.cov.shape), state.mean.dtype, state.mean.device, y.dtype, capacity,
+           _mesh_key(mesh, sampler._rows))
 
     def make():
-        buffers = IBISBuffers(models, state, y, capacity, sampler.config.ess_min)
-        return _Route(buffers, lambda gen, k: buffers.step(k), state.mean.device, False)
+        buffers = IBISBuffers(models, state, y, capacity, sampler.config.ess_min, sampler._rows)
+        return _Route(buffers, lambda gen, k: buffers.step(k), state.mean.device, False,
+                      mesh=mesh)
 
     return _ready(key, make, lambda route: route.load(models, state, y), None)
 
@@ -916,9 +1061,9 @@ class KalmanBuffers:
         return _kf.KalmanState(self.mean[k].clone(), self.cov[k].clone()), self.log_z.clone()
 
 
-def _kalman_route(kind: str, model, y, mask=None) -> _Route:
+def _kalman_route(kind: str, model, y, mask=None, mesh=None) -> _Route:
     capacity = _capacity(y.shape[0])
-    key = ("kalman", kind, _tree_key(model), y.dtype, y.device, capacity)
+    key = ("kalman", kind, _tree_key(model), y.dtype, y.device, capacity, _mesh_key(mesh))
 
     def make():
         buffers = KalmanBuffers(model, y, capacity, kind == "masked", kind == "stored")
@@ -927,11 +1072,12 @@ def _kalman_route(kind: str, model, y, mask=None) -> _Route:
     return _ready(key, make, lambda route: route.load(model, y, mask), None)
 
 
-def kalman_live(model, y, live: int):
+def kalman_live(model, y, live: int, mesh=None):
     """The Kalman bank over y[0:live] (a host count), replayed: ⌊live/S⌋
-    launches of the S-step graph and live mod S of one step. Returns
-    ((mean, cov), log Z)."""
-    route = _kalman_route("live", model, y)
+    launches of the S-step graph and live mod S of one step; ``mesh``: the
+    mesh whose rank holds the bank's rows (IBIS's), which keys the route.
+    Returns ((mean, cov), log Z)."""
+    route = _kalman_route("live", model, y, mesh=mesh)
     route.replay(None, live)
     return route.buffers.result(route.k)
 

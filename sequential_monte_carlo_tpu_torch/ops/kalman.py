@@ -110,12 +110,13 @@ def kalman_filter(model, y):
     return means, covs, logliks, torch.sum(logliks, dim=0)
 
 
-def live_log_likelihood(model, y, live: int, graphed: bool):
+def live_log_likelihood(model, y, live: int, graphed: bool, mesh=None):
     """The final (mean, cov) and log Z over the first ``live`` observations
     (a host int: IBIS's t), replayed where ``graphed`` (⌊live/S⌋ launches
-    of the S-step graph, then one a step), else the eager loop."""
+    of the S-step graph, then one a step; ``mesh``, where the bank is a
+    rank's rows, keys the route), else the eager loop."""
     if graphed:
-        return graphs.kalman_live(model, y, live)
+        return graphs.kalman_live(model, y, live, mesh)
     state, logz, _ = _loop(model, y, live)
     return state, logz
 

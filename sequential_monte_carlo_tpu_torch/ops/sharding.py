@@ -19,6 +19,11 @@ and copies them through host memory itself. The compute around them stays
 on the tensor's device. Each call is counted in ``collective_stats``:
 calls, bytes received and host seconds per collective (for NCCL the host
 seconds are the enqueue, for gloo the whole round trip).
+
+While a replayed route captures a step (``ops/graphs.py``), a collective
+runs no op: :data:`capture_cut` takes it and ends the graph there, and the
+replays run it through :func:`_collective` between the step's graphs, so a
+replayed run counts what its eager twin counts.
 """
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ import torch.distributed as dist
 from ..models.base import model_rows
 
 collective_stats = collections.Counter()
+# set by ops/graphs.py while it captures a step: called in place of a
+# collective's op with its (op, out, x, group, name), it returns ``out``
+capture_cut = None
 
 
 class ThetaRows(NamedTuple):
@@ -130,7 +138,11 @@ def local_model(models, rows: ThetaRows | None):
 
 
 def _collective(op, out: torch.Tensor, x: torch.Tensor, group, name: str) -> torch.Tensor:
-    """Run ``op(out, x, group)`` and count it in ``collective_stats``."""
+    """Run ``op(out, x, group)`` and count it in ``collective_stats``; inside
+    a capture, hand it to :data:`capture_cut` instead (it runs and counts at
+    each replay)."""
+    if capture_cut is not None:
+        return capture_cut(op, out, x, group, name)
     t0 = time.perf_counter()
     op(out, x, group)
     collective_stats[f"{name}_calls"] += 1

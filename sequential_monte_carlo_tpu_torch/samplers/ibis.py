@@ -8,7 +8,7 @@ Linear-Gaussian models only.
 The M Kalman filters are one batched bank (``ops/kalman.py``): a step is a
 few (M, dx, dx) products. Like the port's SMC², a host loop with an explicit
 ``torch.Generator``; it runs no kernel. On the card, where
-``batched_filter.captures`` admits the configuration (no mesh), the step
+``batched_filter.captures`` admits the configuration (a mesh too), the step
 after the rejuvenation decision is a CUDA-graph replay
 (``ops/graphs.py::ibis_route``, the counterpart of the JAX package's
 jitted scan): ``run`` keeps the state in the route's buffers, reads one
@@ -27,7 +27,10 @@ step and of a rejuvenation's proposals are gathered whole, and a θ-resample
 gathers the bank and keeps the ancestors' rows of this rank. On a mesh that
 also shards particles the θ axis's group is the rank's particle column, and
 the ranks of a particle group hold the same rows and compute the same bits:
-the state is copied across them.
+the state is copied across them. On the card the mesh's steps replay too:
+the online route's bank is the rank's rows and its step gathers their
+log-likelihoods between two graphs (a cut, ``ops/graphs.py``); the Kalman
+passes gather nothing and replay as without a mesh.
 """
 from __future__ import annotations
 
@@ -94,7 +97,7 @@ class IBIS:
     def _graphed(self, device) -> bool:
         """Whether the online steps and the rejuvenations' Kalman passes
         replay captured routes (``batched_filter.captures``: on the card,
-        outside ``disable_graphs()``, no mesh)."""
+        outside ``disable_graphs()``; on a mesh too)."""
         return _bf.captures(self.config.inner, None, device)
 
     def _rejuvenate(self, generator, state: IBISState, y, live: int) -> IBISState:
@@ -112,7 +115,7 @@ class IBIS:
             ok = self.prior.in_support(theta_prop)
             theta_safe = torch.where(ok[:, None], theta_prop, theta)
             (mean_prop, cov_prop), logz_prop = live_log_likelihood(
-                self._models(theta_safe), y, live, graphed)
+                self._models(theta_safe), y, live, graphed, cfg.inner.mesh)
             logz_prop = all_gather_rows(logz_prop, self._rows)
             lp_prop = self.prior.log_prob(theta_prop)
             lp_curr = self.prior.log_prob(theta)
@@ -152,7 +155,7 @@ class IBIS:
         if degenerate:
             state = self._rejuvenate(generator, self._resample_theta(generator, state), y,
                                      state.t)
-            route.load(self.model_fn(state.theta), state)
+            route.load(self._models(state.theta), state)
         route.replay(None, 1)
         return replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate
 

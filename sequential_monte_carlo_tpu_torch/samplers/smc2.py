@@ -11,7 +11,7 @@ host: one ``step`` per observation, which reads the θ-ESS flag on the host
 to decide on a rejuvenation (and the acceptance rate, after one, to decide
 on an exchange), and rejuvenations that filter the consumed prefix y[0:t]
 only. On the card, where the inner filter's route is captured
-(``batched_filter.captures``: without a mesh), the step after the decision
+(``batched_filter.captures``; on a mesh too), the step after the decision
 is a CUDA-graph replay (``ops/graphs.py``, the counterpart of
 ``_step_jit``): ``run`` / ``run_segmented`` keep the state in the route's
 buffers between steps, read one flag a step through a pinned buffer, run a
@@ -71,6 +71,13 @@ N (and, in "full" padding, the doubling cap) is split over the particle
 ranks; the live prefix may lie wholly inside the first ranks' slices. The
 split sums round otherwise than one rank's, so such a run is close to the
 unsharded one, not bitwise equal to it.
+
+On a mesh the loops replay as without one (``ops/graphs.py``): the masked
+filter of a θ-only mesh has no collective and replays S steps a launch;
+a step that gathers (the online step's evidence increments, a particle
+group's rows) replays as graphs with the collectives run eagerly between
+them, one step a launch. The glue between replays (``_whole`` of a
+rejuvenation's log Z, the θ-resample's gathers) stays eager.
 """
 from __future__ import annotations
 

@@ -265,7 +265,7 @@ def _mvnormal_guided():
     ("systematic", True), ("residual_systematic", True), ("stratified", True),
     ("stratified_ess", True), ("systematic_ess", True), ("apf", True), ("apf_stratified", True),
     ("multinomial", True), ("residual", True), ("metropolis", True), ("guided", True),
-    ("guided_mvnormal", True), ("active_n", True), ("mesh", False), ("dsl", True),
+    ("guided_mvnormal", True), ("active_n", True), ("mesh", True), ("dsl", True),
     ("cpu", False),
 ])
 def test_captured_routes(case, captured, monkeypatch):
@@ -274,7 +274,8 @@ def test_captured_routes(case, captured, monkeypatch):
     bank (no fused kernel) takes its route too, nor the live count, which
     keys a route of its own. An ``MvNormal`` proposal is
     admitted here; its route runs its bodies eagerly by the warm-up's eigh
-    rule (``tests/test_torch_route_graphs.py``)."""
+    rule (``tests/test_torch_route_graphs.py``). A mesh's routes replay too
+    (``tests/test_torch_mesh_graphs.py``)."""
     cfg = {"systematic": tsmc.PFConfig(), "residual_systematic": tsmc.PFConfig(
         "residual_systematic"), "stratified": tsmc.PFConfig("stratified"),
         "stratified_ess": tsmc.PFConfig("stratified", 0.5),

@@ -19,25 +19,24 @@ import sys
 import numpy as np
 import pytest
 
-from torch_dist_worker import DT_ROUTES, ROUTES, run_world, start_world, wait_world
+from torch_dist_worker import (
+    DT_ROUTES,
+    PMESHES,
+    ROUTES,
+    WORLD_SPECS,
+    WORLDS,
+    run_world,
+    shared_runs,
+)
 
-WORLDS = (2, 4)
-# (θ, particle) meshes that shard particles, and their world sizes
-PMESHES = {"1x2": 2, "2x2": 4, "1x4": 4}
 ENTRIES = ("run", "segmented", "reshard")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The one-process references, the 2- and 4-rank θ-sharded worlds and
-    the particle-sharded meshes, started together."""
-    handles = {w: start_world("parallel", w, tmp_path_factory.mktemp(f"world{w}"))
-               for w in WORLDS}
-    handles.update({shape: start_world(f"particle:{shape}", w,
-                                       tmp_path_factory.mktemp(f"particle{shape}"))
-                    for shape, w in PMESHES.items()})
-    handles[1] = start_world("plain", 1, tmp_path_factory.mktemp("plain"))
-    return {w: wait_world(h)[0] for w, h in handles.items()}
+    """Every world of WORLD_SPECS, started together once a test session
+    (``torch_dist_worker.shared_runs``)."""
+    return shared_runs(tmp_path_factory, WORLD_SPECS)
 
 
 @pytest.fixture(scope="module")

@@ -10,9 +10,19 @@ numbers a suite needs come in as ``OUT_DIR/inputs.npz``. Suite "plain"
 runs the one-process references without a process group; suite
 "particle:RθxRp" the sampler cases on an (Rθ, Rp) mesh that shards
 particles.
+
+Suites "parallel" and "particle" also run the mesh cases of
+test_torch_mesh_graphs.py twice (:func:`twins`): inside
+``disable_graphs()`` and on the replayed routes, with
+``batched_filter.captures`` answering as on the card (on the CPU a route
+runs its step bodies eagerly through its buffers, its collectives between
+them as a replay runs them), each with the collectives it ran and the
+routes' cuts a step. :func:`shared_runs` starts the worlds once per test
+session for both test files.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -26,6 +36,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import sequential_monte_carlo_tpu_torch as smc  # noqa: E402
 from sequential_monte_carlo_tpu_torch import parallel  # noqa: E402
 from sequential_monte_carlo_tpu_torch.interop import prior_from_spec  # noqa: E402
+from sequential_monte_carlo_tpu_torch.ops import batched_filter as _bf  # noqa: E402
+from sequential_monte_carlo_tpu_torch.ops import graphs  # noqa: E402
+from sequential_monte_carlo_tpu_torch.ops.sharding import collective_stats  # noqa: E402
+from sequential_monte_carlo_tpu_torch.utils.struct import replace  # noqa: E402
 
 LG_PRIOR = [("truncated_normal", 0.0, 1.0, -1.0, 1.0), ("lognormal", 0.0, 1.0),
             ("lognormal", 0.0, 1.0)]
@@ -139,18 +153,11 @@ def run_dt(name: str, mesh=None) -> tuple[dict, dict]:
                  "coords": torch.tensor(coords)}
 
 
-def _flat_dt(mesh=None) -> dict:
-    out = {}
-    for name in DT_ROUTES:
-        fields, cloud = run_dt(name, mesh)
-        out.update(_flat(f"dt_{name}", fields))
-        out.update(_flat(f"dtcloud_{name}", cloud))
-    return out
-
-
 def run_entry(kind: str, mesh=None) -> dict:
     """``run`` with a collect_fn, and ``run_segmented`` split after 15
-    steps and resumed, through the wrapper (or the plain sampler)."""
+    steps and resumed, through the wrapper (or the plain sampler); kind
+    "collected": that split ``run_segmented`` with the collect_fn, its
+    series and the gathered clouds too."""
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     sampler = smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"), cfg)
     if mesh is not None:
@@ -159,9 +166,17 @@ def run_entry(kind: str, mesh=None) -> dict:
     if kind == "run":
         state, (infos, series) = sampler.run(gen, y, collect_fn=smc.expected_parameters)
         return {**_theta_fields(state), "infos_ess": infos.ess, "series": series}
-    state, infos = sampler.run_segmented(gen, y, segment_size=8, max_steps=15)
-    state, infos2 = sampler.run_segmented(gen, y, segment_size=8, state=state)
-    return {**_theta_fields(state), "infos_ess": torch.cat([infos.ess, infos2.ess])}
+    collect = smc.expected_parameters if kind == "collected" else None
+    state, infos = sampler.run_segmented(gen, y, segment_size=8, max_steps=15, collect_fn=collect)
+    state, infos2 = sampler.run_segmented(gen, y, segment_size=8, state=state,
+                                          collect_fn=collect)
+    if collect is None:
+        return {**_theta_fields(state), "infos_ess": torch.cat([infos.ess, infos2.ess])}
+    (infos, series), (infos2, series2) = infos, infos2
+    whole = sampler.gather(state) if mesh is not None else state
+    return {**_theta_fields(state), "infos_ess": torch.cat([infos.ess, infos2.ess]),
+            "series": torch.cat([series, series2]), "particles": whole.particles,
+            "log_w": whole.log_w}
 
 
 def reshard_step(mesh=None) -> dict:
@@ -217,16 +232,138 @@ def _flat(prefix: str, d: dict) -> dict:
     return {f"{prefix}/{k}": torch.as_tensor(v).numpy() for k, v in d.items()}
 
 
-def suite_plain(out: dict) -> None:
+@contextlib.contextmanager
+def _routed():
+    """``batched_filter.captures`` answering as on the card (the ``routed``
+    fixture of tests/test_torch_elastic_graphs.py): the loops take their
+    routes, which on the CPU run their step bodies eagerly through the
+    buffers."""
+    gate = _bf.captures
+    _bf.captures = lambda config, active_n, device: gate(config, active_n,
+                                                         torch.device("cuda"))
+    graphs.clear_graphs()
+    try:
+        yield
+    finally:
+        _bf.captures = gate
+
+
+def _stats() -> str:
+    """The collectives run since the last clear: calls and bytes by kind."""
+    return json.dumps({k: v for k, v in sorted(collective_stats.items()) if not k.endswith("_s")})
+
+
+def twins(out: dict, prefix: str, fn) -> None:
+    """``fn()`` (a dict of tensors) on the routes, under
+    ``routed_<prefix>``, and inside ``disable_graphs()``, under ``prefix``,
+    each with the collectives it ran (``stats_[routed_]<prefix>``); and the
+    routes the routed run left, (kind, cuts a step, replays, segment
+    replays) each (``routes_<prefix>``)."""
+    for routed in (True, False):
+        collective_stats.clear()
+        with _routed() if routed else smc.disable_graphs():
+            res = fn()
+        name = f"routed_{prefix}" if routed else prefix
+        out.update(_flat(name, res))
+        out[f"stats_{name}"] = np.asarray(_stats())
+        if routed:
+            out[f"routes_{prefix}"] = np.asarray(json.dumps(
+                [(key[0], r.cuts, r.replays, r.segment_replays)
+                 for key, r in graphs._cache.items()]))
+            graphs.clear_graphs()
+
+
+def step_calls(name: str, mesh) -> np.ndarray:
+    """The collectives of one eager inner step (``batched_pf_step``) and
+    of one eager online step without a rejuvenation (``SMC2.step``) of
+    ROUTES[name]'s sampler on ``mesh``, from its init."""
+    model_fn, prior_spec, y, cfg = ROUTES[name]()
+    sampler = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
+                                            cfg), mesh).sampler
+    gen = torch.Generator().manual_seed(5)
+    with smc.disable_graphs():
+        state = sampler.init(gen, y)
+        first = graphs._calls()
+        _bf.batched_pf_step(gen, sampler.model_fn(state.theta), state.particles, state.log_w,
+                            y[1], sampler.config.inner, active_n=sampler._active(state))
+        inner = graphs._calls()
+        sampler.step(gen, replace(state, ess=torch.full((), float(cfg.n_theta))), y)
+    return np.asarray([inner - first, graphs._calls() - inner])
+
+
+def ibis_step_calls(mesh) -> int:
+    """The collectives of one eager IBIS step without a rejuvenation."""
+    ibis = parallel.ShardedIBIS(smc.IBIS(smc.lg_model, prior_from_spec(LG_PRIOR, device="cpu"),
+                                         smc.SMCConfig(n_theta=64, chain=2)), mesh).ibis
+    y = lg_data()
+    with smc.disable_graphs():
+        state = ibis.init(torch.Generator().manual_seed(5), y)
+        first = graphs._calls()
+        ibis.step(None, replace(state, ess=torch.full((), 64.0)), y)
+    return graphs._calls() - first
+
+
+# the cases the mesh worlds run as twins (test_torch_mesh_graphs.py): SMC²
+# through step (+ maybe_exchange) — systematic, the exchange in grow and in
+# full padding —, run with a collector and run_segmented split with one;
+# density-tempered SMC, systematic and stratified at ESS < N/2; IBIS; on
+# (1, 2) also the APF and the DSL's plain propagate route
+TWIN_ROUTES = ("lg_systematic", "exchange_grow", "exchange_full")
+PMESH_TWIN_ROUTES = ("lg_apf", "ar1_dsl")
+TWIN_ENTRIES = ("run", "collected")
+
+
+def mesh_cases(out: dict, mesh, twin_routes=()) -> None:
+    """The sampler cases on ``mesh`` (None: one process): every SMC²
+    route, the entries, reshard + step, IBIS and density-tempered SMC;
+    with ``twin_routes`` (a mesh) those routes, the entries of TWIN_ENTRIES,
+    IBIS and density-tempered SMC as :func:`twins` (the eager twin under the
+    plain key), the eager steps' collectives beside them (``calls_<route>``,
+    ``calls_ibis``) and two meshes of the mesh's shape in one process
+    (``two_meshes/…``)."""
+    twin = (lambda prefix, fn: twins(out, prefix, fn)) if twin_routes else (
+        lambda prefix, fn: out.update(_flat(prefix, fn())))
     for name in ROUTES:
-        out.update(_flat(name, run_route(name)))
-    for kind in ("run", "segmented"):
-        out.update(_flat(kind, run_entry(kind)))
-    out.update(_flat("reshard", reshard_step()))
-    out.update(_flat("ibis", run_ibis()))
+        run = lambda name=name: run_route(name, mesh)  # noqa: E731
+        twin(name, run) if name in twin_routes else out.update(_flat(name, run()))
+    for kind in ("run", "segmented", "collected"):
+        run = lambda kind=kind: run_entry(kind, mesh)  # noqa: E731
+        twin(kind, run) if kind in TWIN_ENTRIES else out.update(_flat(kind, run()))
+    out.update(_flat("reshard", reshard_step(mesh)))
+    twin("ibis", lambda: run_ibis(mesh))
+    for name in DT_ROUTES:
+        clouds = {}
+
+        def run(name=name):
+            fields, cloud = run_dt(name, mesh)
+            clouds.update(cloud)
+            return fields
+        twin(f"dt_{name}", run)  # the eager run's clouds last
+        out.update(_flat(f"dtcloud_{name}", clouds))
+    if not twin_routes:
+        return
+    for name in twin_routes + DT_ROUTES:
+        out[f"calls_{name}"] = step_calls(name, mesh)
+    out["calls_ibis"] = np.asarray(ibis_step_calls(mesh))
+    # two meshes of the mesh's shape: one masked filter on each
+    other = parallel.make_mesh(*mesh.shape)
+    model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
+    theta = prior_from_spec(prior_spec, device="cpu").sample(torch.Generator().manual_seed(6),
+                                                             (cfg.n_theta,))
+    with _routed():
+        for i, m in enumerate((mesh, other)):
+            res = smc.batched_log_likelihood(torch.Generator().manual_seed(7), model_fn(theta),
+                                             cfg.n_particles, cfg.n_theta, y,
+                                             cfg.inner._replace(mesh=m))
+            out[f"two_meshes/log_z{i}"] = res[2].numpy()
+        out["two_meshes/routes"] = np.asarray(len(graphs._cache))
+    graphs.clear_graphs()
+
+
+def suite_plain(out: dict) -> None:
+    mesh_cases(out, None)
     out.update(_flat("multihost", multihost_run()))
     out.update(_flat("dead", dead_slice_init()))
-    out.update(_flat_dt())
 
 
 def _raises(fn) -> str:
@@ -244,13 +381,7 @@ def suite_parallel(out: dict, world: int) -> None:
     specs = parallel.smc2_state_shardings(mesh)
     out["specs"] = np.asarray(json.dumps({k: getattr(specs, k) for k in
                                           ("theta", "particles", "log_w", "log_z", "t")}))
-    for name in ROUTES:
-        out.update(_flat(name, run_route(name, mesh)))
-    for kind in ("run", "segmented"):
-        out.update(_flat(kind, run_entry(kind, mesh)))
-    out.update(_flat("reshard", reshard_step(mesh)))
-    out.update(_flat("ibis", run_ibis(mesh)))
-    out.update(_flat_dt(mesh))
+    mesh_cases(out, mesh, TWIN_ROUTES)
     # the rank's rows of a sharded state
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
@@ -270,14 +401,10 @@ def suite_particle(out: dict, world: int, shape: str) -> None:
     mesh = parallel.make_mesh(n_theta, n_particle)
     out["mesh_shape"] = np.asarray(mesh.shape)
     out["mesh_coords"] = np.asarray([mesh.get_local_rank(0), mesh.get_local_rank(1)])
-    for name in ROUTES:
-        out.update(_flat(name, run_route(name, mesh)))
-    for kind in ("run", "segmented"):
-        out.update(_flat(kind, run_entry(kind, mesh)))
-    out.update(_flat("reshard", reshard_step(mesh)))
-    out.update(_flat("ibis", run_ibis(mesh)))
+    twin_routes = (TWIN_ROUTES + (PMESH_TWIN_ROUTES if shape == "1x2" else ())
+                   if shape in MESH_GRAPH_PMESHES else ())
+    mesh_cases(out, mesh, twin_routes)
     out.update(_flat("dead", dead_slice_init(mesh)))
-    out.update(_flat_dt(mesh))
     model_fn, prior_spec, y, cfg = ROUTES["lg_systematic"]()
     sh = parallel.ShardedSMC2(smc.SMC2(model_fn, prior_from_spec(prior_spec, device="cpu"),
                                        cfg), mesh)
@@ -290,6 +417,10 @@ def suite_particle(out: dict, world: int, shape: str) -> None:
     out["n_error"] = np.asarray(_raises(lambda: parallel.ShardedSMC2(smc.SMC2(
         model_fn, prior_from_spec(prior_spec, device="cpu"),
         cfg._replace(n_particles=129)), mesh)))
+
+
+# the particle meshes whose worlds run the mesh cases
+MESH_GRAPH_PMESHES = ("1x2", "2x2")
 
 
 def multihost_run(mesh=None) -> dict:
@@ -354,6 +485,57 @@ def suite_collective(out: dict, world: int) -> None:
         xs, lw, lm, ess = distributed_pf_step(gen, model, xs, lw, y[t])
         logz, esss = logz + lm, esss + [ess]
     out["pf_log_z"], out["pf_ess"] = logz.numpy(), torch.stack(esss).numpy()
+
+
+def suite_gpu(out: dict, world: int, arg: str) -> None:
+    """On the card (suite "gpu:BACKEND:RθxRp", every rank on a card): LG
+    SMC² through ``run`` with a collector, systematic and stratified at
+    ESS < N/2, replayed and inside ``disable_graphs()`` (``routed_<case>/…``
+    and ``<case>/…``, the collectives each ran, the routes' cuts, replays
+    and segment replays); then a collector that calls
+    ``torch.distributed.all_reduce`` itself: the CaptureError's message
+    (``direct/error``)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh(*map(int, arg.split(":")[1].split("x")))
+    y = lg_data().to(device)
+    prior = prior_from_spec(LG_PRIOR, device=device)
+    for case, inner in (("systematic", smc.PFConfig()),
+                        ("stratified", smc.PFConfig("stratified", 0.5))):
+        sh = parallel.ShardedSMC2(smc.SMC2(smc.lg_model, prior, lg_cfg(inner=inner)), mesh)
+
+        def run(sh=sh):
+            state, (infos, series) = sh.run(torch.Generator(device=device).manual_seed(0), y,
+                                            collect_fn=smc.expected_parameters)
+            whole = sh.gather(state)
+            return {**_theta_fields(whole), "particles": whole.particles, "log_w": whole.log_w,
+                    "infos_ess": infos.ess, "series": series}
+
+        for routed in (True, False):
+            collective_stats.clear()
+            with contextlib.nullcontext() if routed else smc.disable_graphs():
+                res = {k: v.cpu() for k, v in run().items()}
+            name = f"routed_{case}" if routed else case
+            out.update(_flat(name, res))
+            out[f"stats_{name}"] = np.asarray(_stats())
+            if routed:
+                out[f"routes_{case}"] = np.asarray(json.dumps(
+                    [(key[0], r.cuts, r.replays, r.segment_replays, r.graphed)
+                     for key, r in graphs._cache.items()]))
+                graphs.clear_graphs()
+
+    def direct(state):
+        total = smc.expected_parameters(state).clone()
+        torch.distributed.all_reduce(total)
+        return total
+
+    sh = parallel.ShardedSMC2(smc.SMC2(smc.lg_model, prior, lg_cfg()), mesh)
+    try:
+        sh.run(torch.Generator(device=device).manual_seed(0), y, collect_fn=direct)
+    except graphs.CaptureError as err:
+        out["direct/error"] = np.asarray(str(err))
+    else:
+        out["direct/error"] = np.asarray("")
+    graphs.clear_graphs()
 
 
 def suite_diverge(out: dict, world: int) -> None:
@@ -421,6 +603,52 @@ def run_world(suite: str, world: int, out_dir: Path, timeout_s: float = 300.0):
     return wait_world(start_world(suite, world, out_dir), timeout_s)
 
 
+# the θ-only worlds' sizes; the (θ, particle) meshes that shard particles
+# and their world sizes; every world test_torch_parallel.py and
+# test_torch_mesh_graphs.py read: the one-process references, the θ-sharded
+# worlds and the particle meshes
+WORLDS = (2, 4)
+PMESHES = {"1x2": 2, "2x2": 4, "1x4": 4}
+WORLD_SPECS = {1: ("plain", 1), **{w: ("parallel", w) for w in WORLDS},
+               **{shape: (f"particle:{shape}", w) for shape, w in PMESHES.items()}}
+
+
+def shared_runs(tmp_path_factory, specs: dict, timeout_s: float = 600.0) -> dict:
+    """The worlds ``specs`` ({key: (suite, world)}) run once per test
+    session for every test file that asks (test_torch_parallel.py,
+    test_torch_mesh_graphs.py), under pytest-xdist too: the first to ask
+    starts them all under a file lock in the session's common temporary
+    directory, and every asker reads their results. Returns {key: the
+    ranks' npz contents}."""
+    import fcntl
+    import os
+
+    base = tmp_path_factory.getbasetemp()
+    uid = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    root = base.parent / f"torch_worlds_{uid}" if uid else base / "torch_worlds"
+    root.mkdir(parents=True, exist_ok=True)
+    dirs = {key: root / str(key) for key in specs}
+    with open(root / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (root / "done").exists():
+            handles = {}
+            for key, (suite, world) in specs.items():
+                dirs[key].mkdir(exist_ok=True)
+                (dirs[key] / "store").unlink(missing_ok=True)
+                handles[key] = start_world(suite, world, dirs[key])
+            failed = []
+            for handle in handles.values():
+                try:
+                    wait_world(handle, timeout_s)
+                except AssertionError as err:
+                    failed.append(str(err))
+            if failed:
+                raise AssertionError("\n".join(failed))
+            (root / "done").write_text("")
+    return {key: [dict(np.load(dirs[key] / f"{r}.npz")) for r in range(world)]
+            for key, (_, world) in specs.items()}
+
+
 def main() -> None:
     suite, rank, world, store, out_dir = sys.argv[1], *map(int, sys.argv[2:4]), *sys.argv[4:6]
     torch.set_num_threads(1)
@@ -429,10 +657,12 @@ def main() -> None:
     if suite == "plain":
         suite_plain(out)
     else:
-        parallel.initialize_distributed(
-            init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu",
-            timeout_s=DIVERGE_TIMEOUT_S if suite == "diverge" else 120.0)
         name, _, arg = suite.partition(":")
+        gpu = name == "gpu"  # "gpu:BACKEND:RθxRp": the ranks on the card
+        parallel.initialize_distributed(
+            init_method=f"file://{store}", num_processes=world, process_id=rank,
+            device=None if gpu else "cpu", backend=arg.split(":")[0] if gpu else None,
+            timeout_s=DIVERGE_TIMEOUT_S if suite == "diverge" else 120.0)
         globals()[f"suite_{name}"](out, world, *([arg] if arg else []))
         if suite != "diverge":
             torch.distributed.destroy_process_group()

@@ -2,7 +2,7 @@
 """Where the time goes in sharded SMC² on one card.
 
     python3 tools/profile_parallel.py [--out profile_parallel.json] [--n 1024 8192]
-        [--worlds 1:nccl 2:gloo 2:gloo:1x2]
+        [--worlds 1:nccl 2:gloo 2:gloo:1x2] [--modes graphed eager]
 
 Online SMC² on UC-SV at bench.py's configuration (M=512, T=241, chain=5)
 at each N, sharded (``parallel.ShardedSMC2``) over each world of
@@ -10,7 +10,10 @@ at each N, sharded (``parallel.ShardedSMC2``) over each world of
 gloo ranks sharing the card; on four cards ``4:nccl`` puts a rank on each;
 the mesh is θ over all ranks unless RθxRp names a (θ, particle) mesh, e.g.
 ``2:gloo:1x2`` or ``4:gloo:2x2``), each rank a worker process of this
-script on cuda:{rank % cards}. Each rank runs the
+script on cuda:{rank % cards}, once for each of ``--modes``: "graphed" (the
+mesh's loops replay captured graphs, a step's collectives run between its
+segments; its row adds the routes' graph and segment launches, cuts a step
+and the graph pool) and "eager" (inside ``disable_graphs()``). Each rank runs the
 cell once to warm up, once unprofiled for the wall-clock and once under
 ``torch.profiler`` (``tools/profile_port.py::_profile``): its device time
 and busy share (the collectives' device events apart, in
@@ -46,7 +49,9 @@ WORKER = "--worker"
 
 
 def worker(n: int, rank: int, world: int, backend: str, store: str, out: str,
-           mesh_shape: str) -> int:
+           mesh_shape: str, mode: str) -> int:
+    import contextlib
+
     import torch
 
     import sequential_monte_carlo_tpu_torch as smc
@@ -67,16 +72,19 @@ def worker(n: int, rank: int, world: int, backend: str, store: str, out: str,
 
     def run(seed):
         collective_stats.clear()  # what remains is the last (profiled) run's
-        state, infos = sh.run(torch.Generator(device=device).manual_seed(seed), y)
+        last["routes"] = cs._routes_now()
+        with smc.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            state, infos = sh.run(torch.Generator(device=device).manual_seed(seed), y)
         np.savez(f"{out}/{rank}.npz", **{k: getattr(state, k).cpu().numpy()
                                          for k in ("theta", "log_omega", "log_z")})
         last["inner_steps"] = cs._schedule(infos, cs.CHAIN, [])
         return state, infos
 
-    row = {"cell": f"smc2_ucsv_512x{n}_{world}rank_{backend}_{mesh_shape}", "rank": rank,
-           "mesh": list(mesh.shape),
+    row = {"cell": f"smc2_ucsv_512x{n}_{world}rank_{backend}_{mesh_shape}", "mode": mode,
+           "rank": rank, "mesh": list(mesh.shape),
            **_profile(torch, run, cs.SEED),
            "collectives": {k: round(v, 6) for k, v in collective_stats.items()},
+           **cs._routes_since(last.pop("routes")), "pool_mb": round(cs._graph_pool_mb(torch), 1),
            **last}
     torch.distributed.destroy_process_group()
     with open(f"{out}/{rank}.json", "w") as f:
@@ -92,6 +100,8 @@ def main() -> int:
     p.add_argument("--n", type=int, nargs="*", default=[1024, 8192])
     p.add_argument("--worlds", nargs="*", default=["1:nccl", "2:gloo"],
                    help="ranks:backend[:RθxRp]")
+    p.add_argument("--modes", nargs="*", default=["graphed", "eager"],
+                   choices=["graphed", "eager"])
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_parallel: no CUDA device")
@@ -104,14 +114,15 @@ def main() -> int:
     rows = []
     for n in args.n:
         first = None
-        for spec in args.worlds:
+        for spec, mode in [(s, m) for s in args.worlds for m in args.modes]:
             world, backend, *shape = spec.split(":")
             world = int(world)
             mesh_shape = shape[0] if shape else f"{world}x1"
             particle_mesh = int(mesh_shape.split("x")[1]) > 1
             out = tempfile.mkdtemp(prefix="smc_profile_parallel_")
             procs = [subprocess.Popen([sys.executable, __file__, WORKER, str(n), str(r),
-                                       str(world), backend, f"{out}/store", out, mesh_shape])
+                                       str(world), backend, f"{out}/store", out, mesh_shape,
+                                       mode])
                      for r in range(world)]
             for p_ in procs:
                 if p_.wait(timeout=1800) != 0:
@@ -149,5 +160,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [WORKER]:
         a = sys.argv[2:]
-        sys.exit(worker(int(a[0]), int(a[1]), int(a[2]), a[3], a[4], a[5], a[6]))
+        sys.exit(worker(int(a[0]), int(a[1]), int(a[2]), a[3], a[4], a[5], a[6], a[7]))
     sys.exit(main())
