@@ -131,6 +131,7 @@ import torch
 from ..kernels.propagate import normalize_rows
 from ..kernels.resample_sorted import resample_gather_sorted, stratified_uniforms
 from ..kernels.resample_walk import resample_gather
+from ..utils.profiling import named_scope
 from . import graphs
 from .particle_filter import PFConfig
 from .resampling import _inverse_cdf, _residual_from_uniforms, get_resampler, metropolis
@@ -638,23 +639,26 @@ def batched_log_likelihood_masked(generator, models, n: int, m: int, y, mask,
     :func:`.graphs.disable_graphs`), else by a Python loop over them; with
     ``active_n``, on the route of that live count. The init runs eagerly
     before the replays. ``mask`` is read on the host; the model's kernel
-    parameters are packed once, outside the loop.
+    parameters are packed once, outside the loop. In the span
+    ``smc.filter``, its init in ``smc.filter_init`` (``utils/profiling.py``).
 
     Returns (particles (M, N, dx), log_w (M, N), log Z (M,)), this rank's
     rows of them (and its particles of each) under ``config.mesh``."""
-    init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
-    particles, log_w, logz = init.particles, init.log_weights, init.log_mean
-    params = kernel_params(models, config)
-    live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
-    if live.numel() and captures(config, active_n, particles.device):
-        return graphs.filter_live(generator, models, init, params, y, live, config,
-                                  _active(active_n))
-    for t in live.tolist():
-        out = batched_pf_step(generator, models, particles, log_w, y[t], config,
-                              params, active_n)
-        particles, log_w = out.particles, out.log_weights
-        logz = logz + out.log_mean
-    return particles, log_w, logz
+    with named_scope("smc.filter"):
+        with named_scope("smc.filter_init"):
+            init = batched_pf_init(generator, models, n, m, y[0], config, active_n)
+        particles, log_w, logz = init.particles, init.log_weights, init.log_mean
+        params = kernel_params(models, config)
+        live = torch.nonzero(torch.as_tensor(mask).cpu()[1:] > 0).flatten() + 1
+        if live.numel() and captures(config, active_n, particles.device):
+            return graphs.filter_live(generator, models, init, params, y, live, config,
+                                      _active(active_n))
+        for t in live.tolist():
+            out = batched_pf_step(generator, models, particles, log_w, y[t], config,
+                                  params, active_n)
+            particles, log_w = out.particles, out.log_weights
+            logz = logz + out.log_mean
+        return particles, log_w, logz
 
 
 def batched_log_likelihood(generator, models, n: int, m: int, y,

@@ -170,6 +170,17 @@ its buffers (``_Route.graphed`` False), with the same bits.
   :class:`CaptureError` naming it.
 - No fallback: a capture or a replay that fails raises; outside
   :func:`disable_graphs` nothing runs the eager loop on a captured route.
+- Counters: :data:`graph_stats` sums over every route of the process, at
+  the points where a route updates its own counters (whose fields stay):
+  ``captures`` (routes built: their warm-up, and on the card their
+  capture), ``warmup_s``, ``capture_s``, ``instantiate_s`` (their
+  ``timing``), ``replays`` (graph launches: a route's ``segment_replays``),
+  ``replayed_steps`` (the steps those launches ran; a sweep route's sweeps)
+  and ``evictions`` (routes dropped from the LRU). :func:`clear_graphs`
+  leaves it as it is. A route's lookup and load run in the span
+  ``smc.route``, its warm-up and capture in ``smc.capture``
+  (``utils/profiling.py``); no span opens inside a captured body or around
+  a replay.
 
 On the CPU nothing is captured: a route's "replays" run its step body
 eagerly through the same buffers (the tests' way to hold the bodies against
@@ -188,6 +199,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..distributions.mvnormal import eigh
 from ..kernels._build import add_launch_counts, launch_counts, set_launch_counts
+from ..utils.profiling import named_scope
 from ..utils.struct import replace
 from . import batched_filter as _bf
 from . import kalman as _kf
@@ -208,6 +220,8 @@ _Y_MIN = 256  # least capacity of the observation, live-time and store buffers
 _enabled = True
 _cache: collections.OrderedDict = collections.OrderedDict()
 _pool = None  # the memory pool every captured graph shares
+# every route's builds, seconds, launches and evictions, summed (module docstring)
+graph_stats = collections.Counter()
 
 
 class CaptureError(RuntimeError):
@@ -666,7 +680,15 @@ class _Route:
         again; its collectives are the step's cuts), then, on the card, the
         graphs — unless the warm-up ran ``torch.linalg.eigh``, which checks
         its errors on the host (a capture refuses it): such a route, as
-        every route on the CPU, runs its bodies eagerly."""
+        every route on the CPU, runs its bodies eagerly. In the span
+        ``smc.capture``; counted in :data:`graph_stats`."""
+        with named_scope("smc.capture"):
+            self._capture(generator, reload)
+        graph_stats["captures"] += 1
+        for part, seconds in self.timing.items():
+            graph_stats[part] += seconds
+
+    def _capture(self, generator, reload) -> None:
         cuda = self.device.type == "cuda"
         before, eighs = launch_counts(), eigh.calls
         stats, calls = collections.Counter(collective_stats), _calls()
@@ -794,6 +816,8 @@ class _Route:
         self.k = (k + steps * times) % self.period
         self.replays += times
         self.segment_replays += times * (steps * self.cuts + 1)
+        graph_stats["replays"] += times * (steps * self.cuts + 1)
+        graph_stats["replayed_steps"] += times * steps
 
     def replay(self, generator, steps: int) -> None:
         """``steps`` steps (a sweep route's: sweeps) from buffer ``self.k``
@@ -841,17 +865,19 @@ def _key(models, params, cloud, y, config, capacity: int, active_n) -> tuple:
 def _ready(key, make, load, generator) -> _Route:
     """The cached route of ``key`` (``make()`` where the cache has none),
     loaded by ``load(route)`` and captured where it was not yet; kept in the
-    cache only once captured."""
-    route = _cache.pop(key, None)
-    if route is None:
-        route = make()
-    load(route)
-    if route.graphs is None:
-        route.capture(generator, lambda: load(route))
-    _cache[key] = route
-    while len(_cache) > CACHE_SIZE:
-        _cache.popitem(last=False)
-    return route
+    cache only once captured. In the span ``smc.route``."""
+    with named_scope("smc.route"):
+        route = _cache.pop(key, None)
+        if route is None:
+            route = make()
+        load(route)
+        if route.graphs is None:
+            route.capture(generator, lambda: load(route))
+        _cache[key] = route
+        while len(_cache) > CACHE_SIZE:
+            _cache.popitem(last=False)
+            graph_stats["evictions"] += 1
+        return route
 
 
 def _filter_route(kind, generator, models, init, params, y, live, config, active_n=None,

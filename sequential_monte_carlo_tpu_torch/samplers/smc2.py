@@ -97,6 +97,7 @@ from ..ops.batched_filter import (
 from ..ops.resampling import get_resampler
 from ..ops.sharding import all_gather_rows, local_rows, particle_shards, theta_rows
 from ..ops.weights import ess_from_log_weights
+from ..utils.profiling import named_scope
 from ..utils.struct import replace
 from .base import SMC2State, SMCConfig, StepInfo
 from .kernels import anneal_scales, kernel_chol, propose, rw_kernel_cov
@@ -196,25 +197,27 @@ class SMC2:
 
     def init(self, generator, y) -> SMC2State:
         """Draw the θ-cloud from the prior and assimilate y[0] for every θ
-        (at the padded N under ``elastic_pad="full"``)."""
+        (at the padded N under ``elastic_pad="full"``). In the span
+        ``smc.init``."""
         cfg = self.config
-        theta = self.prior.sample(generator, (cfg.n_theta,))
-        outs = batched_pf_init(generator, self.model_fn(theta), self._n_pad, cfg.n_theta,
-                               y[0], cfg.inner,
-                               cfg.n_particles if self._use_active else None)
-        log_mean = self._whole(outs.log_mean)
-        return SMC2State(
-            theta=theta,
-            log_omega=log_mean,
-            particles=outs.particles,
-            log_w=outs.log_weights,
-            log_z=log_mean,
-            ess=ess_from_log_weights(log_mean),
-            acc_ratio=torch.zeros((), device=theta.device),
-            t=1,
-            active_n=cfg.n_particles,
-            exchange_pending=False,
-        )
+        with named_scope("smc.init"):
+            theta = self.prior.sample(generator, (cfg.n_theta,))
+            outs = batched_pf_init(generator, self.model_fn(theta), self._n_pad, cfg.n_theta,
+                                   y[0], cfg.inner,
+                                   cfg.n_particles if self._use_active else None)
+            log_mean = self._whole(outs.log_mean)
+            return SMC2State(
+                theta=theta,
+                log_omega=log_mean,
+                particles=outs.particles,
+                log_w=outs.log_weights,
+                log_z=log_mean,
+                ess=ess_from_log_weights(log_mean),
+                acc_ratio=torch.zeros((), device=theta.device),
+                t=1,
+                active_n=cfg.n_particles,
+                exchange_pending=False,
+            )
 
     def _resample_theta(self, generator, state: SMC2State) -> SMC2State:
         """Multinomial resample of the θ-particles, co-indexing their clouds
@@ -282,9 +285,11 @@ class SMC2:
     def _resample_move(self, generator, state: SMC2State, y, mask,
                        xi: float = 1.0) -> SMC2State:
         """θ-resample followed by tempered rejuvenation — the resample-move
-        core shared by SMC² (ξ = 1) and density-tempered SMC."""
-        state = self._resample_theta(generator, state)
-        return self._rejuvenate(generator, state, y, mask, xi)
+        core shared by SMC² (ξ = 1) and density-tempered SMC. In the span
+        ``smc.rejuvenate``."""
+        with named_scope("smc.rejuvenate"):
+            state = self._resample_theta(generator, state)
+            return self._rejuvenate(generator, state, y, mask, xi)
 
     def _refilter(self, generator, state: SMC2State, y, mask, n: int,
                   active_n=None) -> SMC2State:
@@ -339,21 +344,23 @@ class SMC2:
         online route of the new live count (``collect_fn``'s), where the
         exchange doubled it under "full" padding — then one replay. Returns
         (the state after it, its stepped tensors views of the route's
-        buffers; whether it rejuvenated; the route that stepped)."""
-        degenerate = route.buffers.read_flag()
-        if degenerate:
-            mask = torch.arange(y.shape[0]) < state.t
-            state = self._resample_move(generator, state, y, mask)
-            if self._elastic:
-                state = self._exchange(generator, state, y, mask)
-            if self._active(state) != route.buffers.active_n:
-                route = graphs.online_route(generator, self, state, y, collect_fn)
-            else:
-                models = self.model_fn(state.theta)
-                route.load(models, _bf.kernel_params(models, self.config.inner), state)
-        route.replay(generator, 1)
-        return (replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate,
-                route)
+        buffers; whether it rejuvenated; the route that stepped). In the
+        span ``smc.online_step``."""
+        with named_scope("smc.online_step"):
+            degenerate = route.buffers.read_flag()
+            if degenerate:
+                mask = torch.arange(y.shape[0]) < state.t
+                state = self._resample_move(generator, state, y, mask)
+                if self._elastic:
+                    state = self._exchange(generator, state, y, mask)
+                if self._active(state) != route.buffers.active_n:
+                    route = graphs.online_route(generator, self, state, y, collect_fn)
+                else:
+                    models = self.model_fn(state.theta)
+                    route.load(models, _bf.kernel_params(models, self.config.inner), state)
+            route.replay(generator, 1)
+            return (replace(state, t=state.t + 1, **route.buffers.fields(route.k)), degenerate,
+                    route)
 
     def step(self, generator, state: SMC2State, y):
         """One online assimilation step of y[state.t]; rejuvenates first
@@ -361,7 +368,8 @@ class SMC2:
         on, the exchange). On a captured route (:meth:`_graphed`) the step
         after the decision is a graph replay — on the route of the live
         count after the exchange, under "full" padding — and the state
-        returned owns its arrays. Returns (state, StepInfo)."""
+        returned owns its arrays. Returns (state, StepInfo). The eager step
+        runs in the span ``smc.online_step``, as :meth:`_online_step` does."""
         if self._graphed(state):
             t = state.t
             route = graphs.online_route(generator, self, state, y)
@@ -370,37 +378,38 @@ class SMC2:
             incr = route.buffers.infos(t, t + 1)["log_evidence_incr"]
             return state, StepInfo(ess=state.ess, rejuvenated=torch.tensor(degenerate),
                                    acc_ratio=state.acc_ratio, log_evidence_incr=incr[0])
-        cfg = self.config
-        degenerate = bool(state.ess < cfg.ess_min)  # host sync
-        if degenerate:
-            mask = torch.arange(y.shape[0]) < state.t
-            state = self._resample_move(generator, state, y, mask)
-            if self._elastic:
-                state = self._exchange(generator, state, y, mask)
+        with named_scope("smc.online_step"):
+            cfg = self.config
+            degenerate = bool(state.ess < cfg.ess_min)  # host sync
+            if degenerate:
+                mask = torch.arange(y.shape[0]) < state.t
+                state = self._resample_move(generator, state, y, mask)
+                if self._elastic:
+                    state = self._exchange(generator, state, y, mask)
 
-        outs = batched_pf_step(generator, self.model_fn(state.theta),
-                               state.particles, state.log_w, y[state.t],
-                               cfg.inner, active_n=self._active(state))
-        log_mean = self._whole(outs.log_mean)
-        prev_lse = torch.logsumexp(state.log_omega, dim=0)
-        log_omega = state.log_omega + log_mean
-        ess = ess_from_log_weights(log_omega)
-        state = replace(
-            state,
-            log_omega=log_omega,
-            particles=outs.particles,
-            log_w=outs.log_weights,
-            log_z=state.log_z + log_mean,
-            ess=ess,
-            t=state.t + 1,
-        )
-        info = StepInfo(
-            ess=ess,
-            rejuvenated=torch.tensor(degenerate),
-            acc_ratio=state.acc_ratio,
-            log_evidence_incr=torch.logsumexp(log_omega, dim=0) - prev_lse,
-        )
-        return state, info
+            outs = batched_pf_step(generator, self.model_fn(state.theta),
+                                   state.particles, state.log_w, y[state.t],
+                                   cfg.inner, active_n=self._active(state))
+            log_mean = self._whole(outs.log_mean)
+            prev_lse = torch.logsumexp(state.log_omega, dim=0)
+            log_omega = state.log_omega + log_mean
+            ess = ess_from_log_weights(log_omega)
+            state = replace(
+                state,
+                log_omega=log_omega,
+                particles=outs.particles,
+                log_w=outs.log_weights,
+                log_z=state.log_z + log_mean,
+                ess=ess,
+                t=state.t + 1,
+            )
+            info = StepInfo(
+                ess=ess,
+                rejuvenated=torch.tensor(degenerate),
+                acc_ratio=state.acc_ratio,
+                log_evidence_incr=torch.logsumexp(log_omega, dim=0) - prev_lse,
+            )
+            return state, info
 
     def _service_exchange(self, generator, state: SMC2State, y) -> SMC2State:
         """A pending doubling ("grow"): refilter the consumed history at 2N
@@ -470,35 +479,37 @@ class SMC2:
         the end: a collector that reads the host (``.item()``, a branch on
         a tensor, a tensor made from host values) or returns a leaf that is
         not a tensor on the state's device raises ``graphs.CaptureError``
-        naming it, and is never run eagerly in its place."""
+        naming it, and is never run eagerly in its place. In the span
+        ``smc.run`` (``utils/profiling.py``)."""
         if segment_size < 1:
             raise ValueError(f"segment_size must be ≥ 1, got {segment_size}")
-        T = y.shape[0]
-        if state is None:
-            state = self.init(generator, y)
-        elif self._grow and state.exchange_pending:
-            state = self._service_exchange(generator, state, y)
-        target = T if max_steps is None else min(T, state.t + max_steps)
-        if state.t >= target:  # past the bound: zero steps, in the structure of a run's outputs
-            out = _first(_stack([StepInfo(ess=state.ess, rejuvenated=torch.tensor(False),
-                                          acc_ratio=state.acc_ratio,
-                                          log_evidence_incr=torch.zeros_like(state.ess))]), 0)
-            return state, (out if collect_fn is None
-                           else (out, _first(_stack([collect_fn(self._collected(state))]), 0)))
-        if self._graphed(state):
-            state, out, series = self._run_graphed(generator, state, y, target, collect_fn)
-            return state, (out if collect_fn is None else (out, series))
-        infos, series = [], []
-        while state.t < target:
-            state, info = self.step(generator, state, y)
-            infos.append(info)
-            if collect_fn is not None:
-                series.append(collect_fn(self._collected(state)))
-            mid_bound = state.t >= target and target < T
-            if self._grow and state.exchange_pending and not mid_bound:
+        with named_scope("smc.run"):
+            T = y.shape[0]
+            if state is None:
+                state = self.init(generator, y)
+            elif self._grow and state.exchange_pending:
                 state = self._service_exchange(generator, state, y)
-        out = _stack(infos)
-        return state, (out if collect_fn is None else (out, _stack(series)))
+            target = T if max_steps is None else min(T, state.t + max_steps)
+            if state.t >= target:  # past the bound: zero steps, in the structure of a run's outputs
+                out = _first(_stack([StepInfo(ess=state.ess, rejuvenated=torch.tensor(False),
+                                              acc_ratio=state.acc_ratio,
+                                              log_evidence_incr=torch.zeros_like(state.ess))]), 0)
+                return state, (out if collect_fn is None
+                               else (out, _first(_stack([collect_fn(self._collected(state))]), 0)))
+            if self._graphed(state):
+                state, out, series = self._run_graphed(generator, state, y, target, collect_fn)
+                return state, (out if collect_fn is None else (out, series))
+            infos, series = [], []
+            while state.t < target:
+                state, info = self.step(generator, state, y)
+                infos.append(info)
+                if collect_fn is not None:
+                    series.append(collect_fn(self._collected(state)))
+                mid_bound = state.t >= target and target < T
+                if self._grow and state.exchange_pending and not mid_bound:
+                    state = self._service_exchange(generator, state, y)
+            out = _stack(infos)
+            return state, (out if collect_fn is None else (out, _stack(series)))
 
     def _run_graphed(self, generator, state: SMC2State, y, target: int, collect_fn):
         """:meth:`run_segmented`'s steps up to ``target`` on the captured

@@ -1,27 +1,42 @@
-"""Tracing and timing helpers — counterpart of
-``sequential_monte_carlo_tpu/utils/profiling.py``.
+"""Tracing helpers — counterpart of ``sequential_monte_carlo_tpu/utils/profiling.py``.
 
-- :data:`named_scope`: ``torch.profiler.record_function``, a labelled range
-  in a trace (the counterpart of ``jax.named_scope``). The filters' hot
-  inner step carries none: it is bound by the host's issuing, which a scope
-  would add to.
+- :func:`named_scope`: a labelled host range in a ``torch.profiler`` trace
+  (the counterpart of ``jax.named_scope``), a shared no-op context while no
+  profiler is active (~0.2 µs: one check of the profiler's flag). The port
+  opens these spans at its phase boundaries, never inside a captured body,
+  around a replay or in the inner step (which is bound by the host's
+  issuing): ``smc.run`` (``SMC2.run_segmented``), ``smc.init``
+  (``SMC2.init``), ``smc.online_step`` (a replayed or eager online step),
+  ``smc.rejuvenate`` (``SMC2._resample_move``, shared with density-tempered
+  SMC), ``smc.filter`` (``batched_log_likelihood_masked``, so also
+  ``batched_log_likelihood``), ``smc.filter_init`` (its eager init),
+  ``smc.route`` (``graphs._ready``: a route's key, cache lookup and load)
+  and ``smc.capture`` (``graphs._Route.capture``). Each range is a host
+  event on the trace's clock, the clock of the device's events; it is
+  recorded at the profiler's function scope, not as a user annotation, so
+  the profiler mirrors none of them onto the device's timeline, where it
+  would read as device work.
 - :func:`trace`: a ``torch.profiler`` trace of a block — the host's
   operations and, where a card is present, its kernels (CUPTI's CUDA
   activity, which also records the kernels launched through ``ctypes``) —
   written as a Chrome trace to ``<logdir>/trace.json``.
-- :func:`timeit`: the best wall-clock time of a callable, the card
-  synchronized around each call.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable
 
 import torch
 
-named_scope = torch.profiler.record_function
+_NO_SPAN = contextlib.nullcontext()
+
+
+def named_scope(name: str):
+    """``with named_scope("smc.x"):`` — a profiler range named ``name``
+    while a profiler is active, else the shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -36,24 +51,3 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-def timeit(fn: Callable, *args, repeats: int = 3, warmup: int = 1, **kwargs):
-    """Wall-clock ``fn(*args, **kwargs)``, the card synchronized before and
-    after each call. Returns (best seconds over ``repeats``, last result)."""
-    result = None
-    for _ in range(warmup):
-        result = fn(*args, **kwargs)
-    best = float("inf")
-    for _ in range(repeats):
-        _sync()
-        t0 = time.perf_counter()
-        result = fn(*args, **kwargs)
-        _sync()
-        best = min(best, time.perf_counter() - t0)
-    return best, result

@@ -29,7 +29,7 @@ from sequential_monte_carlo_tpu_torch.utils.debug import (
     check_state,
     debug_nans,
 )
-from sequential_monte_carlo_tpu_torch.utils.profiling import named_scope, timeit, trace
+from sequential_monte_carlo_tpu_torch.utils.profiling import named_scope, trace
 
 # One intra-op thread, as in the other port test files (ROADMAP Queue 3).
 torch.set_num_threads(1)
@@ -243,12 +243,6 @@ def test_debug_nans_raises_names_the_op_and_restores():
 
 
 # -- profiling ----------------------------------------------------------------
-
-def test_timeit_returns_best_time_and_result():
-    calls = []
-    best, out = timeit(lambda a, b=1: (calls.append(1), a + b)[1], 2, b=3, repeats=4, warmup=2)
-    assert out == 5 and len(calls) == 6 and 0.0 <= best < 1.0
-
 
 def test_trace_writes_a_named_scope(tmp_path):
     logdir = os.path.join(tmp_path, "trace")
