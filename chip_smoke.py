@@ -80,7 +80,14 @@ Phases, one line each or more; any failure raises and exits non-zero:
      again, warm, at seed 1;
  15. large_n — K1 and K3 at 64×65,536 (their large route) against their
      plain versions, timed; 64 LG filters at θ*, N=65,536, systematic (K1)
-     and stratified at ESS < N/2 (K3), against the Kalman log Z;
+     and stratified at ESS < N/2 (K3), against the Kalman log Z, K2-LG on
+     its split route; then k2_split — K2's split route at 64×65,536,
+     1×65,536 and 3×40,000, with and without the carry, against the route
+     without the normalize at the same seed (the new cloud bit for bit,
+     log_norm, lse and ess within 1e-5 of the plain normalize), half the
+     rows against a call on them alone bit for bit, a CUDA graph of the call
+     replayed twice bit for bit the eager call, one ``_split`` launch a
+     call;
  16. lg_dx  — K2's generated LG instances at dx = 3, 4, 5, normalized and
      raw, against their plain versions with the recovered normals' moments;
      512 filters of dx = 3, 4, 5 models (a local linear trend plus AR
@@ -1005,7 +1012,8 @@ def launch_counts():
               "resample_sorted": resample_gather_sorted.launches,
               "ucsv_propagate": ucsv_propagate_reweight.launches}
     for inst in ("ucsv", "lg1", "lg1_carry", "lg2", "lg2_carry", "sv", "sv_carry",
-                 "ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw", *LG_DX_INSTANCES):
+                 "ucsv_raw", "lg1_raw", "lg2_raw", "sv_raw", "lg1_split", "lg1_carry_split",
+                 *LG_DX_INSTANCES):
         counts[f"fused_propagate_{inst}"] = fused_elementwise_step.instance_launches[inst]
     return counts
 
@@ -1737,15 +1745,91 @@ def check_large_n(torch, gen, k1, k3, k2i):
     target = smc.univariate_linear_gaussian(a, 1.0, q, r, x0=0.0, sigma0=(1.0 - q) / a**2)
     kz = smc.kalman_log_likelihood(target, y)[1].item()
     models, steps, total = _lg_cloud(torch, smc, m, 1), DT_T - 1, None
-    for i, (inner, kernels) in enumerate(((("systematic", 1.0), ("resample_count",
-                                                                 "fused_propagate_lg1")),
-                                          (("stratified", 0.5), ("resample_sorted",
-                                                                 "fused_propagate_lg1_carry")))):
+    for i, (inner, kernels) in enumerate(((("systematic", 1.0),
+                                           ("resample_count", "fused_propagate_lg1_split")),
+                                          (("stratified", 0.5),
+                                           ("resample_sorted", "fused_propagate_lg1_carry_split")))):
         lz, wall, counts = run_filters(torch, models, y, inner, 11 + i, n=n, m=m)
         expect_counts(f"large_n ({inner[0]})", counts, {k: steps for k in kernels})
         check_delta(f"lg {inner[0]} ess<{inner[1]}N", lz, kz, wall, steps, "large_n", n=n)
         total = counts if total is None else {k: v + counts[k] for k, v in total.items()}
     return total
+
+
+def check_k2_split(torch, gen):
+    """K2's split route (a normalized row over several programs in one
+    launch, finished by its last program) at 64×65,536, 1×65,536 and a
+    ragged 3×40,000, LG dx=1 with and without the carry, distinct θ a row:
+    against the route without the normalize at the same seed (the same
+    Philox stream), the new cloud bit for bit and log_norm, lse and ess
+    within 1e-5 of the plain normalize of its log-weights (plus the carry);
+    rows 0..M/2 − 1 of the call bit for bit an M/2-row call; a CUDA graph
+    of the call, replayed twice, bit for bit the eager call; the ``_split``
+    launch count one a call."""
+    from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+        _launch_config,
+        fused_elementwise_step,
+        normalize_rows,
+    )
+    from sequential_monte_carlo_tpu_torch.models.linear_gaussian import LG_UPDATES
+
+    update, y = LG_UPDATES[1], torch.tensor(0.6, device="cuda")
+    counts = fused_elementwise_step.instance_launches
+    for m, n in ((64, 65536), (1, 65536), (3, 40000)):
+        tiles = _launch_config(n, True)[2]
+        if tiles < 2:
+            raise AssertionError(f"K2 split: rows of {n} do not take the split route")
+        params = torch.cat([0.2 + 0.7 * torch.rand((m, 1), generator=gen, device="cuda"),
+                            0.5 + torch.rand((m, 1), generator=gen, device="cuda"),
+                            torch.ones((m, 1), device="cuda"),
+                            0.5 + torch.rand((m, 1), generator=gen, device="cuda")], 1)
+        state = torch.randn((m, 1, n), generator=gen, device="cuda")
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device="cuda")
+        carries = (None, torch.log_softmax(3.0 * torch.randn((m, n), generator=gen,
+                                                             device="cuda"), -1))
+        for carry in carries:
+            name = "lg1" + ("" if carry is None else "_carry")
+            label = f"K2 {name} {m}x{n}"
+
+            def step(rows=m, out=None, carry=carry):
+                return fused_elementwise_step(update, params[:rows], state[:rows], y, seed=seed,
+                                              carry_logw=None if carry is None else carry[:rows],
+                                              out=out)
+
+            before = counts[f"{name}_split"]
+            got = step()
+            if counts[f"{name}_split"] != before + 1:
+                raise AssertionError(f"{label}: {counts[f'{name}_split'] - before} launches "
+                                     f"counted under {name}_split, not 1")
+            new, logw = fused_elementwise_step(update, params, state, y, seed=seed,
+                                               normalize=False)
+            if not torch.equal(got[0], new):
+                raise AssertionError(f"{label}: the new cloud is not the raw route's")
+            ref = normalize_rows(logw if carry is None else logw + carry)
+            for g, r in zip(got[1:], ref):
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+            err = max((g - r).abs().max().item() for g, r in zip(got[1:], ref))
+            if m > 1 and not all(torch.equal(p, g[:m // 2]) for p, g in zip(step(m // 2), got)):
+                raise AssertionError(f"{label}: rows 0..{m // 2 - 1} differ from a "
+                                     f"{m // 2}-row call's")
+            out = (torch.empty_like(state), torch.empty((m, n), device="cuda"))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(out=out)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = step(out=out)
+            for _ in range(2):
+                for t in replayed:
+                    t.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                if not all(torch.equal(r, g) for r, g in zip(replayed, got)):
+                    raise AssertionError(f"{label}: the replay differs from the eager call")
+            say("k2_split", case=label, tiles=tiles, cloud_bitwise=True, max_abs_err=err,
+                half_rows_bitwise=m > 1, replays_bitwise=2)
 
 
 def lg_dx_model(smc, dx: int):
@@ -4904,6 +4988,7 @@ def main() -> int:
     # inner filter's other routes
     exchange_counts, _, exchange_states = check_exchange(torch, gen)
     large_counts = check_large_n(torch, gen, k1, k3, k2i)
+    check_k2_split(torch, gen)
     k2dx, lg_dx_counts = check_lg_dx(torch, shapes, gen)
     ibis_state = check_ibis(torch)
     routes_counts = check_routes(torch)

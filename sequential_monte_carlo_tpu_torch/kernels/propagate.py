@@ -38,12 +38,29 @@ log_norm (or the raw logw): (2S + 1 + carry)·4·M·N bytes counted once each
   flight and spilled registers.
 - Without the normalize a row is split over programs of 1024, grid
   (M, ⌈N / 1024⌉), so that many warps are in flight.
+- With the normalize, a row of more than 16,384 particles (the split route)
+  is split over programs of 4096, in one launch: at few rows, one program
+  a row would leave most of the 132 SMs idle. Each program runs the loop
+  route's pass 1 over its tile (the same draws and update), stores its
+  tile's (max, Σe, Σe²) into per-row partials and takes a ticket on its
+  row's counter (an atomic add, acquire-release at GPU scope); the program
+  that draws a row's last ticket combines the partials in tile order (so
+  the bits do not depend on which program came last), writes lse and ess
+  and rewrites the row's log_norm from L2. No program waits on another.
+  Rows are launched in groups whose raw log-weights fit in L2 (16 MB),
+  each group's tiles in row-minor order. The wrapper hands the partials
+  (``torch.empty``) and the zeroed counters (``torch.zeros``, one fill a
+  call) to the kernel.
 - Only the normals a model takes are computed: the second Box–Muller pair
   only for more than two (UC-SV), and an unused sine or cosine is dead code.
 
 What holds it back now (PERF.md): at N=8192 the normalized route's pass 2
 and its one program per row; the UC-SV update's Philox, Box–Muller and
-exps are about as much issue time as its bytes take at the memory rate.
+exps are about as much issue time as its bytes take at the memory rate. On
+the split route, the rows' last programs rewrite their rows at the end of
+the launch (one SM a row, about a fifth of the launch at 64×65,536), and
+pass 1 with the normalize's exps and reductions takes about a quarter more
+than the route without it.
 
 Draws are keyed by (seed, row_offset + row, particle_offset + particle
 index) — Philox counters (i, row) — so they do not depend on the block size,
@@ -237,12 +254,28 @@ def _triton_kernels() -> types.SimpleNamespace:
 
     @triton.jit
     def step_kernel(par_ptr, st_ptr, new_ptr, carry_ptr, lognorm_ptr, lse_ptr,
-                    ess_ptr, y_ptr, seed_ptr, row_offset, particle_offset, n, st_row_stride,
+                    ess_ptr, y_ptr, seed_ptr, part_ptr, ticket_ptr, row_offset, particle_offset,
+                    n, st_row_stride, group_rows,
                     P: tl.constexpr, S: tl.constexpr, UPDATE: tl.constexpr,
                     N_NORMALS: tl.constexpr, HAS_CARRY: tl.constexpr,
                     NORMALIZE: tl.constexpr, LOOP: tl.constexpr, BLOCK: tl.constexpr,
-                    BLOCK2: tl.constexpr, STAGES: tl.constexpr):
-        row = tl.program_id(0)
+                    BLOCK2: tl.constexpr, STAGES: tl.constexpr, SPLIT: tl.constexpr,
+                    TILE: tl.constexpr, TILES_P2: tl.constexpr):
+        if SPLIT:
+            # program p of the 1-D grid takes one tile of one row: rows go
+            # in groups of group_rows, and within a group every row's tile
+            # 0, then every row's tile 1, ... (a group's raw log-weights
+            # stay in L2 until its rows' last programs rewrite them)
+            tiles = tl.cdiv(n, TILE)
+            pid = tl.program_id(0)
+            n_rows = tl.num_programs(0) // tiles
+            first = (pid // (group_rows * tiles)) * group_rows
+            rows = tl.minimum(group_rows, n_rows - first)
+            q = pid - first * tiles
+            tile = q // rows
+            row = first + (q - tile * rows)
+        else:
+            row = tl.program_id(0)
         y = tl.load(y_ptr)
         seed = tl.load(seed_ptr)
         grow = (row + row_offset).to(tl.uint32)
@@ -283,10 +316,16 @@ def _triton_kernels() -> types.SimpleNamespace:
             # in L2) and the row's running max (a scalar, so one exp a
             # particle) with Σe and Σe² rescaled to it; pass 2 rewrites them,
             # BLOCK2 at a time, once lse is known
+            if SPLIT:
+                lo = tile * TILE
+                hi = tl.minimum(lo + TILE, n)
+            else:
+                lo = 0
+                hi = n
             m_run = tl.full((), neg_inf, tl.float32)
             s1 = tl.zeros((BLOCK,), tl.float32)
             s2 = tl.zeros((BLOCK,), tl.float32)
-            for start in tl.range(0, n, BLOCK, num_stages=STAGES):
+            for start in tl.range(lo, hi, BLOCK, num_stages=STAGES):
                 offs = start + tl.arange(0, BLOCK)
                 mask = offs < n
                 z0, z1, z2, z3 = draw_normals(seed, offs + particle_offset, grow, N_NORMALS)
@@ -308,15 +347,50 @@ def _triton_kernels() -> types.SimpleNamespace:
                 m_run = m_new
             t1 = tl.sum(s1, axis=0)
             t2 = tl.sum(s2, axis=0)
-            lse = m_run + tl.log(t1)
-            tl.store(lse_ptr + row, lse)
-            tl.store(ess_ptr + row, (t1 * t1) / t2)
-            tl.debug_barrier()  # pass 1's stores are visible to every thread
-            for start in range(0, n, BLOCK2):
-                offs = start + tl.arange(0, BLOCK2)
-                mask = offs < n
-                lw = tl.load(ln + offs, mask=mask, eviction_policy="evict_first")
-                tl.store(ln + offs, lw - lse, mask=mask)
+            if SPLIT:
+                # the tile's (max, Σe, Σe²) into the row's (3, tiles)
+                # partials; the program that draws the row's last ticket
+                # finishes the row. No program waits on another.
+                part = part_ptr + row.to(tl.int64) * 3 * tiles
+                tl.store(part + tile, m_run)
+                tl.store(part + tiles + tile, t1)
+                tl.store(part + 2 * tiles + tile, t2)
+                # every thread's stores precede the ticket, whose release
+                # (GPU scope) publishes them to the program that acquires
+                # the last one
+                tl.debug_barrier()
+                ticket = tl.atomic_add(ticket_ptr + row, 1, sem="acq_rel", scope="gpu")
+                if ticket == tiles - 1:
+                    # the partials in tile order, so that the row's bits do
+                    # not depend on which program came last; read from L2
+                    j = tl.arange(0, TILES_P2)
+                    live = j < tiles
+                    pm = tl.load(part + j, mask=live, other=neg_inf, cache_modifier=".cg")
+                    p1 = tl.load(part + tiles + j, mask=live, other=0.0, cache_modifier=".cg")
+                    p2 = tl.load(part + 2 * tiles + j, mask=live, other=0.0,
+                                 cache_modifier=".cg")
+                    mx = tl.max(pm, axis=0)
+                    scale = tl.where(pm == neg_inf, 0.0, tl.exp(pm - mx))
+                    t1 = tl.sum(p1 * scale, axis=0)
+                    t2 = tl.sum(p2 * (scale * scale), axis=0)
+                    lse = mx + tl.log(t1)
+                    tl.store(lse_ptr + row, lse)
+                    tl.store(ess_ptr + row, (t1 * t1) / t2)
+                    for start in range(0, n, BLOCK2):
+                        offs = start + tl.arange(0, BLOCK2)
+                        mask = offs < n
+                        lw = tl.load(ln + offs, mask=mask, cache_modifier=".cg")
+                        tl.store(ln + offs, lw - lse, mask=mask)
+            else:
+                lse = m_run + tl.log(t1)
+                tl.store(lse_ptr + row, lse)
+                tl.store(ess_ptr + row, (t1 * t1) / t2)
+                tl.debug_barrier()  # pass 1's stores are visible to every thread
+                for start in range(0, n, BLOCK2):
+                    offs = start + tl.arange(0, BLOCK2)
+                    mask = offs < n
+                    lw = tl.load(ln + offs, mask=mask, eviction_policy="evict_first")
+                    tl.store(ln + offs, lw - lse, mask=mask)
 
     return types.SimpleNamespace(step=step_kernel, ucsv=ucsv_update, sv=sv_update,
                                  lg1=lg1_update, lg2=lg2_update)
@@ -434,14 +508,29 @@ def _check(params, state, y, draws, draws_name, draws_dtype, carry_logw):
 # blocks of up to BLOCK2. Without the normalize a row is split over programs
 # of BLOCK. The loop's loads run STAGES blocks ahead (Triton's pipelining).
 BLOCK, BLOCK2, WARPS, STAGES = 1024, 8192, 8, 2
+# A normalized row of more than SPLIT_ABOVE particles takes the split route:
+# programs of SPLIT_TILE particles, grid (M·⌈N / SPLIT_TILE⌉,), launched in
+# groups of rows whose raw log-weights fit GROUP_BYTES of the 50 MB L2, so
+# that a row's last program rewrites them from L2. From sweeps on the H100
+# (PERF.md §6) at 1 to 512 rows of 12,288 to 65,536: at 64 rows of
+# 65,536 the split route takes half the loop route's time, at 512 rows of
+# 32,768 and more about as long (LG less), and at 512 rows of 16,384 and
+# fewer 8–10% longer, hence the threshold.
+SPLIT_ABOVE, SPLIT_TILE, GROUP_BYTES = 16384, 4096, 16 << 20
 
 
 def _launch_config(n: int, normalize: bool):
-    """(BLOCK, BLOCK2, programs per row, num_warps, LOOP) for rows of n."""
+    """(BLOCK, BLOCK2, programs per row, num_warps, LOOP) for rows of n: a
+    function of n alone, so a row's bits never depend on how many rows
+    share the launch. More than one program a normalized row is the split
+    route."""
     pow2 = max(1 << max(n - 1, 0).bit_length(), 128)  # a power of two ≥ n
     block = min(pow2, BLOCK)
     loop = normalize and pow2 > BLOCK
-    tiles = 1 if normalize else -(-n // block)
+    if not normalize:
+        tiles = -(-n // block)
+    else:
+        tiles = -(-n // SPLIT_TILE) if n > SPLIT_ABOVE else 1
     return block, min(pow2, BLOCK2), tiles, min(WARPS, block // 128), loop
 
 
@@ -475,8 +564,8 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     Returns (new state (M, S, N), log_norm (M, N), lse (M, 1), ess (M, 1)),
     or (new state, logw (M, N)) with ``normalize=False``. CUDA launches are
     counted per instance (the update's name, with ``_carry`` appended on the
-    carry route and ``_raw`` on the route without normalize) in
-    ``fused_elementwise_step.instance_launches``.
+    carry route, ``_split`` on the split route and ``_raw`` on the route
+    without normalize) in ``fused_elementwise_step.instance_launches``.
     """
     if carry_logw is not None and not normalize:
         raise ValueError("carry_logw requires normalize=True")
@@ -507,17 +596,28 @@ def fused_elementwise_step(update: ElementwiseUpdate, params, state, y,
     lse = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
     ess = torch.empty((m, 1), device=state.device, dtype=torch.float32) if normalize else log_norm
     block, block2, tiles, num_warps, loop = _launch_config(n, normalize)
+    split = normalize and tiles > 1
+    if split:
+        # each tile's (max, Σe, Σe²), and each row's ticket counter from 0
+        partials = torch.empty((m, 3, tiles), device=state.device, dtype=torch.float32)
+        tickets = torch.zeros((m,), device=state.device, dtype=torch.int32)
+        grid, group_rows = (m * tiles,), max(1, GROUP_BYTES // (4 * n))
+    else:
+        partials = tickets = log_norm  # unused
+        grid, group_rows = (m, tiles), 1
     has_carry = carry_logw is not None
     with torch.cuda.device(state.device):
-        k.step[(m, tiles)](params, state, new, carry_logw if has_carry else log_norm,
-                           log_norm, lse, ess, y, seed, row_offset, particle_offset, n,
-                           state.stride(0),
-                           P=params.shape[1], S=s, UPDATE=_update_fn(update.triton),
-                           N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
-                           NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2,
-                           STAGES=STAGES, num_warps=num_warps)
+        k.step[grid](params, state, new, carry_logw if has_carry else log_norm, log_norm, lse,
+                     ess, y, seed, partials, tickets, row_offset, particle_offset, n,
+                     state.stride(0), group_rows,
+                     P=params.shape[1], S=s, UPDATE=_update_fn(update.triton),
+                     N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
+                     NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2,
+                     STAGES=STAGES, SPLIT=split, TILE=SPLIT_TILE,
+                     TILES_P2=1 << max(tiles - 1, 0).bit_length(), num_warps=num_warps)
     fused_elementwise_step.instance_launches[
-        update.triton + ("_carry" if has_carry else "") + ("" if normalize else "_raw")] += 1
+        update.triton + ("_carry" if has_carry else "") + ("_split" if split else "")
+        + ("" if normalize else "_raw")] += 1
     if not normalize:
         return new, log_norm
     return new, log_norm, lse, ess

@@ -12,6 +12,7 @@ import torch
 from sequential_monte_carlo_tpu_torch.kernels.propagate import (
     fused_elementwise_step,
     fused_elementwise_step_plain,
+    normalize_rows,
 )
 from sequential_monte_carlo_tpu_torch.kernels.resample_sorted import (
     resample_gather_sorted,
@@ -191,6 +192,59 @@ def test_fused_step_kernel_matches_plain(cuda, n):
     half = fused_elementwise_step(UCSV_UPDATE, params[32:].contiguous(),
                                   state[32:].contiguous(), y, seed=seed, row_offset=32)
     assert torch.equal(half[0], new[32:])
+
+
+@pytest.mark.parametrize("m, n", [(64, 65536), (1, 65536), (3, 40000)])
+@pytest.mark.parametrize("carry", [False, True])
+def test_fused_step_split_route(cuda, m, n, carry):
+    """Kernel 2's split route (normalized rows of more than 16,384 over
+    programs of 4096, one launch, each row finished by its last program),
+    LG dx=1 with distinct θ a row: the new cloud bit for bit the route
+    without the normalize at the same seed (the same Philox stream), and
+    log_norm, lse and ess within 1e-5 of the plain normalize of its
+    log-weights (plus the carry); rows 0..M/2 − 1 bit for bit an M/2-row
+    call; a CUDA graph of the call replayed twice bit for bit the eager
+    call; one ``_split`` launch counted a call."""
+    rng = np.random.default_rng(22)
+    update, p = _instance("lg1", rng, m)
+    params = torch.tensor(p, dtype=torch.float32, device=cuda)
+    state = torch.tensor(rng.standard_normal((m, 1, n)), dtype=torch.float32, device=cuda)
+    y, seed = torch.tensor(0.6, device=cuda), torch.tensor([8642], device=cuda)
+    c = None
+    if carry:
+        a = 3.0 * rng.standard_normal((m, n))
+        c = torch.tensor(a - np.log(np.exp(a).sum(1, keepdims=True)), dtype=torch.float32,
+                         device=cuda)
+    key = "lg1" + ("_carry" if carry else "") + "_split"
+
+    def step(rows=m, out=None):
+        return fused_elementwise_step(update, params[:rows], state[:rows], y, seed=seed,
+                                      carry_logw=None if c is None else c[:rows], out=out)
+
+    before = fused_elementwise_step.instance_launches[key]
+    got = step()
+    assert fused_elementwise_step.instance_launches[key] == before + 1
+    new, logw = fused_elementwise_step(update, params, state, y, seed=seed, normalize=False)
+    assert torch.equal(got[0], new)
+    for a, b in zip(got[1:], normalize_rows(logw if c is None else logw + c)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    if m > 1:
+        assert all(torch.equal(a, b[:m // 2]) for a, b in zip(step(m // 2), got))
+    out = (torch.empty_like(state), torch.empty((m, n), device=cuda))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = step(out=out)
+    for _ in range(2):
+        for t in replayed:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(replayed, got))
 
 
 @pytest.mark.parametrize("n", [1000, 1024, 8192])
@@ -1024,9 +1078,11 @@ def test_kernel_wrappers_write_out_on_the_card(cuda):
 @pytest.mark.parametrize("kind, inner, n", [
     ("ucsv", ("systematic", 1.0), 1024), ("ucsv", ("systematic", 1.0), 8192),
     ("lg", ("stratified", 0.5), 1024), ("ucsv", ("systematic", 1.0, None, "apf"), 1024),
-    ("lg", ("systematic", 1.0, None, "apf"), 1024)])
+    ("lg", ("systematic", 1.0, None, "apf"), 1024), ("lg", ("systematic", 1.0), 32768),
+    ("lg", ("stratified", 0.5), 32768)])
 def test_graph_replays_equal_eager(cuda, kind, inner, n):
-    """Each captured route at 512 rows (UC-SV also at N=8192): the masked
+    """Each captured route at 512 rows (UC-SV also at N=8192, LG also at
+    N=32,768: K2's split route, with and without the carry): the masked
     filter replayed from its graphs equals the eager loop under
     ``disable_graphs`` bit for bit — particles, log-weights, log Z and the
     generator's state after it — with the same launch counts, for the first

@@ -4,6 +4,8 @@ them), through the port's plain versions. The CUDA and Triton kernels
 themselves are held against the plain versions in ``test_torch_gpu.py``.
 
 Inputs are made with numpy from a seed and handed to both packages."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from sequential_monte_carlo_tpu.kernels.resample_walk import count_ancestors as 
 from sequential_monte_carlo_tpu.kernels.resample_walk import resample_gather_walk
 from sequential_monte_carlo_tpu.models.ucsv import _ucsv_update
 from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+    _launch_config,
     fused_elementwise_step,
     fused_elementwise_step_plain,
 )
@@ -238,3 +241,21 @@ def test_fused_step_cpu_route_needs_normals():
     ref = fused_elementwise_step_plain(UCSV_UPDATE, params, state, y, normals)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, normalize, launch", [
+    (100, True, (128, 128, 1, 1, False)), (1024, True, (1024, 1024, 1, 8, False)),
+    (8192, True, (1024, 8192, 1, 8, True)), (16384, True, (1024, 8192, 1, 8, True)),
+    (100, False, (128, 128, 1, 1, False)), (1024, False, (1024, 1024, 1, 8, False)),
+    (8192, False, (1024, 8192, 8, 8, False)), (65536, False, (1024, 8192, 64, 8, False)),
+    (16385, True, (1024, 8192, 5, 8, True)), (40000, True, (1024, 8192, 10, 8, True)),
+    (65536, True, (1024, 8192, 16, 8, True))])
+def test_k2_launch_is_a_function_of_the_row_length(n, normalize, launch):
+    """Kernel 2's launch (BLOCK, BLOCK2, programs a row, warps, LOOP) is a
+    function of the row length alone, never of the rows or the model: rows
+    of up to 16,384 keep the launch they had before the split route (the
+    SMC² benchmark's normalized rows of 8,192 among them), and longer
+    normalized rows take the split route, ⌈n / 4096⌉ programs a row."""
+    assert tuple(inspect.signature(_launch_config).parameters) == ("n", "normalize")
+    assert _launch_config(n, normalize) == launch
+

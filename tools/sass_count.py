@@ -161,6 +161,7 @@ def k2_counts(torch) -> dict:
     wrapper launches it."""
     import sequential_monte_carlo_tpu_torch as smc
     from sequential_monte_carlo_tpu_torch.kernels.propagate import (
+        SPLIT_TILE,
         STAGES,
         _launch_config,
         _triton_kernels,
@@ -196,11 +197,12 @@ def k2_counts(torch) -> dict:
             ess = torch.empty((m, 1), device="cuda") if normalize else ln
             block, block2, tiles, warps, loop = _launch_config(n, normalize)
             compiled = k.step[(m, tiles)](
-                params, state, new, carry, ln, lse, ess, y, seed, 0, n, state.stride(0),
+                params, state, new, carry, ln, lse, ess, y, seed, ln, ln, 0, 0, n,
+                state.stride(0), 1,
                 P=params.shape[1], S=s, UPDATE=getattr(k, update.triton),
                 N_NORMALS=update.n_normals, HAS_CARRY=has_carry,
                 NORMALIZE=normalize, LOOP=loop, BLOCK=block, BLOCK2=block2, STAGES=STAGES,
-                num_warps=warps)
+                SPLIT=False, TILE=SPLIT_TILE, TILES_P2=1, num_warps=warps)
             path = os.path.join(tmp, f"{name}_{route}.cubin")
             with open(path, "wb") as f:
                 f.write(compiled.asm["cubin"])
