@@ -5,10 +5,13 @@ parameters a row read and, normalized, the row's lse and ESS written.
 
 Operations per particle, counting a transcendental as one: a normal by
 Box–Muller 6 (log, sqrt, sin or cos, three products), the model's update
-(UC-SV 14, LG AR(1) 6), the normalize 7."""
+(``NORMALS`` normals and ``UPDATE_OPS`` operations, from the model's
+``counts/models/<model>.py``, found by the configuration's ``model``), the
+normalize 7."""
 from __future__ import annotations
 
-UPDATE_FLOPS = {"ucsv": (3, 14), "lg": (1, 6)}  # model: (normals, update operations)
+from port_bench.harness import catalog
+
 BOX_MULLER, NORMALIZE = 6, 7
 
 
@@ -17,5 +20,6 @@ def nbytes(m: int, n: int, s: int, p: int, carry: bool = False, normalize: bool 
 
 
 def flops(m: int, n: int, model: str, normalize: bool = True) -> float:
-    normals, update = UPDATE_FLOPS[model]
-    return m * n * (normals * BOX_MULLER + update + (NORMALIZE if normalize else 0))
+    counts = catalog.load_module("counts/models", model)
+    return m * n * (counts.NORMALS * BOX_MULLER + counts.UPDATE_OPS
+                    + (NORMALIZE if normalize else 0))

@@ -4,20 +4,24 @@ from __future__ import annotations
 
 import numpy as np
 
-from port_bench.harness import seeds
+from port_bench.harness import catalog, seeds
 
-PRIOR_KINDS = {"uniform": "Uniform", "normal": "Normal", "lognormal": "LogNormal",
-               "truncated_normal": "TruncatedNormal"}
 # the precision below each stated one (float32 → bfloat16: no matmul here
 # runs on the tensor cores, so TF32 does not apply)
 BELOW = {"float32": "bfloat16"}
 
 
 def program_prior(torch, smc, rows, device):
-    """The configuration's prior built from the program's own distributions."""
-    return smc.product_distribution([
-        getattr(smc, PRIOR_KINDS[kind])(*(torch.tensor(float(p), device=device) for p in params))
-        for kind, *params in rows])
+    """The configuration's prior built from the program's own distributions:
+    each row's kind names the port's distribution (its ``PROGRAM``)."""
+    dists = []
+    for name, *params in rows:
+        program = catalog.load_module("reference/prior_kinds", name).PROGRAM
+        if program is None:
+            raise ValueError(f"prior kind {name!r} has no distribution in the program")
+        dists.append(getattr(smc, program)(*(torch.tensor(float(p), device=device)
+                                             for p in params)))
+    return smc.product_distribution(dists)
 
 
 def pf_config(smc, inner: dict):

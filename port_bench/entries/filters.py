@@ -24,9 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from port_bench.harness import seeds, series
+from port_bench.harness import catalog, seeds, series
 from port_bench.reference import pf
-from port_bench.reference.models import load as load_model
 from port_bench.reference.priors import Prior
 
 from . import _common
@@ -41,7 +40,7 @@ class Entry:
         self.check_calls, self.max_ref_var = int(p["check_calls"]), float(p["max_ref_var"])
         self.y = torch.tensor(series.make(cfg["series"], p.get("t")), device=device)
         self.t = int(self.y.shape[0])
-        self.ref_model, self.ref_prior = load_model(cfg["model"]), Prior(cfg["prior"])
+        self.ref_model, self.ref_prior = catalog.load_module("reference/models", cfg["model"]), Prior(cfg["prior"])
         gen = torch.Generator(device=device).manual_seed(seeds.stream_seed(seed, "inputs"))
         self.pool = self.ref_prior.sample(gen, self.banks * self.m, device).view(
             self.banks, self.m, self.ref_prior.dim)

@@ -35,9 +35,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from port_bench.harness import seeds, series
+from port_bench.harness import catalog, seeds, series
 from port_bench.reference import smc2 as ref_smc2
-from port_bench.reference.models import load as load_model
 from port_bench.reference.priors import Prior
 
 from . import _common
@@ -53,7 +52,7 @@ class Entry:
         self.check_calls, self.reference_runs = int(p["check_calls"]), int(p["reference_runs"])
         self.y = torch.tensor(series.make(cfg["series"], p.get("t")), device=device)
         self.t = int(self.y.shape[0])
-        self.ref_model, self.ref_prior = load_model(cfg["model"]), Prior(cfg["prior"])
+        self.ref_model, self.ref_prior = catalog.load_module("reference/models", cfg["model"]), Prior(cfg["prior"])
         self.shape = {"rows": self.m, "particles": self.n, "planes": cfg["state_planes"],
                       "step_params": cfg["step_params"], "model": cfg["model"],
                       "carry": _common.carries(p["inner"])}

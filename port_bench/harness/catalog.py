@@ -19,12 +19,16 @@ def benchmark(root: Path = ROOT) -> dict:
 
 
 def load_module(kind: str, name: str, bench_dir: Path = BENCH_DIR):
-    """The module in ``<bench_dir>/<kind>/<name>.py`` (names may hold dots)."""
+    """The module in ``<bench_dir>/<kind>/<name>.py`` (names may hold dots;
+    ``kind`` may be a nested directory, such as ``reference/models``). Every
+    part found by a name goes through here: entries, metrics, series kinds,
+    prior kinds (``reference/prior_kinds``), reference models
+    (``reference/models``) and step counts (``counts/models``)."""
     path = bench_dir / kind / f"{name}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no {kind} file {path}")
-    spec = importlib.util.spec_from_file_location(f"port_bench.{kind}.{name.replace('.', '_')}",
-                                                  path)
+    package = "port_bench." + kind.replace("/", ".")
+    spec = importlib.util.spec_from_file_location(f"{package}.{name.replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module

@@ -11,7 +11,7 @@ import torch
 from port_bench.harness import catalog, cli
 from port_bench.harness.trace import Trace
 
-from ._runs import TINY
+from ._runs import cells, sizes
 
 NEW_E2E = '''"""Calls a second, twice over (a test's metric)."""
 
@@ -102,7 +102,8 @@ def test_a_metric_that_loads_jax_leaves_no_result(tmp_path, monkeypatch, capsys)
     try:
         res = cli.run_cell("filters_lg_64x65536", 5, 0.5, False, "cpu", time.perf_counter(),
                            bench_dir=root / "port_bench",
-                           overrides={**TINY["filters_lg_64x65536"], "t": 12, "check_calls": 3})
+                           overrides={**sizes("filters_lg_64x65536")["params"], "t": 12,
+                                      "check_calls": 3})
         assert res["metrics"]["loads_jax"]["value"] == 1.0
         capsys.readouterr()
         assert cli.emit(res) == 3
@@ -124,7 +125,7 @@ def test_a_workload_sets_the_program_s_options():
 
     bench = catalog.benchmark()
     cell = catalog.cell("smc2_ucsv_512x8192", bench)
-    cell["params"] = {**cell["params"], **TINY["smc2_ucsv_512x8192"],
+    cell["params"] = {**cell["params"], **sizes("smc2_ucsv_512x8192")["params"],
                       "inner": {"resampling": "stratified", "ess_threshold": 0.5,
                                 "algorithm": "apf"},
                       "sampler": {"chain": 3, "ess_threshold": 0.4, "acc_threshold": 0.2,
@@ -162,5 +163,8 @@ def test_trace_readers_on_a_made_trace():
 
 
 def test_tiny_sizes_cover_every_cell():
+    """Every cell has its file of CPU sizes, and every file is a cell's."""
     bench = catalog.benchmark()
-    assert {w["name"] for w in bench["workloads"]} == set(TINY)
+    assert {w["name"] for w in bench["workloads"]} == set(cells())
+    for cell in cells():
+        assert set(sizes(cell)) >= {"params", "seconds", "limits", "short"}, cell

@@ -14,9 +14,9 @@ opened = []
 sys.addaudithook(lambda ev, args: opened.append(str(args[0])) if ev == "open" else None)
 sys.path.insert(0, {root!r})
 from port_bench.harness import cli
-from port_bench.tests._runs import TINY
+from port_bench.tests._runs import sizes
 res = cli.run_cell("filters_lg_64x65536", 7, 0.5, False, "cpu", time.perf_counter(),
-                   overrides=TINY["filters_lg_64x65536"])
+                   overrides=sizes("filters_lg_64x65536")["params"])
 print(json.dumps({{"modules": sorted(sys.modules), "opened": sorted(set(opened)),
                    "correct": res["correct"]}}))
 """

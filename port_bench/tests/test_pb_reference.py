@@ -7,7 +7,7 @@ import torch
 
 from port_bench.harness import series
 from port_bench.reference import pf, smc2
-from port_bench.reference.models import lg, load, ucsv
+from port_bench.reference.models import lg, ucsv
 from port_bench.reference.priors import Prior
 
 LG_PRIOR = [["truncated_normal", 0.0, 1.0, -1.0, 1.0], ["lognormal", 0.0, 1.0],
@@ -47,7 +47,7 @@ def test_smc2_runs_and_rejuvenates():
                                   "level": 3.0, "walk_sd": 0.3, "noise_sd": 0.5}))
     prior = Prior([["uniform", 0.0, 1.0], ["normal", 3.0, 2.0], ["uniform", 0.0, 2.0],
                    ["uniform", 0.0, 2.0]])
-    out = smc2.run(torch.Generator().manual_seed(2), load("ucsv"), prior, y, 32, 64, 2, 0.5)
+    out = smc2.run(torch.Generator().manual_seed(2), ucsv, prior, y, 32, 64, 2, 0.5)
     assert out["rejuvenated"] and math.isfinite(float(out["evidence"]))
     assert out["theta"].shape == (32, 4) and prior.in_support(out["theta"]).all()
 
